@@ -1,0 +1,256 @@
+"""Generic decoder LM of the port, for dense GQA decoders so far.
+
+The layer stack is grouped into a repeating *period* (1 for a plain decoder,
+2 for alternating local/global windows); the parameters of each slot of the
+period are stacked ``[n_rep, ...]`` exactly as in the JAX package, so a
+parameter tree carries across leaf by leaf.  Where the JAX package scans over
+the stack, the port loops over views of it.
+
+API:
+  init_params(spec, rt, generator, device=)    -> parameter tree
+  forward(params, tokens, spec, rt)            -> logits  (prefill)
+  init_cache(spec, rt, batch, kv_len, device=) -> decode cache
+  decode_step(params, cache, tokens, spec, rt) -> (logits, cache)
+
+Families still to port raise ``NotImplementedError`` naming their ROADMAP
+queue.  ``loss_fn`` waits for the training slice.
+"""
+from __future__ import annotations
+
+import math
+from typing import Optional
+
+import torch
+
+from . import layers as L
+from .._device import resolve_device
+from .common import Initializer, RuntimeCfg, dt
+
+# ---------------------------------------------------------------------------
+# Layer pattern
+# ---------------------------------------------------------------------------
+
+
+def _require_ported(spec) -> None:
+    """Raise for a spec whose family the port does not run yet."""
+    todo = None
+    if spec.block == "rwkv6":
+        todo = "rwkv6 blocks (ROADMAP.md queue 1, item 2: rwkv6-7b serving)"
+    elif spec.block == "mla" or spec.mla is not None:
+        todo = "MLA attention (ROADMAP.md queue 1, item 4: other families)"
+    elif spec.block == "mamba" or spec.attn_every > 1:
+        todo = "mamba / hybrid blocks (ROADMAP.md queue 1, item 4)"
+    elif spec.moe is not None:
+        todo = "MoE FFNs (ROADMAP.md queue 1, item 4)"
+    elif spec.encoder_layers:
+        todo = "encoder + cross-attention (ROADMAP.md queue 1, item 4)"
+    elif spec.vision_seq:
+        todo = "vision prefix (ROADMAP.md queue 1, item 4)"
+    elif spec.block != "gqa":
+        todo = f"block kind {spec.block!r}"
+    if todo:
+        raise NotImplementedError(
+            f"repro_torch does not run {spec.name!r} yet: {todo} still to "
+            "port; the JAX package `repro` runs it")
+
+
+def _slot_kind(spec, layer: int) -> dict:
+    """Describe layer ``layer``: mixer kind, window, ffn kind.  Every layer
+    of a ported family is attention + FFN; only the window varies."""
+    window = spec.window if spec._is_local_layer(layer) else None
+    return {"mixer": "attn", "window": window, "ffn": "ffn"}
+
+
+def layer_pattern(spec) -> tuple:
+    """(n_prefix_unstacked, period).  Pattern repeats every ``period``
+    layers after the prefix; a stack whose pattern does not repeat (an odd
+    number of alternating layers) is all prefix, unstacked."""
+    period = 2 if spec.window_pattern == "alternate" else 1
+    if spec.n_layers % period != 0:
+        period = math.gcd(period, spec.n_layers)
+    for l in range(spec.n_layers):
+        if _slot_kind(spec, l) != _slot_kind(spec, l % period):
+            return (spec.n_layers, 1)    # fully unstacked fallback
+    return (0, period)
+
+
+def _n_rep(spec) -> int:
+    prefix_n, period = layer_pattern(spec)
+    return (spec.n_layers - prefix_n) // period if period else 0
+
+
+# ---------------------------------------------------------------------------
+# Parameters
+# ---------------------------------------------------------------------------
+
+
+def _init_slot(ini: Initializer, spec, prefix: str) -> dict:
+    return {"attn": L.init_gqa(ini, spec, prefix + "a_"),
+            "ffn": L.init_ffn(ini, spec, prefix=prefix + "f_")}
+
+
+def _tree_map(fn, tree, *rest):
+    if isinstance(tree, dict):
+        return {k: _tree_map(fn, v, *(r[k] for r in rest))
+                for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return [_tree_map(fn, v, *(r[i] for r in rest))
+                for i, v in enumerate(tree)]
+    return fn(tree, *rest)
+
+
+def _init_stack(ini: Initializer, spec, n_rep: int, s: int) -> dict:
+    """``n_rep`` slots stacked ``[n_rep, ...]``, filled one layer at a time so
+    that the fp32 draw of only one layer is alive beside the stack."""
+    stack: dict = {}
+    for r in range(n_rep):
+        rep = _init_slot(ini, spec, f"l{r}s{s}_")
+        if r == 0:
+            stack = _tree_map(
+                lambda t: torch.empty((n_rep,) + tuple(t.shape), dtype=t.dtype,
+                                      device=t.device), rep)
+        _tree_map(lambda dst, src: dst[r].copy_(src), stack, rep)
+    return stack
+
+
+def init_params(spec, rt: RuntimeCfg, generator: Optional[torch.Generator] = None,
+                *, device=None, seed: int = 0) -> dict:
+    """Random parameters on ``device`` (the card unless ``device="cpu"``),
+    drawn from ``generator`` (made from ``seed`` on that device if None)."""
+    _require_ported(spec)
+    device = resolve_device(device)
+    if generator is None:
+        generator = torch.Generator(device=device)
+        generator.manual_seed(seed)
+    ini = Initializer(generator, rt.param_dtype, device)
+    H, V = spec.d_model, spec.vocab
+    params: dict = {
+        "embed": ini("embed", (V, H), scale=1.0),
+        "ln_f": ini("ln_f", (H,)),
+        "lm_head": ini("lm_head", (H, V)),
+    }
+    prefix_n, period = layer_pattern(spec)
+    params["prefix"] = [
+        _init_slot(ini, spec, f"pl{l}_") for l in range(prefix_n)]
+    n_rep = _n_rep(spec)
+    params["slots"] = [_init_stack(ini, spec, n_rep, s)
+                       for s in range(period)]
+    return params
+
+
+def _index(tree, i: int):
+    """Layer ``i`` of a stacked subtree, as views."""
+    return _tree_map(lambda t: t[i], tree)
+
+
+# ---------------------------------------------------------------------------
+# Forward
+# ---------------------------------------------------------------------------
+
+
+def _apply_slot(p: dict, x, spec, rt, kind: dict, *, positions=None,
+                cache=None):
+    x, c = L.gqa_attention(p["attn"], x, spec, rt, positions=positions,
+                           window=kind["window"],
+                           cache=None if cache is None else cache.get("attn"))
+    new_cache = {"attn": c} if c is not None else None
+    x = L.ffn(p["ffn"], x, spec, rt)
+    return x, new_cache
+
+
+def _logits(params: dict, x, spec, rt: RuntimeCfg):
+    x = L.rms_norm(params["ln_f"], x)
+    logits = x @ L.cast(params["lm_head"], rt)
+    if spec.final_softcap:
+        logits = L._softcap(logits.float(), spec.final_softcap)
+    return logits
+
+
+@torch.no_grad()
+def forward(params: dict, tokens, spec, rt: RuntimeCfg, *,
+            positions=None) -> torch.Tensor:
+    """Prefill forward: tokens [B, S] (on the parameters' device) ->
+    logits [B, S, V]."""
+    _require_ported(spec)
+    x = L.cast(params["embed"][tokens], rt)
+    prefix_n, period = layer_pattern(spec)
+    for l, p in enumerate(params["prefix"]):
+        x, _ = _apply_slot(p, x, spec, rt, _slot_kind(spec, l),
+                           positions=positions)
+    kinds = [_slot_kind(spec, prefix_n + s) for s in range(period)]
+    for r in range(_n_rep(spec)):
+        for s in range(period):
+            x, _ = _apply_slot(_index(params["slots"][s], r), x, spec, rt,
+                               kinds[s], positions=positions)
+    return _logits(params, x, spec, rt)
+
+
+# ---------------------------------------------------------------------------
+# Decode (serving)
+# ---------------------------------------------------------------------------
+
+
+def _slot_cache(spec, rt, kind: dict, lead: tuple, batch: int, kv_len: int,
+                device) -> dict:
+    cdt = dt(rt.compute_dtype)
+    nkv, dh = max(1, spec.n_kv_heads), spec.head_dim
+    klen = min(kv_len, spec.window) if kind["window"] else kv_len
+    shape = lead + (batch, klen, nkv, dh)
+    return {"attn": {"k": torch.zeros(shape, dtype=cdt, device=device),
+                     "v": torch.zeros(shape, dtype=cdt, device=device),
+                     "pos": 0}}
+
+
+def init_cache(spec, rt: RuntimeCfg, batch: int, kv_len: int, *,
+               device=None) -> dict:
+    """Empty decode cache on ``device``: per slot of the period, k and v
+    stacked ``[n_rep, B, klen, NKV, DH]`` and one integer ``pos`` shared by
+    the stack's layers (the JAX package keeps ``pos`` as an ``[n_rep]``
+    array of equal entries)."""
+    _require_ported(spec)
+    device = resolve_device(device)
+    prefix_n, period = layer_pattern(spec)
+    n_rep = _n_rep(spec)
+    return {
+        "prefix": [_slot_cache(spec, rt, _slot_kind(spec, l), (), batch,
+                               kv_len, device) for l in range(prefix_n)],
+        "slots": [_slot_cache(spec, rt, _slot_kind(spec, prefix_n + s),
+                              (n_rep,), batch, kv_len, device) if n_rep else {}
+                  for s in range(period)],
+    }
+
+
+@torch.no_grad()
+def decode_step(params: dict, cache: dict, tokens, spec,
+                rt: RuntimeCfg) -> tuple:
+    """One decode step: tokens [B, S_new] -> (logits [B, S_new, V], cache).
+
+    The cache's k and v tensors are **updated in place**; the returned cache
+    shares them and carries the advanced ``pos``.  As in the JAX package,
+    slot s of the period runs over all its repeats before slot s+1 starts
+    (for period 1 that is plain layer order)."""
+    _require_ported(spec)
+    x = L.cast(params["embed"][tokens], rt)
+    prefix_n, period = layer_pattern(spec)
+    new_cache: dict = {"prefix": [], "slots": []}
+    for l, (p, c) in enumerate(zip(params["prefix"], cache["prefix"])):
+        x, nc = _apply_slot(p, x, spec, rt, _slot_kind(spec, l), cache=c)
+        new_cache["prefix"].append(nc)
+
+    for s in range(period):
+        stack = cache["slots"][s]
+        if not params["slots"][s]:
+            new_cache["slots"].append({})
+            continue
+        kind = _slot_kind(spec, prefix_n + s)
+        ca = stack["attn"]
+        pos_after = ca["pos"]
+        for r in range(ca["k"].shape[0]):
+            layer_cache = {"attn": {"k": ca["k"][r], "v": ca["v"][r],
+                                    "pos": ca["pos"]}}
+            x, nc = _apply_slot(_index(params["slots"][s], r), x, spec, rt,
+                                kind, cache=layer_cache)
+            pos_after = nc["attn"]["pos"]
+        new_cache["slots"].append(
+            {"attn": {"k": ca["k"], "v": ca["v"], "pos": pos_after}})
+    return _logits(params, x, spec, rt), new_cache

@@ -1,0 +1,192 @@
+"""The port's attention oracle, plain version and wrappers against the JAX
+package's oracle and its Pallas kernel (interpret mode), on the CPU.
+
+On the CPU the port's wrappers compute ``flash_attention_plain``; the CUDA
+kernel itself is held against that plain version on the card by
+``chip_smoke.py``.  Tolerances are the reference's own
+(``tests/test_kernels.py``): 2e-5 in fp32, 2e-2 in bf16.
+"""
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from repro.kernels import ops as jops
+from repro.kernels import ref as jref
+from repro.kernels.flash_attention import flash_attention_bhsd as jax_flash_bhsd
+from repro_torch.kernels import ops, ref
+from repro_torch.kernels import flash_attention as fa
+from torch_port_helpers import as_f32, to_jax, to_torch
+
+TOL = {"float32": 2e-5, "bfloat16": 2e-2}
+
+
+def _qkv(seed, b, h, sq, sk, d):
+    rng = np.random.RandomState(seed)
+    return (rng.standard_normal((b, h, sq, d)).astype(np.float32),
+            rng.standard_normal((b, h, sk, d)).astype(np.float32),
+            rng.standard_normal((b, h, sk, d)).astype(np.float32))
+
+
+def _close(got, want, tol):
+    np.testing.assert_allclose(as_f32(got), as_f32(want), atol=tol, rtol=tol)
+
+
+SHAPES = [
+    (1, 1, 128, 128, 64),
+    (2, 3, 256, 256, 64),
+    (1, 2, 64, 384, 128),       # kv longer than q
+    (2, 2, 96, 160, 80),        # ragged: D=80, lengths not tile multiples
+]
+
+
+@pytest.mark.parametrize("b,h,sq,sk,d", SHAPES)
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("causal", [True, False])
+def test_ref_and_plain_vs_jax_ref(b, h, sq, sk, d, dtype, causal):
+    q, k, v = _qkv(0, b, h, sq, sk, d)
+    want = jref.ref_attention(*(to_jax(t, dtype) for t in (q, k, v)),
+                              causal=causal)
+    tq, tk, tv = (to_torch(t, dtype) for t in (q, k, v))
+    _close(ref.ref_attention(tq, tk, tv, causal=causal), want, TOL[dtype])
+    got = fa.flash_attention_bhsd(tq, tk, tv, causal=causal)
+    assert got.dtype == tq.dtype and got.shape == tq.shape
+    _close(got, want, TOL[dtype])
+
+
+@pytest.mark.parametrize("dtype,causal", [("float32", True),
+                                          ("float32", False),
+                                          ("bfloat16", True)])
+def test_plain_vs_pallas_interpret_ragged(dtype, causal):
+    """D=80 and ragged lengths: the Pallas kernel pads, the port masks."""
+    q, k, v = _qkv(1, 2, 2, 96, 160, 80)
+    want = jax_flash_bhsd(*(to_jax(t, dtype) for t in (q, k, v)),
+                          causal=causal, interpret=True, block_q=64,
+                          block_k=128)
+    got = fa.flash_attention_bhsd(*(to_torch(t, dtype) for t in (q, k, v)),
+                                  causal=causal)
+    _close(got, want, TOL[dtype])
+
+
+@pytest.mark.parametrize("window,softcap", [(32, None), (None, 20.0),
+                                            (64, 30.0)])
+def test_window_softcap(window, softcap):
+    q, k, v = _qkv(2, 1, 2, 256, 256, 64)
+    jq, jk, jv = (to_jax(t) for t in (q, k, v))
+    tq, tk, tv = (to_torch(t) for t in (q, k, v))
+    kw = dict(causal=True, window=window, softcap=softcap)
+    want_ref = jref.ref_attention(jq, jk, jv, **kw)
+    want_pallas = jax_flash_bhsd(jq, jk, jv, interpret=True, **kw)
+    _close(ref.ref_attention(tq, tk, tv, **kw), want_ref, 2e-5)
+    got = fa.flash_attention_bhsd(tq, tk, tv, **kw)
+    _close(got, want_ref, 2e-5)
+    _close(got, want_pallas, 3e-5)     # the reference's own 3e-5 for this case
+
+
+def test_q_offset_decode():
+    """Single-token decode against a longer KV context, q_offset = Sk-1."""
+    b, h, sk, d = 2, 2, 256, 64
+    q, k, v = _qkv(3, b, h, 1, sk, d)
+    jq, jk, jv = (to_jax(t) for t in (q, k, v))
+    kw = dict(causal=True, q_offset=sk - 1)
+    want = jref.ref_attention(jq, jk, jv, **kw)
+    want_pallas = jax_flash_bhsd(jq, jk, jv, interpret=True, **kw)
+    tq, tk, tv = (to_torch(t) for t in (q, k, v))
+    _close(ref.ref_attention(tq, tk, tv, **kw), want, 2e-5)
+    _close(fa.flash_attention_bhsd(tq, tk, tv, **kw), want, 2e-5)
+    _close(fa.flash_attention_bhsd(tq, tk, tv, **kw), want_pallas, 2e-5)
+
+
+@pytest.mark.parametrize("q_offset", [0, 5, 40])
+def test_q_offset_partial_cache(q_offset):
+    """A decode step in the middle of a cache: keys past q_offset are
+    invisible whatever they hold."""
+    q, k, v = _qkv(4, 2, 4, 1, 64, 16)
+    tq, tk, tv = (to_torch(t) for t in (q, k, v))
+    got = fa.flash_attention_bhsd(tq, tk, tv, causal=True, q_offset=q_offset)
+    n = q_offset + 1
+    want = jref.ref_attention(to_jax(q), to_jax(k[:, :, :n]),
+                              to_jax(v[:, :, :n]), causal=False)
+    _close(got, want, 2e-5)
+
+
+def test_model_layout_wrapper_vs_jax_ops():
+    """ops.flash_attention: q [B,S,N,G,D], k/v [B,Sk,N,D]; kv heads are
+    shared by G query heads, not repeated."""
+    B, S, N, G, D = 2, 64, 2, 2, 32
+    rng = np.random.RandomState(5)
+    q = rng.standard_normal((B, S, N, G, D)).astype(np.float32)
+    k = rng.standard_normal((B, S, N, D)).astype(np.float32)
+    v = rng.standard_normal((B, S, N, D)).astype(np.float32)
+    want = jops.flash_attention(to_jax(q), to_jax(k), to_jax(v), causal=True,
+                                interpret=True)
+    got = ops.flash_attention(to_torch(q), to_torch(k), to_torch(v),
+                              causal=True)
+    assert got.shape == (B, S, N, G, D) and got.is_contiguous()
+    _close(got, want, 2e-5)
+    plain = fa.flash_attention_plain(to_torch(q), to_torch(k), to_torch(v),
+                                     causal=True)
+    assert torch.equal(got, plain)      # on the CPU the wrapper IS the plain version
+
+
+def test_bhsd_grouped_kv_heads():
+    """flash_attention_bhsd with Hk < H reads kv head h // G."""
+    q, _, _ = _qkv(6, 2, 6, 32, 32, 16)
+    _, k, v = _qkv(7, 2, 2, 32, 32, 16)
+    got = fa.flash_attention_bhsd(to_torch(q), to_torch(k), to_torch(v))
+    want = jref.ref_attention(to_jax(q), jnp.repeat(to_jax(k), 3, axis=1),
+                              jnp.repeat(to_jax(v), 3, axis=1))
+    _close(got, want, 2e-5)
+
+
+def test_strided_views_match_contiguous():
+    """The wrapper takes views (a cache slice, a transposed tensor) as they
+    are and gives what it gives for their contiguous copies."""
+    rng = np.random.RandomState(8)
+    q = to_torch(rng.standard_normal((2, 4, 2, 3, 16)).astype(np.float32))
+    cache_k = to_torch(rng.standard_normal((2, 40, 2, 16)).astype(np.float32))
+    cache_v = to_torch(rng.standard_normal((2, 40, 2, 16)).astype(np.float32))
+    kview, vview = cache_k[:, 7:31], cache_v[:, 7:31]
+    assert not kview.is_contiguous()
+    got = ops.flash_attention(q, kview, vview, causal=False)
+    want = ops.flash_attention(q, kview.contiguous(), vview.contiguous(),
+                               causal=False)
+    assert torch.equal(got, want)
+
+
+def test_row_without_visible_key_is_zero():
+    """Stated in the kernel's source: such a row returns zeros (the oracle
+    averages v instead).  Window 4 without the causal mask: queries far past
+    the last key see nothing."""
+    q, k, v = _qkv(9, 1, 1, 4, 8, 16)
+    got = fa.flash_attention_bhsd(to_torch(q), to_torch(k), to_torch(v),
+                                  causal=False, window=4, q_offset=20)
+    assert torch.count_nonzero(got) == 0 and torch.isfinite(got).all()
+
+
+@pytest.mark.parametrize("bad", ["dtype", "heads", "rank", "window", "kv"])
+def test_wrapper_refuses(bad):
+    q = torch.zeros(1, 4, 2, 2, 16)
+    k = torch.zeros(1, 4, 2, 16)
+    v = torch.zeros(1, 4, 2, 16)
+    kw = {}
+    if bad == "dtype":
+        k = k.bfloat16()
+    elif bad == "heads":
+        k, v = torch.zeros(1, 4, 3, 16), torch.zeros(1, 4, 3, 16)
+    elif bad == "rank":
+        q = q[:, :, :, 0]
+    elif bad == "window":
+        kw["window"] = 0
+    elif bad == "kv":
+        v = torch.zeros(1, 5, 2, 16)
+    with pytest.raises((TypeError, ValueError)):
+        ops.flash_attention(q, k, v, **kw)
+
+
+def test_launch_count_untouched_on_cpu():
+    """The count moves only where the CUDA kernel is launched."""
+    before = fa.launches
+    ops.flash_attention(torch.zeros(1, 2, 1, 1, 16), torch.zeros(1, 2, 1, 16),
+                        torch.zeros(1, 2, 1, 16))
+    assert fa.launches == before
