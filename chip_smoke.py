@@ -123,6 +123,18 @@ ATTENTION_CASES = [
          dtype=F32, causal=True),
     dict(name="smoke-decode-d16", B=2, N=2, G=4, Sq=1, Sk=64, D=16, dtype=F32,
          causal=True, q_offset=10),
+    # the decode kernel's other head-dim variants, window and softcap
+    dict(name="decode-d32-bf16", B=3, N=2, G=2, Sq=1, Sk=333, D=32, dtype=BF16,
+         causal=True, q_offset=332),
+    dict(name="decode-d64-window", B=2, N=3, G=1, Sq=1, Sk=500, D=64,
+         dtype=F32, causal=True, q_offset=400, window=128),
+    dict(name="decode-d80-softcap", B=2, N=2, G=3, Sq=1, Sk=200, D=80,
+         dtype=F32, causal=True, q_offset=150, window=50, softcap=20.0),
+    dict(name="decode-full-not-causal", B=2, N=2, G=2, Sq=1, Sk=77, D=128,
+         dtype=BF16, causal=False),
+    # a few new tokens at once against a cache: the tile kernel with an offset
+    dict(name="multi-token-decode", B=2, N=2, G=5, Sq=4, Sk=512, D=128,
+         dtype=BF16, causal=True, q_offset=300),
 ]
 
 

@@ -28,7 +28,11 @@
 //    m/l/acc carried in scratch between grid steps.  Blocks of a CUDA grid run
 //    in no order and share nothing, so here one block owns one
 //    (batch, query head, q-tile) and loops over the kv tiles itself; m, l and
-//    acc stay in registers for the whole loop.
+//    acc stay in registers for the whole loop (`flash_attention_kernel`).
+//  * A decode step (Sq = 1) has no tile of queries to amortise K and V over,
+//    so it has a kernel of its own (`flash_decode_kernel`): the block's warps
+//    split the visible keys, every group of lanes keeps its own m/l/acc, and
+//    one combine through shared memory ends the block.
 //  * It takes the model layout by strides: q/out [B,S,N,G,D], k/v [B,Sk,N,D],
 //    any strides as long as D is contiguous.  The kv head of query head h is
 //    h / G, so k and v are never repeated G times and a decode step reads the
@@ -48,12 +52,15 @@
 //    bound by the fp32 FMA rate and shared-memory bandwidth, well below that
 //    bound.  Tensor-core products (wgmma) and asynchronous tile copies (TMA)
 //    are the next step and change nothing outside this file.
-//  * Decode (Sq = 1): the bytes of the visible K and V rows.  A 16-row q-tile
-//    variant keeps the wasted work small, only the half-warp that owns a valid
-//    row computes, and all 256 threads stream K and V with 16-byte (fp32) or
-//    8-byte (bf16) loads.  One block walks a head's whole cache, so with few
-//    (batch x head) pairs the card is not full; splitting the kv range over
-//    blocks is a later step.
+//  * Decode (Sq = 1): the bytes of the visible K and V rows.  The decode
+//    kernel streams them straight from global memory into registers, a row's
+//    bytes contiguous across the lanes of a group, four keys in flight per
+//    group and 32 groups per block, with no block-wide barrier until the end.
+//    The G query heads of one kv head are G blocks, so K and V come G times
+//    through L2 (once from device memory); and one block walks a head's whole
+//    cache, so with few (batch x head) pairs the card is not full.  Sharing
+//    K and V between the heads of a group and splitting the kv range over
+//    blocks are later steps.
 
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
@@ -64,6 +71,7 @@ namespace {
 constexpr int kThreads = 256;
 constexpr int kTX = 16;            // threads along keys / head-dim columns
 constexpr int kTY = 16;            // threads along query rows
+constexpr int kTM = 4;             // query rows per thread: 64-row q-tiles
 constexpr float kMasked = -1e30f;  // "minus infinity" of the running maximum
 
 struct Params {
@@ -118,13 +126,14 @@ __device__ __forceinline__ void load_tile(float* dst, const T* src,
 }
 
 // T: element type of q/k/v/out.  DP: head dim rounded up to 16/32/64/128.
-// The block's q-tile has BM = 16*TM rows, a kv tile BN = 16*TN keys.
+// The block's q-tile has BM = 16*TM = 64 rows, a kv tile BN = 16*TN keys.
 // Thread (ty, tx) owns query rows ty*TM + i, score columns tx + 16*j and
 // output columns tx + 16*c.  The 16 threads that share a ty are one half of
 // a warp, so row reductions are shuffles inside that half.
-template <typename T, int DP, int TM, int TN>
+template <typename T, int DP, int TN>
 __global__ void __launch_bounds__(kThreads, 2)
 flash_attention_kernel(const Params p) {
+  constexpr int TM = kTM;
   constexpr int BM = kTY * TM;
   constexpr int BN = kTX * TN;
   constexpr int KS = DP + 4;   // K row stride: float4 reads of 8 rows hit 32 banks
@@ -291,14 +300,160 @@ flash_attention_kernel(const Params p) {
   }
 }
 
-template <typename T, int DP, int TM>
+// ---------------------------------------------------------------------------
+// Decode: one query row per (batch, head).
+//
+// A group of LPK lanes owns one key at a time: lane j of the group holds head-dim
+// elements [16j, 16j+16), so the group reads a K or V row as one contiguous run.
+// The block's kThreads/LPK groups take U consecutive keys each per iteration.
+// Every group runs its own online softmax; the groups' (m, l, acc) are merged
+// once at the end.  The visible keys of a single row are the interval [lo, hi).
+template <typename T, int LPK>
+__global__ void __launch_bounds__(kThreads, 2)
+flash_decode_kernel(const Params p) {
+  constexpr int EPL = 16;                // head-dim elements per lane
+  constexpr int VPL = EPL / 4;           // 4-element loads per lane and row
+  constexpr int U = 4;                   // keys per group and iteration
+  constexpr int NG = kThreads / LPK;     // key groups in the block
+  constexpr int DW = LPK * EPL;          // head-dim columns a group covers
+  __shared__ __align__(16) float sAcc[NG * DW];
+  __shared__ float sM[NG], sL[NG], sW[NG];
+
+  const int tid = threadIdx.x;
+  const int group = tid / LPK;
+  const int d0 = (tid % LPK) * EPL;
+  const unsigned lane = tid & 31u;
+  const unsigned group_mask =
+      (LPK == 32 ? 0xffffffffu : ((1u << LPK) - 1u)) << (lane & ~(LPK - 1u));
+
+  const int h = blockIdx.y;
+  const int b = blockIdx.z;
+  const int n = h / p.G;
+  const int g = h % p.G;
+  const T* qp = static_cast<const T*>(p.q) + b * p.q_sb + n * p.q_sn + g * p.q_sg;
+  const T* kp = static_cast<const T*>(p.k) + b * p.k_sb + n * p.k_sn;
+  const T* vp = static_cast<const T*>(p.v) + b * p.v_sb + n * p.v_sn;
+  T* op = static_cast<T*>(p.o) + b * p.o_sb + n * p.o_sn + g * p.o_sg;
+
+  int hi = p.Sk;
+  if (p.causal) hi = min(hi, p.q_offset + 1);
+  int lo = 0;
+  if (p.window > 0) lo = max(0, p.q_offset - p.window + 1);
+
+  const float4 zero4 = make_float4(0.f, 0.f, 0.f, 0.f);
+  float4 q[VPL];
+#pragma unroll
+  for (int c = 0; c < VPL; ++c)
+    q[c] = (d0 + 4 * c < p.D) ? load4(qp + d0 + 4 * c) : zero4;
+
+  float m = kMasked, l = 0.f;
+  float4 acc[VPL];
+#pragma unroll
+  for (int c = 0; c < VPL; ++c) acc[c] = zero4;
+
+  for (int k0 = lo + group * U; k0 < hi; k0 += NG * U) {
+    // a key past hi reads row hi-1 again and is masked below
+    float4 kv[U][VPL];
+#pragma unroll
+    for (int u = 0; u < U; ++u) {
+      const T* row = kp + (long long)min(k0 + u, hi - 1) * p.k_ss + d0;
+#pragma unroll
+      for (int c = 0; c < VPL; ++c)
+        kv[u][c] = (d0 + 4 * c < p.D) ? load4(row + 4 * c) : zero4;
+    }
+    float s[U];
+#pragma unroll
+    for (int u = 0; u < U; ++u) {
+      float dot = 0.f;
+#pragma unroll
+      for (int c = 0; c < VPL; ++c) {
+        dot = fmaf(q[c].x, kv[u][c].x, dot);
+        dot = fmaf(q[c].y, kv[u][c].y, dot);
+        dot = fmaf(q[c].z, kv[u][c].z, dot);
+        dot = fmaf(q[c].w, kv[u][c].w, dot);
+      }
+      s[u] = dot;
+    }
+#pragma unroll
+    for (int off = LPK / 2; off > 0; off >>= 1)
+#pragma unroll
+      for (int u = 0; u < U; ++u)
+        s[u] += __shfl_xor_sync(group_mask, s[u], off);
+
+    // V rows on their way while the softmax terms are computed
+#pragma unroll
+    for (int u = 0; u < U; ++u) {
+      const T* row = vp + (long long)min(k0 + u, hi - 1) * p.v_ss + d0;
+#pragma unroll
+      for (int c = 0; c < VPL; ++c)
+        kv[u][c] = (d0 + 4 * c < p.D) ? load4(row + 4 * c) : zero4;
+    }
+
+    float mx = kMasked;
+#pragma unroll
+    for (int u = 0; u < U; ++u) {
+      float x = s[u] * p.scale;
+      if (p.softcap > 0.f) x = p.softcap * tanhf(x / p.softcap);
+      s[u] = (k0 + u < hi) ? x : kMasked;
+      mx = fmaxf(mx, s[u]);
+    }
+    const float m_new = fmaxf(m, mx);
+    const float corr = expf(m - m_new);
+    float pr[U];
+    float row_sum = 0.f;
+#pragma unroll
+    for (int u = 0; u < U; ++u) {
+      pr[u] = (s[u] == kMasked) ? 0.f : expf(s[u] - m_new);
+      row_sum += pr[u];
+    }
+    l = l * corr + row_sum;
+    m = m_new;
+#pragma unroll
+    for (int c = 0; c < VPL; ++c) {
+      float4 a = acc[c];
+      a.x *= corr; a.y *= corr; a.z *= corr; a.w *= corr;
+#pragma unroll
+      for (int u = 0; u < U; ++u) {
+        a.x = fmaf(pr[u], kv[u][c].x, a.x);
+        a.y = fmaf(pr[u], kv[u][c].y, a.y);
+        a.z = fmaf(pr[u], kv[u][c].z, a.z);
+        a.w = fmaf(pr[u], kv[u][c].w, a.w);
+      }
+      acc[c] = a;
+    }
+  }
+
+  // merge the groups: out = sum_g w_g acc_g / sum_g w_g l_g, w_g = exp(m_g - M)
+  if (tid % LPK == 0) {
+    sM[group] = m;
+    sL[group] = l;
+  }
+#pragma unroll
+  for (int c = 0; c < VPL; ++c)
+    *reinterpret_cast<float4*>(sAcc + group * DW + d0 + 4 * c) = acc[c];
+  __syncthreads();
+  float m_all = kMasked;
+  for (int i = 0; i < NG; ++i) m_all = fmaxf(m_all, sM[i]);
+  if (tid < NG) sW[tid] = expf(sM[tid] - m_all);
+  __syncthreads();
+  if (tid < p.D) {
+    float l_all = 0.f, a_all = 0.f;
+    for (int i = 0; i < NG; ++i) {
+      l_all = fmaf(sW[i], sL[i], l_all);
+      a_all = fmaf(sW[i], sAcc[i * DW + tid], a_all);
+    }
+    store1(op + tid, a_all / fmaxf(l_all, 1e-30f));
+  }
+}
+
+template <typename T, int DP>
 cudaError_t launch_tiles(const Params& p, cudaStream_t stream) {
   constexpr int TN = (DP == 128) ? 2 : 4;
-  constexpr int BM = kTY * TM;
+  constexpr int BM = kTY * kTM;
   constexpr int BN = kTX * TN;
   constexpr size_t kSmem =
       sizeof(float) * (BM * DP + BN * (DP + 4) + BN * DP + BM * (BN + 4));
-  auto kernel = flash_attention_kernel<T, DP, TM, TN>;
+  auto kernel = flash_attention_kernel<T, DP, TN>;
   cudaError_t err = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)kSmem);
   if (err != cudaSuccess) return err;
@@ -307,19 +462,25 @@ cudaError_t launch_tiles(const Params& p, cudaStream_t stream) {
   return cudaGetLastError();
 }
 
-template <typename T, int DP>
-cudaError_t launch_rows(const Params& p, cudaStream_t stream) {
-  // a 16-row q-tile for decode-sized queries, 64 rows otherwise
-  if (p.Sq <= kTY) return launch_tiles<T, DP, 1>(p, stream);
-  return launch_tiles<T, DP, 4>(p, stream);
+template <typename T, int LPK>
+cudaError_t launch_decode(const Params& p, cudaStream_t stream) {
+  const dim3 grid(1, p.N * p.G, p.B);
+  flash_decode_kernel<T, LPK><<<grid, kThreads, 0, stream>>>(p);
+  return cudaGetLastError();
 }
 
 template <typename T>
 cudaError_t launch_dtype(const Params& p, cudaStream_t stream) {
-  if (p.D <= 16) return launch_rows<T, 16>(p, stream);
-  if (p.D <= 32) return launch_rows<T, 32>(p, stream);
-  if (p.D <= 64) return launch_rows<T, 64>(p, stream);
-  return launch_rows<T, 128>(p, stream);
+  if (p.Sq == 1) {
+    if (p.D <= 16) return launch_decode<T, 1>(p, stream);
+    if (p.D <= 32) return launch_decode<T, 2>(p, stream);
+    if (p.D <= 64) return launch_decode<T, 4>(p, stream);
+    return launch_decode<T, 8>(p, stream);
+  }
+  if (p.D <= 16) return launch_tiles<T, 16>(p, stream);
+  if (p.D <= 32) return launch_tiles<T, 32>(p, stream);
+  if (p.D <= 64) return launch_tiles<T, 64>(p, stream);
+  return launch_tiles<T, 128>(p, stream);
 }
 
 }  // namespace
