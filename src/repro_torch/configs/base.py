@@ -8,7 +8,7 @@ exposing
 ``ARCHS`` lists every architecture of the JAX package so the gap shows;
 ``PORTED`` the ones this package runs.  ``--arch <id>`` resolves through
 :func:`get`, which raises for a name that is not ported yet.  The workload
-shapes (``SHAPES``) belong to the training and dry-run drivers and come with
+shapes (``SHAPES``) belong to the training and dry-run launchers and come with
 them.
 """
 from __future__ import annotations

@@ -1,1 +1,1 @@
-"""Launch drivers of the port (serving so far)."""
+"""Launchers of the port (serving so far)."""

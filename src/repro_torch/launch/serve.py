@@ -1,10 +1,10 @@
-"""Serving driver (batched continuous decoding) on the GPU.
+"""Serving launcher (batched continuous decoding) on the GPU.
 
     PYTHONPATH=src python -m repro_torch.launch.serve --arch qwen3-14b
     PYTHONPATH=src python -m repro_torch.launch.serve --arch qwen3-14b \\
         --smoke --device cpu
 
-The symbolic pre-flight line of the JAX driver comes with the port of the
+The symbolic pre-flight line of `repro.launch.serve` comes with the port of the
 generator.
 """
 import argparse

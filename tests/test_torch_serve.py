@@ -1,4 +1,4 @@
-"""The port's serving engine and driver against the JAX package's, on the
+"""The port's serving engine and launcher against the JAX package's, on the
 CPU with shared fp32 parameters: greedy tokens must be identical."""
 import numpy as np
 import pytest
@@ -8,7 +8,7 @@ from repro.configs import get as jax_get
 from repro.serve.engine import Engine as JaxEngine
 from repro.serve.engine import Request as JaxRequest
 from repro_torch.configs import get
-from repro_torch.launch import serve as serve_driver
+from repro_torch.launch import serve as serve_launcher
 from repro_torch.models import RuntimeCfg
 from repro_torch.serve import Engine, Request, make_prefill, make_serve_step
 from repro_torch.models import init_cache, lm
@@ -80,8 +80,8 @@ def test_prefill_and_serve_step_factories():
     assert cache["slots"][0]["attn"]["pos"] == 1
 
 
-def test_serve_driver_on_cpu(capsys):
-    done = serve_driver.main(["--arch", "qwen3-14b", "--smoke", "--device",
+def test_serve_launcher_on_cpu(capsys):
+    done = serve_launcher.main(["--arch", "qwen3-14b", "--smoke", "--device",
                               "cpu", "--requests", "3", "--max-new", "3",
                               "--slots", "2", "--kv-len", "64"])
     out = capsys.readouterr().out.strip().splitlines()
@@ -89,16 +89,16 @@ def test_serve_driver_on_cpu(capsys):
     assert [l.split(":")[0] for l in out[:-1]] == ["req 0", "req 1", "req 2"]
 
 
-def test_serve_driver_needs_device_request(monkeypatch):
+def test_serve_launcher_needs_device_request(monkeypatch):
     """Without a card the default device raises; it does not carry on on
     the CPU."""
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="--device cpu"):
-        serve_driver.main(["--arch", "qwen3-14b", "--smoke"])
+        serve_launcher.main(["--arch", "qwen3-14b", "--smoke"])
     with pytest.raises(RuntimeError, match="device='cpu'"):
         Engine(SMOKE, RuntimeCfg(), {}, batch_slots=1, kv_len=4)
 
 
-def test_serve_driver_unported_arch():
+def test_serve_launcher_unported_arch():
     with pytest.raises(NotImplementedError, match="not ported"):
-        serve_driver.main(["--arch", "rwkv6-7b", "--smoke", "--device", "cpu"])
+        serve_launcher.main(["--arch", "rwkv6-7b", "--smoke", "--device", "cpu"])
