@@ -13,7 +13,7 @@ import numpy as np
 
 from repro_torch._device import resolve_device
 from repro_torch.configs import get as get_arch
-from repro_torch.models import RuntimeCfg, init_params
+from repro_torch.models import init_params
 from repro_torch.serve import Engine, Request
 
 
@@ -33,7 +33,7 @@ def main(argv=None):
     device = resolve_device(args.device)
     arch = get_arch(args.arch)
     spec = arch.smoke if args.smoke else arch.spec
-    rt = RuntimeCfg(attention_impl="cuda")
+    rt = arch.runtime                  # attention through the CUDA kernel
     params = init_params(spec, rt, device=device, seed=0)
     engine = Engine(spec, rt, params, batch_slots=args.slots,
                     kv_len=args.kv_len, device=device)

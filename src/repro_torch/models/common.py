@@ -21,22 +21,14 @@ PyTree = Any
 
 @dataclass(frozen=True)
 class RuntimeCfg:
-    """Runtime knobs orthogonal to the architecture itself (same fields as
-    the JAX package's; the ones that steer training or sharding are carried
-    but not read yet)."""
+    """Runtime knobs orthogonal to the architecture itself.  The JAX
+    package's fields that steer training, sharding or MoE come back with the
+    slices that read them."""
     param_dtype: str = "bfloat16"
     compute_dtype: str = "bfloat16"
-    attention_impl: str = "chunked"     # naive | chunked | cuda
-    attn_chunk: int = 1024              # kv-chunk for online-softmax attention
-    attn_q_block: bool = True           # block queries in chunks as well
-    remat: str = "none"                 # none | full | dots
-    scan_layers: bool = True
-    sp: bool = True                     # sequence-parallel activation layout
-    zero1: bool = True                  # shard optimizer state over data axes
-    grad_accum: int = 1
-    loss_chunk: int = 0                 # >0: CE loss over seq chunks
-    moe_capacity: float = 1.25          # expert capacity factor
-    logical_rules: tuple = ()           # overrides for logical->mesh mapping
+    # "cuda": the hand-written kernel (its plain version for CPU tensors);
+    # "naive": materialised scores, the reference the kernel is held against
+    attention_impl: str = "cuda"
 
 
 def dt(name) -> torch.dtype:

@@ -6,9 +6,10 @@ Shapes follow the JAX package so weights carry across leaf by leaf:
 
 * GQA weights keep head structure: ``w_q [H, NKV, G, DH]``.
 * Activations ``q [B,S,N,G,D]``, ``k/v [B,Sk,N,D]``.
-* ``attention_impl="cuda"`` routes every attention core through the
-  hand-written kernel (``repro_torch.kernels``); ``"naive"`` and
-  ``"chunked"`` are plain tensor code.
+* ``attention_impl="cuda"`` (the default) routes every attention core
+  through the hand-written kernel (``repro_torch.kernels``); ``"naive"`` is
+  plain tensor code with materialised scores, kept as the reference the
+  kernel is held against inside the model.
 
 Not ported yet: cross-attention (whisper), MLA, MoE, mamba, rwkv6.
 """
@@ -66,14 +67,16 @@ def _softcap(x: torch.Tensor, cap: float) -> torch.Tensor:
 # Attention cores
 # ---------------------------------------------------------------------------
 
-def _mask(sq: int, kpos: torch.Tensor, sk: int, causal: bool,
-          window: Optional[int], q_offset: int) -> torch.Tensor:
-    qpos = torch.arange(sq, device=kpos.device)[:, None] + q_offset
-    mask = kpos[None, :] < sk
+def _mask(sq: int, sk: int, causal: bool, window: Optional[int],
+          q_offset: int, device) -> torch.Tensor:
+    """[sq, sk] bool: which keys the query row at ``q_offset + s`` sees."""
+    qpos = torch.arange(sq, device=device)[:, None] + q_offset
+    kpos = torch.arange(sk, device=device)[None, :]
+    mask = torch.ones((sq, sk), dtype=torch.bool, device=device)
     if causal:
-        mask = mask & (kpos[None, :] <= qpos)
+        mask = mask & (kpos <= qpos)
     if window is not None:
-        mask = mask & (kpos[None, :] > qpos - window)
+        mask = mask & (kpos > qpos - window)
     return mask
 
 
@@ -84,61 +87,10 @@ def attn_naive(q, k, v, *, causal: bool, window: Optional[int],
     s = torch.einsum("bsngd,bknd->bngsk", q, k).float() * scale
     if softcap:
         s = softcap * torch.tanh(s / softcap)
-    sq, sk = q.shape[1], k.shape[1]
-    mask = _mask(sq, torch.arange(sk, device=q.device), sk, causal, window,
-                 q_offset)
+    mask = _mask(q.shape[1], k.shape[1], causal, window, q_offset, q.device)
     s = torch.where(mask, s, torch.full_like(s, -1e30))
     p = torch.softmax(s, dim=-1).to(q.dtype)
     return torch.einsum("bngsk,bknd->bsngd", p, v)
-
-
-def attn_chunked(q, k, v, *, causal: bool, window: Optional[int],
-                 softcap: Optional[float], chunk: int = 1024,
-                 q_offset: int = 0, q_block: bool = True) -> torch.Tensor:
-    """Online-softmax attention in plain tensor code: queries in blocks of
-    ``chunk``, keys scanned in chunks.  Live memory O(q_block x chunk)
-    per step instead of O(Sq x Sk)."""
-    sq = q.shape[1]
-    if q_block and sq > chunk and sq % chunk == 0:
-        outs = [_attn_flash(q[:, i:i + chunk], k, v, causal=causal,
-                            window=window, softcap=softcap, chunk=chunk,
-                            q_offset=q_offset + i)
-                for i in range(0, sq, chunk)]
-        return torch.cat(outs, dim=1)
-    return _attn_flash(q, k, v, causal=causal, window=window,
-                       softcap=softcap, chunk=chunk, q_offset=q_offset)
-
-
-def _attn_flash(q, k, v, *, causal: bool, window: Optional[int],
-                softcap: Optional[float], chunk: int,
-                q_offset: int = 0) -> torch.Tensor:
-    b, sq, n, g, d = q.shape
-    sk = k.shape[1]
-    if sk <= chunk:
-        return attn_naive(q, k, v, causal=causal, window=window,
-                          softcap=softcap, q_offset=q_offset)
-    scale = 1.0 / math.sqrt(d)
-    m = torch.full((b, n, g, sq), -1e30, dtype=torch.float32, device=q.device)
-    l = torch.zeros((b, n, g, sq), dtype=torch.float32, device=q.device)
-    acc = torch.zeros((b, n, g, sq, v.shape[-1]), dtype=torch.float32,
-                      device=q.device)
-    for c0 in range(0, sk, chunk):
-        kc, vc = k[:, c0:c0 + chunk], v[:, c0:c0 + chunk]
-        s = torch.einsum("bsngd,bknd->bngsk", q, kc).float() * scale
-        if softcap:
-            s = softcap * torch.tanh(s / softcap)
-        kpos = c0 + torch.arange(kc.shape[1], device=q.device)
-        mask = _mask(sq, kpos, sk, causal, window, q_offset)
-        s = torch.where(mask, s, torch.full_like(s, -1e30))
-        m_new = torch.maximum(m, s.amax(-1))
-        p = torch.exp(s - m_new[..., None])
-        corr = torch.exp(m - m_new)
-        l = l * corr + p.sum(-1)
-        acc = acc * corr[..., None] + torch.einsum(
-            "bngsk,bknd->bngsd", p.to(q.dtype), vc).float()
-        m = m_new
-    out = acc / torch.clamp(l, min=1e-30)[..., None]
-    return out.permute(0, 3, 1, 2, 4).to(q.dtype)            # [B,Sq,N,G,D]
 
 
 def attn_core(q, k, v, rt: RuntimeCfg, *, causal: bool, window=None,
@@ -147,15 +99,11 @@ def attn_core(q, k, v, rt: RuntimeCfg, *, causal: bool, window=None,
         from ..kernels import ops as kops
         return kops.flash_attention(q, k, v, causal=causal, window=window,
                                     softcap=softcap, q_offset=q_offset)
-    if rt.attention_impl == "chunked":
-        return attn_chunked(q, k, v, causal=causal, window=window,
-                            softcap=softcap, chunk=rt.attn_chunk,
-                            q_offset=q_offset, q_block=rt.attn_q_block)
     if rt.attention_impl == "naive":
         return attn_naive(q, k, v, causal=causal, window=window,
                           softcap=softcap, q_offset=q_offset)
     raise ValueError(f"attention_impl {rt.attention_impl!r}: "
-                     "one of naive | chunked | cuda")
+                     "one of cuda | naive")
 
 
 # ---------------------------------------------------------------------------

@@ -83,10 +83,13 @@ def _gqa_weights(rng, spec):
             .astype(np.float32) for k, s in shapes.items()}
 
 
-@pytest.mark.parametrize("impl", ["naive", "chunked", "cuda"])
+@pytest.mark.parametrize("impl", ["naive", "cuda"])
 @pytest.mark.parametrize("extra", [{}, {"window": 4}, {"attn_softcap": 20.0},
-                                   {"qk_norm": False}],
-                         ids=["plain", "window", "softcap", "no-qk-norm"])
+                                   {"qk_norm": False},
+                                   {"window": 3, "attn_softcap": 10.0},
+                                   {"n_kv_heads": 4}],
+                         ids=["plain", "window", "softcap", "no-qk-norm",
+                              "window-softcap", "one-query-head-per-kv"])
 def test_gqa_prefill(impl, extra):
     """Every attention core of the port against the JAX 'naive' core;
     'cuda' runs the kernel's plain version here."""
@@ -96,7 +99,6 @@ def test_gqa_prefill(impl, extra):
     w = _gqa_weights(rng, tspec)
     x = rng.standard_normal((2, 12, tspec.d_model)).astype(np.float32)
     jrt, trt = runtimes(impl=impl, jax_impl="naive")
-    trt = type(trt)(**{**trt.__dict__, "attn_chunk": 8})   # >1 kv chunk
     want, _ = JL.gqa_attention({k: _p(a) for k, a in w.items()}, to_jax(x),
                                jspec, jrt, None, window=kw.get("window"))
     got, cache = TL.gqa_attention({k: to_torch(a) for k, a in w.items()},
@@ -154,3 +156,28 @@ def test_attn_core_unknown_impl_raises():
     q = torch.zeros(1, 2, 1, 1, 16)
     with pytest.raises(ValueError, match="attention_impl"):
         TL.attn_core(q, q[:, :, :, 0], q[:, :, :, 0], trt, causal=True)
+
+
+def test_default_runtime_goes_through_the_kernel_wrapper(monkeypatch):
+    """A default RuntimeCfg reaches the kernel's wrapper, so on a CUDA tensor
+    no caller gets the materialised-score core without asking for it."""
+    from repro_torch.kernels import ops as kops
+    from repro_torch.models import RuntimeCfg
+    calls = []
+    real = kops.flash_attention
+
+    def counting(*args, **kw):
+        calls.append(kw)
+        return real(*args, **kw)
+
+    monkeypatch.setattr(kops, "flash_attention", counting)
+    rt = RuntimeCfg()
+    assert rt.attention_impl == "cuda"
+    rng = np.random.RandomState(7)
+    q = to_torch(rng.standard_normal((1, 3, 2, 2, 16)).astype(np.float32))
+    k = to_torch(rng.standard_normal((1, 5, 2, 16)).astype(np.float32))
+    got = TL.attn_core(q, k, k, rt, causal=True, q_offset=2)
+    assert len(calls) == 1 and calls[0]["q_offset"] == 2
+    want = TL.attn_naive(q, k, k, causal=True, window=None, softcap=None,
+                         q_offset=2)
+    _close(got, want)

@@ -113,7 +113,7 @@ def test_params_from_reference_casts_on_request():
 
 
 @pytest.mark.parametrize("impl,jax_impl", [
-    ("naive", "naive"), ("chunked", "naive"), ("cuda", "naive"),
+    ("naive", "naive"), ("naive", "pallas"), ("cuda", "naive"),
     ("cuda", "pallas")])
 def test_forward_logits_fp32(impl, jax_impl):
     """'cuda' (the kernel's plain version on the CPU) against the JAX
