@@ -7,24 +7,29 @@
 Phases, one JSON line each on standard output:
 
   device   torch version, the card's name and power limit (nvidia-smi)
-  build    compiles every CUDA source of ``repro_torch/kernels/csrc`` with nvcc
-  kernels  each hand-written kernel against its plain PyTorch version on the
-           card, at the shapes of the main path and at edge shapes: max abs
-           error vs a stated tolerance, kernel / plain / library time and the
-           card's bound for the same work
-  serve    qwen3-14b at published width and depth, bf16, random weights from a
-           seed: an Engine with 8 slots answers 16 requests, then one
-           [2, 2048] prefill.  Launch counts are set to 0 just before and read
-           just after
-  parity   the qwen3 smoke spec in fp32 on the card: attention through the
-           kernel against the naive core, same greedy tokens and logits
-           within 1e-4
+  build    compiles every CUDA source of ``repro_torch/kernels/csrc`` with nvcc,
+           one compiler process per source, all started together
+  kernels  each hand-written kernel (flash_attention, wkv6) against its plain
+           PyTorch version on the card, at the shapes of the main paths and at
+           edge shapes: max abs error vs a stated tolerance, kernel / plain /
+           library time and the card's bound for the same work
+  serve    two served models, one after the other, each at published width
+           and depth, bf16, random weights from a seed: qwen3-14b (attention
+           through flash_attention), then rwkv6-7b (every WKV recurrence
+           through wkv6).  For each, an Engine with 8 slots answers 16
+           requests, then one [2, 2048] prefill.  Every launch count is set to
+           0 just before each model's run and read just after
+  parity   the smoke specs in fp32 on the card: qwen3 attention through the
+           kernel against the naive core; rwkv6 through the wkv6 kernel
+           against the same parameters on the CPU (the plain version).  Same
+           greedy tokens and logits within 1e-4
 
 Then the line nvidia-smi gives for the card, and as the last line
 ``{"ok": true, "device": {...}}``.  Any failure is an exception and a non-zero
 exit code; without a CUDA device the script exits non-zero before any phase.
 """
 import argparse
+import gc
 import json
 import subprocess
 import sys
@@ -46,6 +51,8 @@ if not torch.cuda.is_available():
 from repro_torch.configs import get as get_arch  # noqa: E402
 from repro_torch.kernels import _build  # noqa: E402
 from repro_torch.kernels import flash_attention as fa  # noqa: E402
+from repro_torch.kernels import ref  # noqa: E402
+from repro_torch.kernels import rwkv6_scan as wkv  # noqa: E402
 from repro_torch.models import RuntimeCfg, init_params, lm  # noqa: E402
 from repro_torch.serve import Engine, Request, make_prefill  # noqa: E402
 
@@ -63,6 +70,10 @@ TOL = {torch.float32: dict(absolute=2e-5, rms_share=0.0, relative=2e-5),
        torch.bfloat16: dict(absolute=0.0, rms_share=1e-2, relative=2.0 ** -7)}
 
 PHASES = ("build", "kernels", "serve", "parity")
+# the kernels' wrapper modules, each with its launch count, and their sources
+COUNTERS = {"flash_attention": fa, "wkv6": wkv}
+SOURCES = {"flash_attention": "src/repro_torch/kernels/csrc/flash_attention.cu",
+           "wkv6": "src/repro_torch/kernels/csrc/rwkv6_scan.cu"}
 
 
 def require(ok, message) -> None:
@@ -143,20 +154,30 @@ ATTENTION_CASES = [
     # a few new tokens at once against a cache: the tile kernel with an offset
     dict(name="multi-token-decode", B=2, N=2, G=5, Sq=4, Sk=512, D=128,
          dtype=BF16, causal=True, q_offset=300),
+    # rows that see no key (window, no causal mask, a large offset): the mean
+    # of v over all Sk keys, as ref_attention.  Tile kernel: rows 0-58 see
+    # keys, rows 59-79 none; decode kernel: the one row sees none
+    dict(name="no-visible-key", B=2, N=2, G=2, Sq=80, Sk=128, D=64, dtype=F32,
+         causal=False, window=32, q_offset=100),
+    dict(name="decode-no-visible-key", B=2, N=2, G=2, Sq=1, Sk=128, D=64,
+         dtype=BF16, causal=False, window=16, q_offset=300),
 ]
 
 
 def attention_bound(case, mask: torch.Tensor) -> tuple:
     """(bound_ms, bound_by): the larger of bytes over the memory rate (q and
     out once, each K and V row some query can see once) and operations over
-    the peak rate of the input type (two products over the visible pairs)."""
+    the peak rate of the input type (two products over the visible pairs).
+    A row that sees no key reads every V row and sums it."""
     B, N, G, D = case["B"], case["N"], case["G"], case["D"]
     size = torch.empty((), dtype=case["dtype"]).element_size()
     pairs = int(mask.sum())
     visible_keys = int(mask.any(0).sum())
+    blind_rows = int((~mask.any(1)).sum())
+    v_rows = case["Sk"] if blind_rows else visible_keys
     nbytes = size * (2 * B * case["Sq"] * N * G * D
-                     + 2 * B * visible_keys * N * D)
-    ops = 4 * B * N * G * D * pairs
+                     + B * (visible_keys + v_rows) * N * D)
+    ops = 4 * B * N * G * D * pairs + B * N * G * D * case["Sk"] * blind_rows
     t_bytes = nbytes / PEAK_BYTES_PER_S
     t_ops = ops / PEAK_FLOPS[case["dtype"]]
     return (max(t_bytes, t_ops) * 1e3,
@@ -173,11 +194,13 @@ def tolerance(want: torch.Tensor) -> torch.Tensor:
 
 def library_attention(case, q, k, v, mask: torch.Tensor):
     """One F.scaled_dot_product_attention call computing the same function,
-    or None where there is none (softcap).  One query row sees one run of
+    or None where there is none (softcap; a row that sees no key, which the
+    library gives NaN or zeros and the port the mean of v).  One query row
+    sees one run of
     keys, so it is given just that slice of K and V (a view); a window or
     an offset diagonal over several rows goes in as ``attn_mask``.  A
     yardstick for this script only; the package never calls it."""
-    if case.get("softcap"):
+    if case.get("softcap") or not bool(mask.any(1).all()):
         return None
     B, Sq, N, G, D = q.shape
     kw = {}
@@ -236,6 +259,19 @@ def check_attention_case(case, seed: int) -> dict:
                 f"{case['name']}: the tolerance would let a lost key pass")
 
     mask = fa._visible(Sq, Sk, kw["causal"], kw["window"], kw["q_offset"], DEV)
+    blind_rows = int((~mask.any(1)).sum())
+    if blind_rows:
+        # the oracle of the JAX package's tests, in [B, H, S, D]
+        def bhsd(t):
+            return t.reshape(B, t.shape[1], -1, D).transpose(1, 2)
+        oracle = ref.ref_attention(
+            bhsd(q), bhsd(k).repeat_interleave(G, dim=1),
+            bhsd(v).repeat_interleave(G, dim=1), **kw)
+        oracle = oracle.transpose(1, 2).reshape(got.shape)
+        o_err = (got.float() - oracle.float()).abs()
+        require(not (o_err > tolerance(oracle)).any(),
+                f"{case['name']}: a row without a visible key is not "
+                f"ref_attention's mean of v (max abs err {o_err.max().item()})")
     bound_ms, bound_by = attention_bound(case, mask)
     lib = library_attention(case, q, k, v, mask)
     if lib:
@@ -250,7 +286,7 @@ def check_attention_case(case, seed: int) -> dict:
         "dtype": str(dtype)[6:], **{k_: v_ for k_, v_ in kw.items() if v_},
         "max_abs_err": err.max().item(),
         "max_err_over_allowed": (err / allowed).max().item(),
-        "tolerance": TOL[dtype],
+        "tolerance": TOL[dtype], "rows_without_visible_key": blind_rows,
         "ms": time_ms(lambda: fa.flash_attention(q, k, v, **kw)),
         "plain_ms": time_ms(lambda: fa.flash_attention_plain(q, k, v, **kw)),
         "library_ms": time_ms(lib) if lib else None,
@@ -281,27 +317,170 @@ def check_strided_cache_view() -> float:
     return err.max().item()
 
 
-def phase_kernels() -> list:
-    shapes = [check_attention_case(c, seed=i)
-              for i, c in enumerate(ATTENTION_CASES)]
-    strided_err = check_strided_cache_view()
-    prefill = shapes[0]
-    entry = {
-        "name": "flash_attention", "route": "cuda",
-        "source": "src/repro_torch/kernels/csrc/flash_attention.cu",
-        "replaces": "src/repro/kernels/flash_attention.py:80",
-        "launches": 0,                       # filled in by the serve phase
-        # the top-level numbers are those of the main path's prefill shape
-        **{k: prefill[k] for k in ("max_abs_err", "ms", "plain_ms", "bound_ms",
-                                   "bound_by", "library_ms")},
-        "shape": prefill["shape"], "strided_view_max_abs_err": strided_err,
-        "shapes": shapes,
+# wkv6, [B, S, N, D] and the chunk C.  Decays as the model draws them,
+# w = exp(-exp(dec)) with dec ~ N(0, 1): about 18 % of them are below the
+# e^{-80/32} floor, and at the prefill shape a few hundred below 1e-30.
+WKV_CASES = [
+    # the two shapes the rwkv6-7b serve path gives the kernel
+    dict(name="prefill", main=True, B=2, S=2048, N=64, D=64, chunk=32),
+    dict(name="decode-in-place", main=True, B=8, S=1, N=64, D=64, chunk=1,
+         state=True, in_place=True),
+    # a prompt whose length 32 does not divide is one chunk of S
+    dict(name="single-chunk-40", B=2, S=40, N=64, D=64, chunk=40, state=True),
+    dict(name="single-chunk-1000", B=1, S=1000, N=8, D=64, chunk=1000,
+         state=True),
+    # the smoke spec's head dim, and a head dim that is no power of two
+    dict(name="d32", B=2, S=64, N=4, D=32, chunk=32, state=True),
+    dict(name="d48", B=1, S=96, N=3, D=48, chunk=32, state=True),
+    # the state carried across two calls
+    dict(name="carry-two-calls", B=2, S=256, N=8, D=64, chunk=32, state=True,
+         split=128),
+]
+# kernel vs plain version: |err| <= absolute + relative * |plain|, on the
+# output and on the final state.  The plain version is run in float64 for
+# this: in fp32 it (like the TPU kernel) scales r and k by factors up to
+# e^{+-80} inside a chunk, which costs it up to 2.6e-4 of (1 + |x|) and grows
+# with the chunk (0.86 of a 1e-3 limit at C = 1000 on the card), while the
+# kernel walks the recurrence and stays within 2e-5 of (1 + |x|) of the
+# float64 function at every chunk size.  The limit is ten times that.
+# Dropping one token's k^T v moves outputs by tens: the script checks that
+# the limit refuses that.
+WKV_TOL = dict(absolute=2e-4, relative=2e-4)
+
+
+def wkv_bound(case) -> tuple:
+    """(bound_ms, bound_by): 4 D^2 operations per (b, n, step) at the fp32
+    rate against the bytes of r, k, v, w, out once and the state in and
+    out once."""
+    B, S, N, D = case["B"], case["S"], case["N"], case["D"]
+    t_ops = B * S * N * 4 * D * D / PEAK_FLOPS[torch.float32]
+    t_bytes = (5 * B * S * N * D + 2 * B * N * D * D) * 4 / PEAK_BYTES_PER_S
+    return (max(t_ops, t_bytes) * 1e3,
+            "operations" if t_ops >= t_bytes else "bytes")
+
+
+def wkv_tolerance(want: torch.Tensor) -> torch.Tensor:
+    return WKV_TOL["absolute"] + WKV_TOL["relative"] * want.abs()
+
+
+def check_wkv_case(case, seed: int) -> dict:
+    gen = torch.Generator(device=DEV).manual_seed(seed)
+    B, S, N, D, C = case["B"], case["S"], case["N"], case["D"], case["chunk"]
+
+    def rand(*shape):
+        return torch.randn(shape, generator=gen, device=DEV)
+
+    r, k, v = rand(B, S, N, D), rand(B, S, N, D), rand(B, S, N, D)
+    w = torch.exp(-torch.exp(rand(B, S, N, D)))
+    u = rand(N, D)
+    s0 = rand(B, N, D, D) if case.get("state") else \
+        torch.zeros(B, N, D, D, device=DEV)
+    before = wkv.launches
+    if case.get("split"):
+        h = case["split"]
+        o1, st1 = wkv.wkv6(r[:, :h], k[:, :h], v[:, :h], w[:, :h], u, s0,
+                           chunk=C)
+        o2, got_s = wkv.wkv6(r[:, h:], k[:, h:], v[:, h:], w[:, h:], u, st1,
+                             chunk=C)
+        got = torch.cat([o1, o2], dim=1)
+        calls = 2
+    elif case.get("in_place"):
+        cache = s0.clone()
+        got, got_s = wkv.wkv6(r, k, v, w, u, cache, chunk=C, state_out=cache)
+        require(got_s is cache, "the state was not written in place")
+        calls = 1
+    else:
+        got, got_s = wkv.wkv6(r, k, v, w, u, s0, chunk=C)
+        calls = 1
+    torch.cuda.synchronize()
+    require(wkv.launches == before + calls,
+            "the wrapper did not count its launches")
+    want, want_s = wkv.wkv6_plain(r, k, v, w, u, s0, chunk=C,
+                                  dtype=torch.float64)
+    plain, plain_s = wkv.wkv6_plain(r, k, v, w, u, s0, chunk=C)
+    name = case["name"]
+    require(torch.isfinite(got).all() and torch.isfinite(got_s).all(),
+            f"wkv6 {name}: kernel output not finite")
+    err = (got.double() - want).abs()
+    err_s = (got_s.double() - want_s).abs()
+    allowed, allowed_s = wkv_tolerance(want), wkv_tolerance(want_s)
+    require(not (err > allowed).any() and not (err_s > allowed_s).any(),
+            f"wkv6 {name}: kernel disagrees with its plain version: max abs "
+            f"err {err.max().item():.3e} (out), {err_s.max().item():.3e} "
+            f"(state), {WKV_TOL}")
+
+    # a kernel that drops one token's k^T v is refused by this limit
+    k_lost = k.clone()
+    k_lost[:, S // 2] = 0
+    lost, lost_s = wkv.wkv6_plain(r, k_lost, v, w, u, s0, chunk=C,
+                                  dtype=torch.float64)
+    require(((lost - want).abs() > allowed).any()
+            or ((lost_s - want_s).abs() > allowed_s).any(),
+            f"wkv6 {name}: the tolerance would let a lost token pass")
+
+    def run_kernel():
+        if case.get("in_place"):
+            wkv.wkv6(r, k, v, w, u, cache, chunk=C, state_out=cache)
+        else:
+            wkv.wkv6(r, k, v, w, u, s0, chunk=C)
+
+    bound_ms, bound_by = wkv_bound(case)
+    floor = np.exp(-80.0 / C)
+    return {
+        "shape": name, "main_path": bool(case.get("main")),
+        "B": B, "S": S, "N": N, "D": D, "chunk": C, "calls": calls,
+        "max_abs_err": max(err.max().item(), err_s.max().item()),
+        "max_abs_err_out": err.max().item(),
+        "max_abs_err_state": err_s.max().item(),
+        "max_err_over_allowed": max((err / allowed).max().item(),
+                                    (err_s / allowed_s).max().item()),
+        "max_abs_out": want.abs().max().item(),
+        "tolerance": WKV_TOL, "held_against": "wkv6_plain in float64",
+        "plain_fp32_max_err_over_allowed": max(
+            ((plain.double() - want).abs() / allowed).max().item(),
+            ((plain_s.double() - want_s).abs() / allowed_s).max().item()),
+        "lost_token_max_change": (lost - want).abs().max().item(),
+        "share_w_below_floor": (w < floor).float().mean().item() if C > 1
+        else 0.0,
+        "count_w_below_1e-30": int((w < 1e-30).sum()),
+        "ms": time_ms(run_kernel),
+        "plain_ms": time_ms(lambda: wkv.wkv6_plain(r, k, v, w, u, s0,
+                                                   chunk=C)),
+        "library_ms": None, "bound_ms": bound_ms, "bound_by": bound_by,
     }
-    return [entry]
+
+
+def kernel_entry(name: str, replaces: str, shapes: list, **extra) -> dict:
+    """One kernel's entry of the ``kernels`` line; the top-level numbers are
+    those of its main path's prefill shape (the first)."""
+    head = shapes[0]
+    return {
+        "name": name, "route": "cuda",
+        "source": SOURCES[name],
+        "replaces": replaces,
+        "launches": 0,                       # filled in by the serve phase
+        **{k: head[k] for k in ("max_abs_err", "ms", "plain_ms", "bound_ms",
+                                "bound_by", "library_ms")},
+        "shape": head["shape"], **extra, "shapes": shapes,
+    }
+
+
+def phase_kernels() -> list:
+    attention = [check_attention_case(c, seed=i)
+                 for i, c in enumerate(ATTENTION_CASES)]
+    strided_err = check_strided_cache_view()
+    scans = [check_wkv_case(c, seed=100 + i) for i, c in enumerate(WKV_CASES)]
+    return [
+        kernel_entry("flash_attention",
+                     "src/repro/kernels/flash_attention.py:80", attention,
+                     strided_view_max_abs_err=strided_err),
+        kernel_entry("wkv6", "src/repro/kernels/rwkv6_scan.py:80", scans,
+                     library="none: no single PyTorch call computes wkv6"),
+    ]
 
 
 # ---------------------------------------------------------------------------
-# serve: the main path
+# serve: the main paths
 # ---------------------------------------------------------------------------
 
 def profile_decode(spec, rt, params, steps: int = 4) -> dict:
@@ -350,12 +529,20 @@ def profile_decode(spec, rt, params, steps: int = 4) -> dict:
     }
 
 
-def phase_serve(kernels: list, with_profile: bool = False) -> dict:
-    arch = get_arch("qwen3-14b")
-    spec = arch.spec
-    rt = RuntimeCfg(attention_impl="cuda")              # bf16 params and compute
+# each served model: its published widths, and the kernel its path runs once
+# per layer in every decode step and in the prefill
+SERVED = {
+    "qwen3-14b": dict(widths=(40, 5120, 17408, 151936), kernel="flash_attention"),
+    "rwkv6-7b": dict(widths=(32, 4096, 14336, 65536), kernel="wkv6"),
+}
+
+
+def phase_serve(name: str, kernels: list, with_profile: bool = False) -> dict:
+    spec = get_arch(name).spec
+    rt = RuntimeCfg()                    # bf16 params and compute, the kernels
+    served = SERVED[name]
     require((spec.n_layers, spec.d_model, spec.d_ff, spec.vocab)
-            == (40, 5120, 17408, 151936), "not the published qwen3-14b")
+            == served["widths"], f"not the published {name}")
     torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
     gen = torch.Generator(device=DEV).manual_seed(0)
@@ -384,7 +571,8 @@ def phase_serve(kernels: list, with_profile: bool = False) -> dict:
     prefill = make_prefill(spec, rt)
 
     # ---- the main path, with every launch count at 0 just before ----
-    fa.launches = 0
+    for module in COUNTERS.values():
+        module.launches = 0
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     done = engine.run(max_steps=kv_len)
@@ -394,7 +582,7 @@ def phase_serve(kernels: list, with_profile: bool = False) -> dict:
     last_logits = prefill(params, prefill_tokens)
     torch.cuda.synchronize()
     prefill_s = time.perf_counter() - t0
-    launches = fa.launches
+    counts = {k: module.launches for k, module in COUNTERS.items()}
     # ---- read just after ----
 
     require(len(done) == n_req,
@@ -408,14 +596,15 @@ def phase_serve(kernels: list, with_profile: bool = False) -> dict:
             f"prefill logits have shape {tuple(last_logits.shape)}")
     require(torch.isfinite(last_logits).all(),
             "prefill logits not finite")
+    kernel = served["kernel"]
     expected = engine.steps * spec.n_layers + spec.n_layers
-    require(launches == expected,
-            f"flash_attention launched {launches} times, expected "
+    require(counts[kernel] == expected,
+            f"{kernel} launched {counts[kernel]} times, expected "
             f"{engine.steps} steps x {spec.n_layers} + {spec.n_layers} = {expected}")
-    kernels[0]["launches"] = launches
-    for k in kernels:
-        require(k["launches"] > 0,
-                f"kernel {k['name']} never ran on the main path")
+    require(all(n == 0 for k, n in counts.items() if k != kernel),
+            f"{name} launched another model's kernel: {counts}")
+    entry = next(k for k in kernels if k["name"] == kernel)
+    entry["launches"] = counts[kernel]
 
     # a second prefill, now warm, for the time that is reported
     t0 = time.perf_counter()
@@ -439,7 +628,7 @@ def phase_serve(kernels: list, with_profile: bool = False) -> dict:
         "generated_tokens_per_s": generated / decode_s,
         "prefill_shape": [2, 2048], "prefill_first_ms": prefill_s * 1e3,
         "prefill_ms": prefill_warm_s * 1e3,
-        "flash_attention_launches": launches,
+        "kernel": kernel, "launches": counts,
         "launches_per_decode_step": spec.n_layers,
         "launches_per_prefill": spec.n_layers,
         "peak_memory_gb": torch.cuda.max_memory_allocated() / 1e9,
@@ -484,6 +673,48 @@ def phase_parity() -> dict:
             "tolerance": 1e-4}
 
 
+def phase_parity_rwkv() -> dict:
+    """The rwkv6 smoke spec in fp32: the same parameters through the wkv6
+    kernel on the card and through its plain version on the CPU.  Prefill of
+    40 tokens (one chunk of 40) and of 64 (two chunks of 32), and an engine
+    whose decode steps run the kernel with C = 1."""
+    spec = get_arch("rwkv6-7b").smoke
+    rt = RuntimeCfg(param_dtype="float32", compute_dtype="float32")
+    gen = torch.Generator(device=DEV).manual_seed(2)
+    params = init_params(spec, rt, gen, device=DEV)
+    cpu_params = lm._tree_map(lambda t: t.cpu(), params)
+    rng = np.random.RandomState(2)
+    prompts = [rng.randint(1, spec.vocab, size=rng.randint(3, 9))
+               for _ in range(3)]
+
+    def serve(p, device):
+        eng = Engine(spec, rt, p, batch_slots=2, kv_len=64, device=device)
+        for rid, pr in enumerate(prompts):
+            eng.submit(Request(rid=rid, prompt=pr, max_new=6))
+        return {r.rid: r.out for r in eng.run(max_steps=64)}
+
+    wkv.launches = 0
+    got, want = serve(params, DEV), serve(cpu_params, "cpu")
+    engine_launches = wkv.launches
+    require(engine_launches > 0, "the card's engine did not run the kernel")
+    require(sorted(got) == [0, 1, 2] and got == want,
+            f"greedy tokens differ: card {got}, cpu {want}")
+    errs = {}
+    for length in (40, 64):
+        tokens = torch.from_numpy(rng.randint(0, spec.vocab, size=(2, length)))
+        l_card = lm.forward(params, tokens.to(DEV), spec, rt)
+        l_cpu = lm.forward(cpu_params, tokens, spec, rt)
+        require(torch.isfinite(l_card).all(), "smoke logits not finite")
+        errs[length] = (l_card.cpu() - l_cpu).abs().max().item()
+        require(errs[length] <= 1e-4,
+                f"rwkv6 smoke logits ({length} tokens): card vs cpu max abs "
+                f"err {errs[length]}")
+    return {"spec": spec.name, "dtype": "float32", "requests": 3,
+            "tokens_equal": True, "engine_wkv6_launches": engine_launches,
+            "logits_max_abs_err": {f"S={k}": v for k, v in errs.items()},
+            "tolerance": 1e-4}
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--phases", default=",".join(PHASES),
@@ -525,11 +756,21 @@ def main(argv=None) -> int:
     if "serve" in phases:
         if not kernels:
             ap.error("the serve phase needs the kernels phase")
-        serve = phase_serve(kernels, with_profile=args.profile)
+        for name in SERVED:
+            emit("serve", **phase_serve(name, kernels,
+                                        with_profile=args.profile))
+            gc.collect()                 # free one model before the next
+            torch.cuda.empty_cache()
+        for k in kernels:
+            require(k["launches"] > 0,
+                    f"kernel {k['name']} never ran on the main path")
         print(json.dumps({"kernels": kernels}), flush=True)
-        emit("serve", **serve)
     if "parity" in phases:
+        # fp32 products in full fp32 on the card, as on the CPU (the defaults)
+        torch.backends.cuda.matmul.allow_tf32 = False
+        torch.backends.cudnn.allow_tf32 = False
         emit("parity", **phase_parity())
+        emit("parity", **phase_parity_rwkv())
 
     if set(phases) != set(PHASES):
         print(json.dumps({"ok": False, "partial": phases}), flush=True)

@@ -5,7 +5,8 @@ and nothing of ``repro``.  What it needs from a framework-free module of
 ``repro`` it keeps as its own copy (``core/assemble.py``).  Same
 sub-package and module names as ``repro`` where a counterpart exists.
 
-Ported so far — the serving path of dense GQA decoders:
+Ported so far — the serving path of dense GQA decoders (qwen3-14b) and of
+RWKV6 (rwkv6-7b):
 
     from repro_torch.configs import get
     from repro_torch.models import RuntimeCfg, init_params

@@ -24,7 +24,7 @@ ARCHS = (
     "deepseek-moe-16b", "deepseek-v2-236b", "internvl2-26b", "jamba-v0.1-52b",
     "rwkv6-7b",
 )
-PORTED = ("qwen3-14b",)
+PORTED = ("qwen3-14b", "rwkv6-7b")
 
 
 @dataclass(frozen=True)

@@ -16,12 +16,13 @@
 //
 // as an online softmax: running maximum m, running sum l and an fp32
 // accumulator per query row, rescaled as each kv tile arrives, and
-// out = acc / max(l, 1e-30) at the end.  Inputs are fp32 or bf16; every
-// product and sum is fp32 (the TPU kernel casts q, k and v to fp32 as well).
-// A masked score adds exactly 0 to l and acc, so a row with no visible key
-// returns zeros.  (The TPU kernel gives such a row the mean of v; the plain
-// PyTorch version beside the wrapper returns zeros like this kernel.  Such a
-// row does not occur in prefill or decode.)
+// out = acc / l at the end.  Inputs are fp32 or bf16; every product and sum
+// is fp32 (the TPU kernel casts q, k and v to fp32 as well).  A masked score
+// adds exactly 0 to l and acc, and a visible one at least exp(0) = 1 for the
+// row's maximum, so l = 0 at the end marks a row with no visible key.  Such a
+// row returns the mean of v over all Sk keys, as the oracle `ref_attention`
+// does (every score -1e30, softmax uniform), on a slow path that reads V once
+// more.  It does not occur in prefill or decode.
 //
 // How it differs from the TPU kernel, and why.
 //  * The TPU grid is (B, H, q-tiles, kv-tiles) with the kv axis sequential and
@@ -106,6 +107,19 @@ __device__ __forceinline__ float4 load4(const __nv_bfloat16* p) {
 __device__ __forceinline__ void store1(float* p, float x) { *p = x; }
 __device__ __forceinline__ void store1(__nv_bfloat16* p, float x) {
   *p = __float2bfloat16_rn(x);
+}
+
+// Column `col` of v averaged over all Sk keys, in fp32: the output of a row
+// that sees no key (0 when Sk = 0, as a softmax over no keys sums nothing).
+template <typename T>
+__device__ float mean_v(const T* vp, long long v_ss, int Sk, int col) {
+  float sum = 0.f;
+  for (int kk = 0; kk < Sk; ++kk) {
+    float4 x = load4(vp + (long long)kk * v_ss + (col & ~3));
+    const int j = col & 3;
+    sum += j == 0 ? x.x : j == 1 ? x.y : j == 2 ? x.z : x.w;
+  }
+  return Sk > 0 ? sum / (float)Sk : 0.f;
 }
 
 // Rows [row0, row0 + ROWS) of a [*, D] matrix with row stride `stride` into
@@ -290,12 +304,13 @@ flash_attention_kernel(const Params p) {
   for (int i = 0; i < TM; ++i) {
     const int r = ty * TM + i;
     if (r >= rows) continue;
-    const float denom = fmaxf(l[i], 1e-30f);
     T* orow = op + (long long)(q0 + r) * p.o_ss;
 #pragma unroll
     for (int c = 0; c < DC; ++c) {
       const int col = tx + kTX * c;
-      if (col < p.D) store1(orow + col, acc[i][c] / denom);
+      if (col >= p.D) continue;
+      store1(orow + col, l[i] > 0.f ? acc[i][c] / l[i]
+                                    : mean_v(vp, p.v_ss, p.Sk, col));
     }
   }
 }
@@ -442,7 +457,9 @@ flash_decode_kernel(const Params p) {
       l_all = fmaf(sW[i], sL[i], l_all);
       a_all = fmaf(sW[i], sAcc[i * DW + tid], a_all);
     }
-    store1(op + tid, a_all / fmaxf(l_all, 1e-30f));
+    // l_all = 0: no visible key (lo >= hi among them)
+    store1(op + tid, l_all > 0.f ? a_all / l_all
+                                 : mean_v(vp, p.v_ss, p.Sk, tid));
   }
 }
 

@@ -45,7 +45,8 @@ def flash_attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     """What the kernel computes, in plain PyTorch, all arithmetic in fp32.
 
     Materialises the ``[B, N, G, Sq, Sk]`` scores.  A query row with no
-    visible key returns zeros, as in the kernel."""
+    visible key returns the mean of v over all Sk keys, as the kernel and
+    the oracle ``ref.ref_attention`` do."""
     scale = 1.0 / math.sqrt(q.shape[-1])
     s = torch.einsum("bsngd,bknd->bngsk", q.float(), k.float()) * scale
     if softcap:
@@ -53,7 +54,8 @@ def flash_attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     mask = _visible(q.shape[1], k.shape[1], causal, window, q_offset, q.device)
     s = s.masked_fill(~mask, float("-inf"))
     p = torch.softmax(s, dim=-1)
-    p = torch.where(mask.any(-1)[:, None], p, torch.zeros_like(p))
+    p = torch.where(mask.any(-1)[:, None], p,
+                    torch.full_like(p, 1.0 / max(k.shape[1], 1)))
     return torch.einsum("bngsk,bknd->bsngd", p, v.float()).to(q.dtype)
 
 

@@ -6,6 +6,7 @@ from typing import Optional
 import torch
 
 from . import flash_attention as _fa
+from . import rwkv6_scan as _wkv
 
 
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
@@ -18,3 +19,15 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     is no transpose and no G-fold repeat of k and v on the way in."""
     return _fa.flash_attention(q, k, v, causal=causal, window=window,
                                softcap=softcap, q_offset=q_offset)
+
+
+def wkv6(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor, w: torch.Tensor,
+         u: torch.Tensor, state0: torch.Tensor, *, chunk: int = 32,
+         state_out: Optional[torch.Tensor] = None) -> tuple:
+    """Model-layout RWKV6 scan: r/k/v/w [B,S,N,D], u [N,D], state0
+    [B,N,D,D] -> (out [B,S,N,D] fp32, final state).
+
+    The kernel reads this layout by strides, so unlike the JAX wrapper there
+    are no transposes.  ``state_out`` (the port's addition) receives the final
+    state and may be ``state0`` itself, which is then updated in place."""
+    return _wkv.wkv6(r, k, v, w, u, state0, chunk=chunk, state_out=state_out)

@@ -29,3 +29,25 @@ def ref_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     s = torch.where(mask[None, None], s, torch.full_like(s, -1e30))
     p = torch.softmax(s, dim=-1)
     return torch.einsum("bhsk,bhkd->bhsd", p, v.float()).to(q.dtype)
+
+
+def ref_wkv(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+            w: torch.Tensor, u: torch.Tensor, state0: torch.Tensor) -> tuple:
+    """Sequential RWKV6 recurrence on [B, H, S, D]; u [H, D];
+    state0 [B, H, D, D].  Returns (out fp32, final state fp32).
+
+        out_t = r_t · (S_{t-1} + diag(u) k_t^T v_t)
+        S_t   = diag(w_t) S_{t-1} + k_t^T v_t
+
+    The exact recurrence, without the kernels' intra-chunk decay floor."""
+    r, k, v, w = (t.float() for t in (r, k, v, w))
+    u = u.float()
+    state = state0.float()
+    outs = []
+    for t in range(r.shape[2]):
+        rt, kt, vt, wt = r[:, :, t], k[:, :, t], v[:, :, t], w[:, :, t]
+        kv = kt[..., :, None] * vt[..., None, :]             # [B,H,D,D]
+        outs.append(torch.einsum("bhd,bhde->bhe", rt,
+                                 state + u[None, :, :, None] * kv))
+        state = wt[..., :, None] * state + kv
+    return torch.stack(outs, dim=2), state

@@ -1,4 +1,4 @@
-"""Runtime models of the port (dense GQA decoders so far)."""
+"""Runtime models of the port (dense GQA decoders and RWKV6 so far)."""
 from . import layers, lm
 from .common import Initializer, RuntimeCfg
 from .convert import params_from_reference

@@ -1,6 +1,6 @@
 """Layer library of the port: norms, RoPE, attention cores, the GQA
-attention layer and the FFN, as pure functions over ``{name: tensor}``
-subtrees.
+attention layer, the FFN and the RWKV6 block, as pure functions over
+``{name: tensor}`` subtrees.
 
 Shapes follow the JAX package so weights carry across leaf by leaf:
 
@@ -10,8 +10,10 @@ Shapes follow the JAX package so weights carry across leaf by leaf:
   through the hand-written kernel (``repro_torch.kernels``); ``"naive"`` is
   plain tensor code with materialised scores, kept as the reference the
   kernel is held against inside the model.
+* Every WKV recurrence of ``rwkv6_layer`` goes through ``kernels.ops.wkv6``:
+  the hand-written kernel for CUDA tensors, its plain version for CPU ones.
 
-Not ported yet: cross-attention (whisper), MLA, MoE, mamba, rwkv6.
+Not ported yet: cross-attention (whisper), MLA, MoE, mamba.
 """
 from __future__ import annotations
 
@@ -218,3 +220,104 @@ def ffn(p: dict, x: torch.Tensor, spec, rt: RuntimeCfg) -> torch.Tensor:
     else:
         act = F.gelu(up, approximate="tanh")     # jax.nn.gelu's default form
     return x + act @ cast(p["w_down"], rt)
+
+
+# ---------------------------------------------------------------------------
+# RWKV6 (Finch): chunked linear attention with data-dependent decay
+# ---------------------------------------------------------------------------
+
+def init_rwkv6(ini: Initializer, spec, prefix: str = "") -> dict:
+    H = spec.d_model
+    nh, dh = spec.n_heads, spec.head_dim
+    rk = spec.rwkv_decay_rank
+    p = {"ln": ini(prefix + "ln_tm", (H,)),
+         "u": ini(prefix + "u", (nh, dh), scale=1.0)}
+    for nm in ("r", "k", "v", "g"):
+        p[f"mu_{nm}"] = ini(prefix + f"mu_{nm}", (H,), scale=1.0)
+        p[f"w_{nm}"] = ini(prefix + f"w_{nm}", (H, nh, dh))
+    p["mu_w"] = ini(prefix + "mu_w", (H,), scale=1.0)
+    p["w_dec1"] = ini(prefix + "w_dec1", (H, rk))
+    p["w_dec2"] = ini(prefix + "w_dec2", (rk, nh, dh))
+    p["gn"] = ini(prefix + "gn", (dh,))
+    p["w_tmo"] = ini(prefix + "w_tmo", (nh, dh, H), scale=1.0 / math.sqrt(H))
+    # channel mix
+    p["ln_cm"] = ini(prefix + "ln_cm", (H,))
+    p["mu_ck"] = ini(prefix + "mu_ck", (H,), scale=1.0)
+    p["mu_cr"] = ini(prefix + "mu_cr", (H,), scale=1.0)
+    p["w_ck"] = ini(prefix + "w_ck", (H, spec.d_ff))
+    p["w_cv"] = ini(prefix + "w_cv", (spec.d_ff, H),
+                    scale=1.0 / math.sqrt(spec.d_ff))
+    p["w_cr"] = ini(prefix + "w_cr", (H, H))
+    return p
+
+
+def _token_shift(x: torch.Tensor, prev: Optional[torch.Tensor]) -> torch.Tensor:
+    """x_{t-1} stream ([B,S,H]); ``prev`` is the carried last token (zeros
+    before the first)."""
+    if prev is None:
+        prev = torch.zeros_like(x[:, 0])
+    return torch.cat([prev[:, None].to(x.dtype), x[:, :-1]], dim=1)
+
+
+WKV_CHUNK = 32
+
+
+def rwkv6_layer(p: dict, x: torch.Tensor, spec, rt: RuntimeCfg, *,
+                cache: Optional[dict] = None) -> tuple:
+    """Time mix + channel mix with residuals: x [B,S,H] -> (x', new cache).
+
+    ``cache`` (decode) is ``{"wkv": [B,N,D,D] fp32, "shift_tm", "shift_cm":
+    [B,H]}``.  Its tensors are **updated in place** (the kernel writes the new
+    state over the old one) and handed back in the new dict.  The chunk rule
+    is the JAX layer's: ``min(32, S)``, and one chunk of S when that does
+    not divide S; the chunk is part of the result (``kernels/rwkv6_scan.py``)."""
+    b, s, _ = x.shape
+    nh, dh = spec.n_heads, spec.head_dim
+    h = rms_norm(p["ln"], x)
+    shifted = _token_shift(h, cache["shift_tm"] if cache is not None else None)
+
+    def mix(nm):
+        return h + (shifted - h) * cast(p[f"mu_{nm}"], rt)
+
+    def heads(nm):
+        return torch.einsum("bsh,hnd->bsnd", mix(nm), cast(p[f"w_{nm}"], rt))
+
+    r, k, v = (heads(nm).float() for nm in ("r", "k", "v"))
+    g = heads("g")
+    d1 = mix("w") @ cast(p["w_dec1"], rt)
+    dec = torch.einsum("bsr,rnd->bsnd", d1, cast(p["w_dec2"], rt)).float()
+    w = torch.exp(-torch.exp(dec))                       # (0,1) decay
+
+    cs = min(WKV_CHUNK, s)
+    if s % cs:
+        cs = s
+    u = p["u"].float()
+    if cache is not None:
+        state0 = state_out = cache["wkv"]
+    else:
+        state0 = torch.zeros((b, nh, dh, dh), dtype=torch.float32,
+                             device=x.device)
+        state_out = None
+    from ..kernels import ops as kops
+    out, _ = kops.wkv6(r, k, v, w, u, state0, chunk=cs, state_out=state_out)
+    out = rms_norm(p["gn"], out.to(x.dtype))             # per-head groupnorm
+    out = out * F.silu(g)
+    x = x + torch.einsum("bsnd,ndh->bsh", out, cast(p["w_tmo"], rt))
+
+    # channel mix
+    hc = rms_norm(p["ln_cm"], x)
+    shifted_c = _token_shift(hc, cache["shift_cm"] if cache is not None
+                             else None)
+    mk = hc + (shifted_c - hc) * cast(p["mu_ck"], rt)
+    mr = hc + (shifted_c - hc) * cast(p["mu_cr"], rt)
+    kk = torch.square(F.relu(mk @ cast(p["w_ck"], rt)))
+    rr = torch.sigmoid(mr @ cast(p["w_cr"], rt))
+    x = x + (kk @ cast(p["w_cv"], rt)) * rr
+
+    new_cache = None
+    if cache is not None:
+        cache["shift_tm"].copy_(h[:, -1])
+        cache["shift_cm"].copy_(hc[:, -1])
+        new_cache = {"wkv": cache["wkv"], "shift_tm": cache["shift_tm"],
+                     "shift_cm": cache["shift_cm"]}
+    return x, new_cache

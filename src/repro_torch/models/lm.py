@@ -1,4 +1,4 @@
-"""Generic decoder LM of the port, for dense GQA decoders so far.
+"""Generic decoder LM of the port: dense GQA decoders and RWKV6 so far.
 
 The layer stack is grouped into a repeating *period* (1 for a plain decoder,
 2 for alternating local/global windows); the parameters of each slot of the
@@ -34,9 +34,7 @@ from .common import Initializer, RuntimeCfg, dt
 def _require_ported(spec) -> None:
     """Raise for a spec whose family the port does not run yet."""
     todo = None
-    if spec.block == "rwkv6":
-        todo = "rwkv6 blocks (ROADMAP.md queue 1, item 2: rwkv6-7b serving)"
-    elif spec.block == "mla" or spec.mla is not None:
+    if spec.block == "mla" or spec.mla is not None:
         todo = "MLA attention (ROADMAP.md queue 1, item 4: other families)"
     elif spec.block == "mamba" or spec.attn_every > 1:
         todo = "mamba / hybrid blocks (ROADMAP.md queue 1, item 4)"
@@ -46,7 +44,7 @@ def _require_ported(spec) -> None:
         todo = "encoder + cross-attention (ROADMAP.md queue 1, item 4)"
     elif spec.vision_seq:
         todo = "vision prefix (ROADMAP.md queue 1, item 4)"
-    elif spec.block != "gqa":
+    elif spec.block not in ("gqa", "rwkv6"):
         todo = f"block kind {spec.block!r}"
     if todo:
         raise NotImplementedError(
@@ -55,8 +53,11 @@ def _require_ported(spec) -> None:
 
 
 def _slot_kind(spec, layer: int) -> dict:
-    """Describe layer ``layer``: mixer kind, window, ffn kind.  Every layer
-    of a ported family is attention + FFN; only the window varies."""
+    """Describe layer ``layer``: mixer kind, window, ffn kind.  A GQA layer
+    is attention + FFN, only the window varies; an RWKV6 layer carries its
+    channel mix inside the block and has no separate FFN."""
+    if spec.block == "rwkv6":
+        return {"mixer": "rwkv", "window": None, "ffn": None}
     window = spec.window if spec._is_local_layer(layer) else None
     return {"mixer": "attn", "window": window, "ffn": "ffn"}
 
@@ -84,7 +85,9 @@ def _n_rep(spec) -> int:
 # ---------------------------------------------------------------------------
 
 
-def _init_slot(ini: Initializer, spec, prefix: str) -> dict:
+def _init_slot(ini: Initializer, spec, kind: dict, prefix: str) -> dict:
+    if kind["mixer"] == "rwkv":
+        return {"rwkv": L.init_rwkv6(ini, spec, prefix + "r_")}
     return {"attn": L.init_gqa(ini, spec, prefix + "a_"),
             "ffn": L.init_ffn(ini, spec, prefix=prefix + "f_")}
 
@@ -99,12 +102,13 @@ def _tree_map(fn, tree, *rest):
     return fn(tree, *rest)
 
 
-def _init_stack(ini: Initializer, spec, n_rep: int, s: int) -> dict:
+def _init_stack(ini: Initializer, spec, kind: dict, n_rep: int,
+                s: int) -> dict:
     """``n_rep`` slots stacked ``[n_rep, ...]``, filled one layer at a time so
     that the fp32 draw of only one layer is alive beside the stack."""
     stack: dict = {}
     for r in range(n_rep):
-        rep = _init_slot(ini, spec, f"l{r}s{s}_")
+        rep = _init_slot(ini, spec, kind, f"l{r}s{s}_")
         if r == 0:
             stack = _tree_map(
                 lambda t: torch.empty((n_rep,) + tuple(t.shape), dtype=t.dtype,
@@ -130,11 +134,12 @@ def init_params(spec, rt: RuntimeCfg, generator: Optional[torch.Generator] = Non
         "lm_head": ini("lm_head", (H, V)),
     }
     prefix_n, period = layer_pattern(spec)
-    params["prefix"] = [
-        _init_slot(ini, spec, f"pl{l}_") for l in range(prefix_n)]
+    params["prefix"] = [_init_slot(ini, spec, _slot_kind(spec, l), f"pl{l}_")
+                        for l in range(prefix_n)]
     n_rep = _n_rep(spec)
-    params["slots"] = [_init_stack(ini, spec, n_rep, s)
-                       for s in range(period)]
+    params["slots"] = [
+        _init_stack(ini, spec, _slot_kind(spec, prefix_n + s), n_rep, s)
+        for s in range(period)]
     return params
 
 
@@ -150,11 +155,16 @@ def _index(tree, i: int):
 
 def _apply_slot(p: dict, x, spec, rt, kind: dict, *, positions=None,
                 cache=None):
-    x, c = L.gqa_attention(p["attn"], x, spec, rt, positions=positions,
-                           window=kind["window"],
-                           cache=None if cache is None else cache.get("attn"))
-    new_cache = {"attn": c} if c is not None else None
-    x = L.ffn(p["ffn"], x, spec, rt)
+    name = kind["mixer"]
+    layer_cache = None if cache is None else cache.get(name)
+    if name == "rwkv":
+        x, c = L.rwkv6_layer(p["rwkv"], x, spec, rt, cache=layer_cache)
+    else:
+        x, c = L.gqa_attention(p["attn"], x, spec, rt, positions=positions,
+                               window=kind["window"], cache=layer_cache)
+    new_cache = {name: c} if c is not None else None
+    if kind["ffn"] == "ffn":
+        x = L.ffn(p["ffn"], x, spec, rt)
     return x, new_cache
 
 
@@ -193,6 +203,14 @@ def forward(params: dict, tokens, spec, rt: RuntimeCfg, *,
 def _slot_cache(spec, rt, kind: dict, lead: tuple, batch: int, kv_len: int,
                 device) -> dict:
     cdt = dt(rt.compute_dtype)
+    if kind["mixer"] == "rwkv":
+        nh, dh, H = spec.n_heads, spec.head_dim, spec.d_model
+        return {"rwkv": {
+            "wkv": torch.zeros(lead + (batch, nh, dh, dh), dtype=torch.float32,
+                               device=device),
+            "shift_tm": torch.zeros(lead + (batch, H), dtype=cdt, device=device),
+            "shift_cm": torch.zeros(lead + (batch, H), dtype=cdt,
+                                    device=device)}}
     nkv, dh = max(1, spec.n_kv_heads), spec.head_dim
     klen = min(kv_len, spec.window) if kind["window"] else kv_len
     shape = lead + (batch, klen, nkv, dh)
@@ -203,10 +221,12 @@ def _slot_cache(spec, rt, kind: dict, lead: tuple, batch: int, kv_len: int,
 
 def init_cache(spec, rt: RuntimeCfg, batch: int, kv_len: int, *,
                device=None) -> dict:
-    """Empty decode cache on ``device``: per slot of the period, k and v
-    stacked ``[n_rep, B, klen, NKV, DH]`` and one integer ``pos`` shared by
-    the stack's layers (the JAX package keeps ``pos`` as an ``[n_rep]``
-    array of equal entries)."""
+    """Empty decode cache on ``device``, per slot of the period: for
+    attention, k and v stacked ``[n_rep, B, klen, NKV, DH]`` and one integer
+    ``pos`` shared by the stack's layers (the JAX package keeps ``pos`` as an
+    ``[n_rep]`` array of equal entries); for RWKV6, the fp32 state ``wkv``
+    ``[n_rep, B, N, D, D]`` and the two token shifts ``[n_rep, B, H]`` in the
+    compute dtype.  An RWKV6 cache has no length: ``kv_len`` is not read."""
     _require_ported(spec)
     device = resolve_device(device)
     prefix_n, period = layer_pattern(spec)
@@ -225,10 +245,11 @@ def decode_step(params: dict, cache: dict, tokens, spec,
                 rt: RuntimeCfg) -> tuple:
     """One decode step: tokens [B, S_new] -> (logits [B, S_new, V], cache).
 
-    The cache's k and v tensors are **updated in place**; the returned cache
-    shares them and carries the advanced ``pos``.  As in the JAX package,
-    slot s of the period runs over all its repeats before slot s+1 starts
-    (for period 1 that is plain layer order)."""
+    The cache's tensors (k and v; the RWKV6 state and shifts) are **updated
+    in place**; the returned cache shares them and carries the advanced
+    ``pos``.  As in the JAX package, slot s of the period runs over all its
+    repeats before slot s+1 starts (for period 1 that is plain layer
+    order)."""
     _require_ported(spec)
     x = L.cast(params["embed"][tokens], rt)
     prefix_n, period = layer_pattern(spec)
@@ -243,14 +264,15 @@ def decode_step(params: dict, cache: dict, tokens, spec,
             new_cache["slots"].append({})
             continue
         kind = _slot_kind(spec, prefix_n + s)
-        ca = stack["attn"]
-        pos_after = ca["pos"]
-        for r in range(ca["k"].shape[0]):
-            layer_cache = {"attn": {"k": ca["k"][r], "v": ca["v"][r],
-                                    "pos": ca["pos"]}}
+        nc = stack
+        for r in range(_n_rep(spec)):
+            layer_cache = _tree_map(
+                lambda t: t[r] if isinstance(t, torch.Tensor) else t, stack)
             x, nc = _apply_slot(_index(params["slots"][s], r), x, spec, rt,
                                 kind, cache=layer_cache)
-            pos_after = nc["attn"]["pos"]
-        new_cache["slots"].append(
-            {"attn": {"k": ca["k"], "v": ca["v"], "pos": pos_after}})
+        # the stacked tensors were written in place; ``pos`` (attention)
+        # is the last layer's
+        new_cache["slots"].append(_tree_map(
+            lambda t, t_new: t if isinstance(t, torch.Tensor) else t_new,
+            stack, nc))
     return _logits(params, x, spec, rt), new_cache

@@ -7,8 +7,11 @@ their slot and queued requests claim it.
 Two properties carried over from the JAX engine, so that both produce the
 same greedy tokens: all slots share one position counter that advances every
 step, and a freed slot's cache rows are not reset, so a request admitted
-later attends to what earlier occupants of the slot wrote.  A run therefore
-needs ``kv_len`` >= its total number of steps; a step past ``kv_len`` raises.
+later attends to what earlier occupants of the slot wrote.  A run of an
+attention model therefore needs ``kv_len`` >= its total number of steps; a
+step past ``kv_len`` raises.  For a recurrent model (RWKV6) the slot's state
+is not reset either: a later request inherits the recurrent state that the
+slot's earlier occupants left, and empty slots keep stepping on token 0.
 """
 from __future__ import annotations
 

@@ -57,11 +57,12 @@ def test_import_leaves_jax_out_of_the_process():
 def test_kernel_sources_and_build_dir():
     from repro_torch.kernels import _build
     cu = sorted(p.name for p in (PKG / "kernels" / "csrc").glob("*.cu"))
-    assert cu == ["flash_attention.cu"]
-    assert _build.sources() == ["flash_attention"]
-    text = (PKG / "kernels" / "csrc" / "flash_attention.cu").read_text()
-    assert "__global__" in text and 'extern "C"' in text
-    assert "torch/extension.h" not in text
+    assert cu == ["flash_attention.cu", "rwkv6_scan.cu"]
+    assert _build.sources() == ["flash_attention", "rwkv6_scan"]
+    for name in cu:
+        text = (PKG / "kernels" / "csrc" / name).read_text()
+        assert "__global__" in text and 'extern "C"' in text
+        assert "torch/extension.h" not in text
     ignored = (ROOT / ".gitignore").read_text().splitlines()
     assert "src/repro_torch/kernels/_build/" in ignored
     assert _build.BUILD_DIR == PKG / "kernels" / "_build"
@@ -103,6 +104,14 @@ def test_wrapper_on_cpu_is_the_plain_version():
     kw = dict(causal=True, window=4, softcap=10.0, q_offset=4)
     assert torch.equal(fa.flash_attention(q, k, v, **kw),
                        fa.flash_attention_plain(q, k, v, **kw))
+    from repro_torch.kernels import rwkv6_scan as wkv
+    r, k, v = (torch.randn(2, 8, 3, 16, generator=g) for _ in range(3))
+    w = torch.rand(2, 8, 3, 16, generator=g)
+    u, s0 = torch.randn(3, 16, generator=g), torch.randn(2, 3, 16, 16,
+                                                         generator=g)
+    got, want = wkv.wkv6(r, k, v, w, u, s0, chunk=4), \
+        wkv.wkv6_plain(r, k, v, w, u, s0, chunk=4)
+    assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
 
 
 def test_chip_smoke_refuses_without_a_card():

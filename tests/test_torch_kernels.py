@@ -154,14 +154,25 @@ def test_strided_views_match_contiguous():
     assert torch.equal(got, want)
 
 
-def test_row_without_visible_key_is_zero():
-    """Stated in the kernel's source: such a row returns zeros (the oracle
-    averages v instead).  Window 4 without the causal mask: queries far past
-    the last key see nothing."""
-    q, k, v = _qkv(9, 1, 1, 4, 8, 16)
-    got = fa.flash_attention_bhsd(to_torch(q), to_torch(k), to_torch(v),
-                                  causal=False, window=4, q_offset=20)
-    assert torch.count_nonzero(got) == 0 and torch.isfinite(got).all()
+@pytest.mark.parametrize("sq,sk,q_offset,causal,window,dtype", [
+    (4, 8, 20, False, 4, "float32"),    # no row sees a key
+    (6, 8, 7, False, 4, "float32"),     # rows 0-3 see keys, rows 4-5 none
+    (1, 8, 20, False, 4, "float32"),    # one row (the decode shape)
+    (1, 8, 20, True, 4, "float32"),     # causal: the window still hides all
+    (4, 8, 20, False, 4, "bfloat16"),
+])
+def test_row_without_visible_key_matches_ref(sq, sk, q_offset, causal, window,
+                                             dtype):
+    """A row with no visible key returns the mean of v over all Sk keys, as
+    the JAX package's oracle does (every score -1e30, softmax uniform)."""
+    q, k, v = _qkv(9, 1, 2, sq, sk, 16)
+    kw = dict(causal=causal, window=window, q_offset=q_offset)
+    want = jref.ref_attention(*(to_jax(t, dtype) for t in (q, k, v)), **kw)
+    got = fa.flash_attention_bhsd(*(to_torch(t, dtype) for t in (q, k, v)),
+                                  **kw)
+    _close(got, want, TOL[dtype])
+    _close(ref.ref_attention(*(to_torch(t, dtype) for t in (q, k, v)), **kw),
+           want, TOL[dtype])
 
 
 @pytest.mark.parametrize("bad", ["dtype", "heads", "rank", "window", "kv"])

@@ -56,10 +56,10 @@ def test_unported_arch_raises(name):
 
 
 @pytest.mark.parametrize("kw", [
-    dict(block="rwkv6"), dict(block="mla"), dict(block="mamba"),
+    dict(block="mla"), dict(block="mamba"),
     dict(attn_every=2), dict(moe=MoESpec(n_experts=4, top_k=2, d_expert=8)),
     dict(encoder_layers=2), dict(vision_seq=4)],
-    ids=["rwkv6", "mla", "mamba", "hybrid", "moe", "encoder", "vision"])
+    ids=["mla", "mamba", "hybrid", "moe", "encoder", "vision"])
 def test_unported_family_raises(kw):
     spec = ModelSpec(name="x", n_layers=2, d_model=32, n_heads=2, n_kv_heads=2,
                      d_ff=64, vocab=32, **kw)
