@@ -3,28 +3,38 @@
 
     python3 chip_smoke.py              # everything, on one CUDA device
     python3 chip_smoke.py --phases build,kernels --ptxas-info
+    python3 chip_smoke.py --phases build,kernels,sweep --profile
 
 Phases, one JSON line each on standard output:
 
   device   torch version, the card's name and power limit (nvidia-smi)
   build    compiles every CUDA source of ``repro_torch/kernels/csrc`` with nvcc,
            one compiler process per source, all started together
-  kernels  each hand-written kernel (flash_attention, wkv6) against its plain
-           PyTorch version on the card, at the shapes of the main paths and at
-           edge shapes: max abs error vs a stated tolerance, kernel / plain /
-           library time and the card's bound for the same work
+  kernels  each hand-written kernel (flash_attention, wkv6, cost_reduce)
+           against its plain PyTorch version on the card, at the shapes of the
+           main paths and at edge shapes: max abs error vs a stated tolerance,
+           kernel / plain / library time and the card's bound for the same work
   serve    two served models, one after the other, each at published width
            and depth, bf16, random weights from a seed: qwen3-14b (attention
            through flash_attention), then rwkv6-7b (every WKV recurrence
            through wkv6).  For each, an Engine with 8 slots answers 16
            requests, then one [2, 2048] prefill.  Every launch count is set to
            0 just before each model's run and read just after
+  sweep    the generator's design-space sweep on the batched backend:
+           dse.sweep over every (dp, tp, cp, pp) factorisation of 64 devices
+           for qwen3-14b's published spec, train, batch 256 x seq 4096, on
+           H100_HGX, every busy-group contraction through cost_reduce; each
+           point held against the compiled backend (rel 1e-6) and the whole
+           sweep against the same sweep on the CPU (rel 1e-10).  Every launch
+           count is set to 0 just before the sweep and read just after
   parity   the smoke specs in fp32 on the card: qwen3 attention through the
            kernel against the naive core; rwkv6 through the wkv6 kernel
            against the same parameters on the CPU (the plain version).  Same
            greedy tokens and logits within 1e-4
 
-Then the line nvidia-smi gives for the card, and as the last line
+Each phase line carries the seconds since the script started.  After serve
+and sweep, the ``kernels`` line: every kernel with its launches on the main
+paths.  Then the line nvidia-smi gives for the card, and as the last line
 ``{"ok": true, "device": {...}}``.  Any failure is an exception and a non-zero
 exit code; without a CUDA device the script exits non-zero before any phase.
 """
@@ -49,7 +59,9 @@ if not torch.cuda.is_available():
     sys.exit(1)
 
 from repro_torch.configs import get as get_arch  # noqa: E402
+from repro_torch.core import dse  # noqa: E402
 from repro_torch.kernels import _build  # noqa: E402
+from repro_torch.kernels import cost_reduce as cr  # noqa: E402
 from repro_torch.kernels import flash_attention as fa  # noqa: E402
 from repro_torch.kernels import ref  # noqa: E402
 from repro_torch.kernels import rwkv6_scan as wkv  # noqa: E402
@@ -61,7 +73,8 @@ DEV = torch.device("cuda", 0)
 # NVIDIA H100 SXM data sheet, dense rates at the full 700 W power limit
 PEAK_BYTES_PER_S = 3.35e12
 PEAK_FLOPS = {torch.bfloat16: 989e12,     # tensor cores
-              torch.float32: 67e12}       # fp32 units; exact fp32 products
+              torch.float32: 67e12,       # fp32 units; exact fp32 products
+              torch.float64: 67e12}       # fp64 tensor cores (DMMA)
 # kernel vs plain version: |err| <= absolute + relative * |plain|.  fp32 sums
 # differ only in their order.  bf16 outputs are rounded once on each side, so
 # two bf16 ulps relative, and a hundredth of the output's rms so that the
@@ -69,11 +82,12 @@ PEAK_FLOPS = {torch.bfloat16: 989e12,     # tensor cores
 TOL = {torch.float32: dict(absolute=2e-5, rms_share=0.0, relative=2e-5),
        torch.bfloat16: dict(absolute=0.0, rms_share=1e-2, relative=2.0 ** -7)}
 
-PHASES = ("build", "kernels", "serve", "parity")
+PHASES = ("build", "kernels", "serve", "sweep", "parity")
 # the kernels' wrapper modules, each with its launch count, and their sources
-COUNTERS = {"flash_attention": fa, "wkv6": wkv}
+COUNTERS = {"flash_attention": fa, "wkv6": wkv, "cost_reduce": cr}
 SOURCES = {"flash_attention": "src/repro_torch/kernels/csrc/flash_attention.cu",
-           "wkv6": "src/repro_torch/kernels/csrc/rwkv6_scan.cu"}
+           "wkv6": "src/repro_torch/kernels/csrc/rwkv6_scan.cu",
+           "cost_reduce": "src/repro_torch/kernels/csrc/cost_reduce.cu"}
 
 
 def require(ok, message) -> None:
@@ -82,8 +96,13 @@ def require(ok, message) -> None:
         raise AssertionError(message)
 
 
+START = time.perf_counter()
+
+
 def emit(name: str, **fields) -> None:
-    print(json.dumps({"phase": name, **fields}), flush=True)
+    """One phase's JSON line, with the seconds since the script started."""
+    print(json.dumps({"phase": name, **fields,
+                      "elapsed_s": time.perf_counter() - START}), flush=True)
 
 
 def nvidia_smi_line() -> str:
@@ -450,6 +469,125 @@ def check_wkv_case(case, seed: int) -> dict:
     }
 
 
+# cost_reduce, out[b, e] = sum_t x[b, t] w[e, t]: x [B, T], w [E, T].  The
+# reference's four shapes (tests/test_kernels.py) in fp32 and fp64, and the
+# two shapes the batched sweep gives it (first is the main path's): a pp = 1
+# structure class (K = 4189 slot entries, 2 busy groups) and a pp = 2 class
+# (6 groups), with x as the path makes it (positive durations) and w as 0/1
+# group-membership rows (each slot in one group, compute and comm apart).
+F64 = torch.float64
+COST_CASES = [
+    dict(name="path-pp1", main=True, B=64, E=2, T=4189, dtype=F64,
+         rows="membership"),
+    dict(name="path-pp2", main=True, B=64, E=6, T=4191, dtype=F64,
+         rows="membership"),
+    *[dict(name=f"ref-{b}x{e}x{t}", B=b, E=e, T=t, dtype=dt, rows="normal")
+      for dt in (F32, F64)
+      for b, e, t in ((1, 1, 1), (4, 7, 33), (128, 128, 128), (130, 257, 140))],
+    # integer counts (0/1/k rows, integer x): the sums are exact
+    dict(name="counts-f32", B=130, E=9, T=4189, dtype=F32, rows="counts"),
+    dict(name="counts-f64", B=64, E=6, T=4191, dtype=F64, rows="counts"),
+]
+# kernel vs plain version.  fp32: the reference's 1e-4 + 1e-4 |x|.  fp64:
+# 1e-12 of sum_t |x||w| per output (the two differ only in the order of the
+# sum; 4 200 terms move a float64 sum by ~1e-13 of that at most).  Counts:
+# exact.  Dropping one t term is refused by each limit: the script checks.
+COST_TOL = {F32: dict(absolute=1e-4, relative=1e-4),
+            F64: dict(scale=1e-12)}
+
+
+def cost_inputs(case, gen):
+    B, E, T, dtype = case["B"], case["E"], case["T"], case["dtype"]
+    rows = case["rows"]
+    if rows == "normal":
+        return (torch.randn((B, T), generator=gen, device=DEV, dtype=F64),
+                torch.randn((E, T), generator=gen, device=DEV, dtype=F64))
+    if rows == "membership":
+        x = torch.rand((B, T), generator=gen, device=DEV, dtype=F64) * 1e-3
+        group = torch.randint(0, E, (T,), generator=gen, device=DEV)
+        keep = torch.rand((T,), generator=gen, device=DEV) < 0.5
+        w = torch.zeros((E, T), device=DEV, dtype=F64)
+        w[group, torch.arange(T, device=DEV)] = keep.to(F64)
+        return x, w
+    x = torch.randint(0, 1000, (B, T), generator=gen, device=DEV).to(F64)
+    w = torch.randint(0, 4, (E, T), generator=gen, device=DEV).to(F64)
+    w[w == 3] = 0                                  # mostly 0/1, some 2
+    return x, w
+
+
+def cost_allowed(want, x, w):
+    tol = COST_TOL[want.dtype]
+    if want.dtype == F64:
+        return tol["scale"] * (x.abs() @ w.abs().T)
+    return tol["absolute"] + tol["relative"] * want.abs()
+
+
+def cost_bound(case, w) -> tuple:
+    """(bound_ms, bound_by): x, w read once and out written once against
+    the operations these inputs need, 2 B nnz(w) (a zero of a membership row
+    needs none), at the peak rate of the type."""
+    B, E, T, dtype = case["B"], case["E"], case["T"], case["dtype"]
+    size = torch.empty((), dtype=dtype).element_size()
+    t_bytes = (B * T + E * T + B * E) * size / PEAK_BYTES_PER_S
+    t_ops = 2 * B * int(torch.count_nonzero(w)) / PEAK_FLOPS[dtype]
+    return (max(t_bytes, t_ops) * 1e3,
+            "bytes" if t_bytes >= t_ops else "operations")
+
+
+def check_cost_case(case, seed: int) -> dict:
+    gen = torch.Generator(device=DEV).manual_seed(seed)
+    x64, w64 = cost_inputs(case, gen)
+    dtype, name = case["dtype"], case["name"]
+    x, w = x64.to(dtype).contiguous(), w64.to(dtype).contiguous()
+    before = cr.launches
+    got = cr.cost_reduce_bet(x, w)
+    again = cr.cost_reduce_bet(x, w)
+    torch.cuda.synchronize()
+    require(cr.launches == before + 2, "the wrapper did not count its launches")
+    require(torch.equal(got, again), f"cost_reduce {name}: two runs differ")
+    want = cr.cost_reduce_plain(x, w)
+    require(got.shape == want.shape and got.dtype == want.dtype,
+            f"cost_reduce {name}: kernel and plain version differ in shape "
+            f"or dtype")
+    require(torch.isfinite(got).all(), f"cost_reduce {name}: not finite")
+    err = (got - want).abs()
+    if case["rows"] == "counts":
+        exact = (x.double() @ w.double().T).to(dtype)
+        require(torch.equal(got, exact),
+                f"cost_reduce {name}: integer counts not exact "
+                f"(max abs err {(got - exact).abs().max().item()})")
+        allowed = torch.zeros_like(want)
+        share = 0.0
+    else:
+        allowed = cost_allowed(want, x, w)
+        require(not (err > allowed).any(),
+                f"cost_reduce {name}: kernel disagrees with its plain "
+                f"version: max abs err {err.max().item():.3e}, "
+                f"{COST_TOL[dtype]}")
+        share = (err / allowed).max().item()
+    # a kernel that drops one t term is refused by this limit
+    t0 = int((x.abs().amax(0) * w.abs().amax(0)).argmax())
+    x_lost = x.clone()
+    x_lost[:, t0] = 0
+    lost = cr.cost_reduce_plain(x_lost, w)
+    require(((lost - want).abs() > allowed).any(),
+            f"cost_reduce {name}: the tolerance would let a lost term pass")
+    bound_ms, bound_by = cost_bound(case, w)
+    return {
+        "shape": name, "main_path": bool(case.get("main")),
+        "B": case["B"], "E": case["E"], "T": case["T"],
+        "dtype": str(dtype)[6:], "rows": case["rows"],
+        "max_abs_err": err.max().item(), "max_err_over_allowed": share,
+        "tolerance": "exact" if case["rows"] == "counts" else COST_TOL[dtype],
+        "deterministic": True,
+        "lost_term_max_change": (lost - want).abs().max().item(),
+        "ms": time_ms(lambda: cr.cost_reduce_bet(x, w)),
+        "plain_ms": time_ms(lambda: cr.cost_reduce_plain(x, w)),
+        "library_ms": time_ms(lambda: torch.matmul(x, w.T)),
+        "bound_ms": bound_ms, "bound_by": bound_by,
+    }
+
+
 def kernel_entry(name: str, replaces: str, shapes: list, **extra) -> dict:
     """One kernel's entry of the ``kernels`` line; the top-level numbers are
     those of its main path's prefill shape (the first)."""
@@ -470,12 +608,15 @@ def phase_kernels() -> list:
                  for i, c in enumerate(ATTENTION_CASES)]
     strided_err = check_strided_cache_view()
     scans = [check_wkv_case(c, seed=100 + i) for i, c in enumerate(WKV_CASES)]
+    costs = [check_cost_case(c, seed=200 + i) for i, c in enumerate(COST_CASES)]
     return [
         kernel_entry("flash_attention",
                      "src/repro/kernels/flash_attention.py:80", attention,
                      strided_view_max_abs_err=strided_err),
         kernel_entry("wkv6", "src/repro/kernels/rwkv6_scan.py:80", scans,
                      library="none: no single PyTorch call computes wkv6"),
+        kernel_entry("cost_reduce", "src/repro/kernels/cost_reduce.py:49",
+                     costs, library="torch.matmul(x, w.T)"),
     ]
 
 
@@ -637,6 +778,238 @@ def phase_serve(name: str, kernels: list, with_profile: bool = False) -> dict:
 
 
 # ---------------------------------------------------------------------------
+# sweep: the generator's design-space sweep on the batched backend
+# ---------------------------------------------------------------------------
+
+# qwen3-14b's published spec, a training step of 256 x 4096 tokens, every
+# power-of-two (dp, tp, cp, pp) factorisation of 64 devices with up to 8
+# pipeline stages, 1 or 8 microbatches, 1f1b.  H100_HGX is a flat profile, so
+# every point evaluates on the batched backend (a topology profile such as
+# H100_HGX_POD would send each one to the per-config compiled path).
+SWEEP = dict(arch="qwen3-14b", batch=256, seq=4096, world=64,
+             enum=dict(max_pp=8, microbatches=(1, 8), schedule="1f1b"))
+# the batched backend against the compiled one: the reference's parity
+# budget (tests/test_batched_parity.py); the card against the CPU: both run
+# the same float64 arithmetic, apart from the order of index_add_'s atomic
+# sums and of the matmuls' sums on the card
+SWEEP_REL = 1e-6
+CARD_VS_CPU_REL = 1e-10
+SIM_FIELDS = ("step_time", "compute_time", "comm_time")
+MEM_FIELDS = ("weights", "grads", "opt_states", "master_params",
+              "peak_activation", "recompute_extra", "peak_bytes")
+
+
+def _worst(points, reference):
+    """Largest error of ``points`` against ``reference`` (a dict by label),
+    as tests/test_batched_parity.py measures it: relative for step,
+    compute, comm time and the memory terms; exposed comm (a difference of
+    near-equal spans) relative to the step time; the bubble fraction
+    absolute."""
+    worst = 0.0
+    for p in points:
+        q = reference[p.label]
+        for f in SIM_FIELDS:
+            a, b = getattr(q.sim, f), getattr(p.sim, f)
+            worst = max(worst, abs(a - b) / max(abs(a), 1e-30))
+        worst = max(worst, abs(q.sim.exposed_comm - p.sim.exposed_comm)
+                    / q.sim.step_time,
+                    abs(q.sim.bubble_fraction - p.sim.bubble_fraction))
+        for f in MEM_FIELDS:
+            a, b = getattr(q.mem, f), getattr(p.mem, f)
+            worst = max(worst, abs(a - b) / max(abs(a), 1e-30))
+        require(q.mem.inflight_factor == p.mem.inflight_factor
+                and q.sim.schedule == p.sim.schedule,
+                f"{p.label}: inflight factor or schedule differ")
+    return worst
+
+
+def _class_call_split(prof, calls: int) -> dict:
+    """Host seconds per class call from the spans of one evaluate_many:
+    the scan loop, the two cost_reduce calls, the replay, the rest."""
+    tot = prof.totals()
+
+    def total(name):
+        return tot.get(name, {}).get("total_s", 0.0)
+    call = total("batched.class_call")
+    parts = {"scan": total("batched.scan"),
+             "cost_reduce": total("batched.cost_reduce"),
+             "replay": total("batched.replay")}
+    parts["rest"] = call - sum(parts.values())
+    return {"class_call_s": call / calls,
+            **{f"{k}_s": v / calls for k, v in parts.items()},
+            "scan_share": parts["scan"] / call if call else None,
+            "outside_class_calls_s": (total("batched.evaluate_many") - call)
+            / calls}
+
+
+def profile_sweep(bengine, cfgs, hw) -> dict:
+    """Device-busy time and idle share of one warm evaluate_many, from
+    torch.profiler (``--profile``)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        bengine.evaluate_many(cfgs, hw)
+        torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+
+    def device_us(e):
+        return getattr(e, "self_device_time_total",
+                       getattr(e, "self_cuda_time_total", 0.0))
+    events = [e for e in prof.key_averages()
+              if e.device_type == DeviceType.CUDA and device_us(e) > 0]
+    if not events:
+        return {"device_busy_s": "not measured",
+                "reason": "the profiler recorded no device time"}
+    busy = sum(device_us(e) for e in events) / 1e6
+    top = sorted(events, key=device_us, reverse=True)[:8]
+    ours = [e for e in events if "cost_reduce_kernel" in e.key]
+    calls = sum(e.count for e in ours)
+    return {"cost_reduce_device_ms_per_launch":
+            sum(device_us(e) for e in ours) / 1e3 / calls if calls else None,
+            "cost_reduce_launches_traced": calls,
+            "wall_s_profiled": wall, "device_busy_s": busy,
+            "device_idle_share": max(0.0, 1.0 - busy / wall),
+            "device_kernels": sum(e.count for e in events),
+            "top_device_s": [{"name": e.key[:60], "s": device_us(e) / 1e6,
+                              "calls": e.count} for e in top]}
+
+
+def phase_sweep(kernels: list, with_profile: bool = False) -> dict:
+    from repro_torch.core import (H100_HGX, CompiledBackend, bind_env,
+                                  build_graph, total_layers)
+    from repro_torch.core.batched import BatchedBackend
+    from repro_torch.obs import spans
+    spec = get_arch(SWEEP["arch"]).spec
+    require((spec.n_layers, spec.d_model, spec.d_ff, spec.vocab)
+            == SERVED[SWEEP["arch"]]["widths"], "not the published qwen3-14b")
+    world, enum = SWEEP["world"], SWEEP["enum"]
+    env = bind_env(spec, batch=SWEEP["batch"], seq=SWEEP["seq"], mode="train")
+    t0 = time.perf_counter()
+    src = build_graph(spec, mode="train")
+    assemble_s = time.perf_counter() - t0
+
+    def build():
+        return src.clone().graph
+    n_layers = total_layers(spec)
+    engine = CompiledBackend(build, env, n_layers=n_layers)
+    bengine = BatchedBackend(engine, device=DEV)
+    n_cfgs = len(list(dse.enumerate_configs(world, **enum)))
+    kw = dict(n_layers=n_layers, name=spec.name, backend="batched", **enum)
+
+    # ---- the main path, with every launch count at 0 just before ----
+    torch.cuda.reset_peak_memory_stats()
+    for module in COUNTERS.values():
+        module.launches = 0
+    start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+    torch.cuda.synchronize()
+    with spans.profiled() as prof:
+        t0 = time.perf_counter()
+        start.record()
+        res = dse.sweep(build, env, world, H100_HGX, engine=bengine, **kw)
+        end.record()
+        torch.cuda.synchronize()
+        sweep_s = time.perf_counter() - t0
+    counts = {k: module.launches for k, module in COUNTERS.items()}
+    sweep_events_s = start.elapsed_time(end) / 1e3
+    # ---- read just after ----
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+
+    bstats, estats = res.batch_stats, res.engine_stats
+    calls = len(bstats["batch_sizes"])
+    prefiltered = sum(1 for s in res.skipped if s.prefiltered)
+    require(len(res) > 0, "the sweep found no feasible point")
+    require(bstats["points"] == len(res),
+            f"{len(res) - bstats['points']} of {len(res)} points went to the "
+            f"compiled path")
+    require(counts["cost_reduce"] == 2 * calls,
+            f"cost_reduce launched {counts['cost_reduce']} times for {calls} "
+            f"class calls (want 2 each)")
+    require(all(n == 0 for k, n in counts.items() if k != "cost_reduce"),
+            f"the sweep launched a model's kernel: {counts}")
+    for p in res:
+        require(all(np.isfinite([p.sim.step_time, p.sim.comm_time,
+                                 p.mem.peak_bytes]))
+                and p.sim.step_time > 0, f"{p.label}: not a finite step")
+    entry = next(k for k in kernels if k["name"] == "cost_reduce")
+    entry["launches"] = counts["cost_reduce"]
+    totals = prof.totals()
+
+    # every point against the compiled backend (rel 1e-6)
+    t0 = time.perf_counter()
+    compiled = {p.label: dse.evaluate_point_compiled(engine, p.cfg, H100_HGX,
+                                                     reuse=True)
+                for p in res}
+    compiled_s = time.perf_counter() - t0
+    worst_compiled = _worst(res, compiled)
+    require(worst_compiled <= SWEEP_REL,
+            f"batched vs compiled: {worst_compiled:.3e} > {SWEEP_REL}")
+
+    # the same sweep on the CPU, matched by label (ties may reorder)
+    t0 = time.perf_counter()
+    cpu = dse.sweep(build, env, world, H100_HGX,
+                    engine=BatchedBackend(engine, device="cpu"), **kw)
+    cpu_s = time.perf_counter() - t0
+    require(sorted(p.label for p in cpu) == sorted(p.label for p in res)
+            and len(cpu.skipped) == len(res.skipped),
+            "the card's and the CPU's sweeps differ in points or skips")
+    worst_cpu = _worst(res, {p.label: p for p in cpu})
+    require(worst_cpu <= CARD_VS_CPU_REL,
+            f"card vs cpu: {worst_cpu:.3e} > {CARD_VS_CPU_REL}")
+
+    # a warm evaluation of the same points, every class kernel built
+    feasible = [p.cfg for p in res]
+    torch.cuda.synchronize()
+    with spans.profiled() as warm_prof:
+        t0 = time.perf_counter()
+        start.record()
+        bengine.evaluate_many(feasible, H100_HGX)
+        end.record()
+        torch.cuda.synchronize()
+        warm_s = time.perf_counter() - t0
+    warm_events_s = start.elapsed_time(end) / 1e3
+    extra = {}
+    if with_profile:
+        extra["profile"] = profile_sweep(bengine, feasible, H100_HGX)
+
+    def span_s(name):
+        return totals.get(name, {}).get("total_s", 0.0)
+    best = res[0]
+    return {
+        **extra,
+        "model": spec.name, "layers": spec.n_layers, "mode": "train",
+        "batch": SWEEP["batch"], "seq": SWEEP["seq"], "world": world,
+        "hw": H100_HGX.name, "enumerate": {k: list(v) if isinstance(v, tuple)
+                                           else v for k, v in enum.items()},
+        "configs": n_cfgs, "feasible_configs": n_cfgs - prefiltered,
+        "points": len(res), "batched_points": bstats["points"],
+        "skipped": len(res.skipped), "prefiltered": prefiltered,
+        "structure_classes": estats["classes"],
+        "class_kernels": bstats["kernels"], "class_calls": calls,
+        "batch_sizes": {"mean": bstats["points"] / calls,
+                        "max": max(bstats["batch_sizes"])},
+        "cost_reduce_launches": counts["cost_reduce"],
+        "assemble_s": assemble_s, "sweep_s": sweep_s,
+        "sweep_s_cuda_events": sweep_events_s,
+        "lowering_s": span_s("compiled.lower"),
+        "class_kernel_build_s": span_s("batched.kernel_build"),
+        "evaluate_many_s": span_s("batched.evaluate_many"),
+        "points_per_s": len(res) / sweep_s,
+        "warm_evaluate_s": warm_s, "warm_evaluate_s_cuda_events":
+        warm_events_s, "warm_points_per_s": len(res) / warm_s,
+        "per_class_call_warm": _class_call_split(warm_prof, calls),
+        "peak_memory_gb": peak_gb,
+        "vs_compiled_worst_share_of_rel": worst_compiled / SWEEP_REL,
+        "compiled_check_s": compiled_s,
+        "card_vs_cpu_worst": worst_cpu, "card_vs_cpu_rel": CARD_VS_CPU_REL,
+        "cpu_sweep_s": cpu_s,
+        "best": {"label": best.label, "step_ms": best.step_ms,
+                 "peak_gb": best.peak_gb},
+    }
+
+
+# ---------------------------------------------------------------------------
 # parity: the kernel inside the model against the naive core
 # ---------------------------------------------------------------------------
 
@@ -726,7 +1099,8 @@ def main(argv=None) -> int:
     ap.add_argument("--profile", action="store_true",
                     help="serve phase: also trace four decode steps with "
                          "torch.profiler (device-busy time, idle share, top "
-                         "kernels)")
+                         "kernels); sweep phase: the same for one warm "
+                         "evaluation of the sweep's points")
     args = ap.parse_args(argv)
     phases = [p for p in args.phases.split(",") if p]
     unknown = set(phases) - set(PHASES)
@@ -751,19 +1125,25 @@ def main(argv=None) -> int:
                 sys.stderr.write(f"---- ptxas: {name} ----\n{log}\n")
     if "kernels" in phases:
         kernels = phase_kernels()
-        if "serve" not in phases:
+        if "serve" not in phases and "sweep" not in phases:
             print(json.dumps({"kernels": kernels}), flush=True)
+    if ("serve" in phases or "sweep" in phases) and not kernels:
+        ap.error("the serve and sweep phases need the kernels phase")
     if "serve" in phases:
-        if not kernels:
-            ap.error("the serve phase needs the kernels phase")
         for name in SERVED:
             emit("serve", **phase_serve(name, kernels,
                                         with_profile=args.profile))
             gc.collect()                 # free one model before the next
             torch.cuda.empty_cache()
+    if "sweep" in phases:
+        emit("sweep", **phase_sweep(kernels, with_profile=args.profile))
+    if "serve" in phases or "sweep" in phases:
+        ran = {"flash_attention": "serve", "wkv6": "serve",
+               "cost_reduce": "sweep"}
         for k in kernels:
-            require(k["launches"] > 0,
-                    f"kernel {k['name']} never ran on the main path")
+            if ran[k["name"]] in phases:
+                require(k["launches"] > 0,
+                        f"kernel {k['name']} never ran on the main path")
         print(json.dumps({"kernels": kernels}), flush=True)
     if "parity" in phases:
         # fp32 products in full fp32 on the card, as on the CPU (the defaults)

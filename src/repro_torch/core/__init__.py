@@ -1,5 +1,46 @@
-"""The part of the generator's ``core`` that the runtime needs: the model
-specification dataclasses.  The symbolic pipeline itself is not ported yet."""
-from .assemble import MLASpec, ModelSpec, MoESpec, SSMSpec
+"""STAGE core: the paper's Symbolic Tensor Graph generator (own copy of
+``repro.core``; sympy + numpy, with the batched evaluator in PyTorch).
 
-__all__ = ["ModelSpec", "MoESpec", "MLASpec", "SSMSpec"]
+Pipeline (paper Fig 3):
+  ModelSpec -> build_graph (templates + assembly) -> distribute (tensor-
+  level + matcher) -> apply_pipeline (graph-level) -> instantiate
+  (symbolic -> numeric) -> {memory, costmodel, simulate, dse}.
+
+``dse.sweep(..., backend="batched")`` evaluates whole structure classes on
+the card (``core/batched.py``).  Chakra export (``core/chakra.py``) and the
+serving cost model (``core/serving.py``) are not ported yet.
+"""
+from .assemble import (MLASpec, ModelSpec, MoESpec, SSMSpec, bind_env,
+                       build_graph, total_layers)
+from .collectives import ALGORITHMS, CollectiveModel, comm_model
+from .compiled import CompiledBackend, CostProgram
+from .costmodel import (H100_HGX, H100_HGX_POD, TPU_V5E, TPU_V5E_POD,
+                        HardwareProfile)
+from .distribute import ParallelCfg, distribute
+from .dse import SweepResult
+from .graphdist import apply_pipeline
+from .instantiate import Workload, instantiate
+from .matcher import CommStep, InfeasibleConfigError, match
+from .memory import MemoryReport, peak_memory
+from .schedules import SCHEDULES, Schedule, build_schedule, inflight_factor
+from .simulate import SimResult, simulate
+from .stg import Graph, GraphBuilder, add_optimizer, backward
+from .symbolic import Env, sym
+from .tensor import REPLICATED, STensor, ShardSpec
+from .topology import (ClusterTopology, Tier, flat, h100_hgx_pod,
+                       tpu_v5e_pod)
+
+__all__ = [
+    "MLASpec", "ModelSpec", "MoESpec", "SSMSpec", "bind_env", "build_graph",
+    "total_layers", "CompiledBackend",
+    "CostProgram", "H100_HGX", "H100_HGX_POD", "TPU_V5E", "TPU_V5E_POD",
+    "HardwareProfile", "ClusterTopology", "Tier", "flat", "h100_hgx_pod",
+    "tpu_v5e_pod", "ALGORITHMS", "CollectiveModel", "comm_model",
+    "ParallelCfg", "distribute", "SweepResult",
+    "apply_pipeline", "Workload", "instantiate", "CommStep",
+    "InfeasibleConfigError", "match", "MemoryReport",
+    "peak_memory", "SCHEDULES", "Schedule", "build_schedule",
+    "inflight_factor", "SimResult", "simulate", "Graph", "GraphBuilder",
+    "add_optimizer", "backward", "Env", "sym", "REPLICATED", "STensor",
+    "ShardSpec",
+]

@@ -1,15 +1,22 @@
-"""Model specification dataclasses (own copy of the target-model input of
-``repro.core.assemble``; field for field the same, nothing that needs sympy).
+"""Model assembly: repeat + connect module templates into a full STG
+(paper §IV-A step 2), for every architecture family in the assignment.
 
-``ModelSpec`` describes one architecture; the runtime reads its widths and
-its layer pattern (``_is_moe_layer`` / ``_is_attn_layer`` /
-``_is_local_layer``).  Graph assembly (``build_graph``, ``bind_env``) belongs
-to the symbolic generator and is not part of this package yet.
+``ModelSpec`` is the user-facing "target model" input; ``build_graph``
+assembles forward (+loss, +backward, +optimizer for training) graphs for
+``train`` / ``prefill`` / ``decode`` modes.  ``bind_env`` grounds the
+symbolic dims from the spec + workload shape.
 """
 from __future__ import annotations
 
-from dataclasses import dataclass
+import math
+from dataclasses import dataclass, field
 from typing import Optional
+
+import sympy as sp
+
+from . import modules as M
+from .stg import GraphBuilder, Graph, add_optimizer, backward
+from .symbolic import Env
 
 
 @dataclass(frozen=True)
@@ -147,3 +154,131 @@ class ModelSpec:
         return self.window is not None and (
             self.window_pattern != "alternate" or layer % 2 == 0)
 
+
+def bind_env(spec: ModelSpec, *, batch: int, seq: int,
+             kv_len: Optional[int] = None,
+             mode: Optional[str] = None) -> Env:
+    """Bind all model + workload symbols for instantiation.
+
+    ``mode`` (when the caller knows it) tightens the binding for decode
+    phases: ``kv_len`` becomes REQUIRED — the historical ``kv = seq``
+    fallback would silently model a decode step against a 1-token cache
+    — and the MoE expert capacity ``Cap`` is bound to the *expected*
+    routed-token count of the actual phase shape, ``B*S*K/E`` exactly
+    (possibly fractional), instead of ``max(1, ceil(...))``: with one
+    token per sequence the ceiling floor would charge every expert a
+    full token even when ``B*K << E``, inflating decode MoE cost by up
+    to ``E/(B*K)`` (paper Table IX regime)."""
+    m = spec.mla or MLASpec()
+    s = spec.ssm or SSMSpec()
+    moe = spec.moe or MoESpec(1, 1, 0, spec.d_ff)
+    if mode == "decode" and kv_len is None:
+        raise ValueError(
+            "decode mode requires kv_len: a decode step is costed against "
+            "an existing KV cache, and the kv=seq fallback (seq=1) would "
+            "silently model a 1-token cache — pass kv_len=<context length> "
+            "(e.g. Scenario.decode(batch=..., kv_len=...))")
+    kv = kv_len if kv_len is not None else seq
+    nkv = max(1, spec.n_kv_heads)
+    if mode == "decode":
+        cap = sp.Rational(batch * seq * moe.top_k, moe.n_experts)
+    else:
+        cap = max(1, math.ceil(batch * seq * moe.top_k / moe.n_experts))
+    e = Env(
+        B=batch, S=seq, Skv=kv,
+        H=spec.d_model, Dff=spec.d_ff, V=spec.vocab,
+        NH=spec.n_heads, NKV=nkv, G=max(1, spec.n_heads // nkv),
+        DH=spec.head_dim, L=spec.n_layers,
+        E=moe.n_experts, K=moe.top_k, SH=max(1, moe.n_shared),
+        Dffe=moe.d_expert or spec.d_ff,
+        Cap=cap,
+        R=(m.kv_lora if spec.block == "mla" else spec.rwkv_decay_rank),
+        Rq=m.q_lora, DR=m.rope_dim, DN=m.nope_dim, DV=m.v_dim,
+        Din=s.expand * spec.d_model, Pst=s.d_state,
+        DTR=s.dt_rank or spec.d_model // 16,
+        WN=min(spec.window or kv, kv),
+        Senc=spec.enc_seq, Sv=spec.vision_seq,
+    )
+    return e
+
+
+def _decoder_layer(b: GraphBuilder, spec: ModelSpec, x, layer: int, *,
+                   mode: str, cross_kv=None):
+    kv_cache = mode == "decode"
+    kv_len = M.Skv if kv_cache else M.S
+    if spec._is_attn_layer(layer):
+        if spec.block == "mla":
+            x = M.attention_mla(b, x, layer, kv_len=kv_len, kv_cache=kv_cache)
+        else:
+            win = spec.window if spec._is_local_layer(layer) else None
+            x = M.attention_gqa(b, x, layer, kv_len=kv_len, kv_cache=kv_cache,
+                                qk_norm=spec.qk_norm, softcap=spec.softcap,
+                                window=win,
+                                merged=spec.head_layout == "merged")
+    elif spec.block == "rwkv6":
+        return M.rwkv6_block(b, x, layer)       # includes channel-mix "ffn"
+    else:                                        # hybrid non-attn -> mamba
+        x = M.mamba_block(b, x, layer)
+    if spec.block == "rwkv6":
+        return x
+    if cross_kv is not None:
+        x = M.attention_gqa(b, x, layer, kv_len=M.Senc,
+                            kv_cache=kv_cache, cross_kv=cross_kv,
+                            prefix="x", tags_extra={"sub": "cross"})
+    if spec._is_moe_layer(layer):
+        x = M.moe(b, x, layer, shared=(spec.moe.n_shared > 0))
+    elif spec.block == "mamba" and not spec._is_attn_layer(layer) \
+            and spec.attn_every <= 1:
+        pass                                     # pure-mamba archs: no separate FFN
+    else:
+        width = M.Dff
+        x = M.ffn(b, x, layer, gated=spec.gated_ffn, width=width)
+    return x
+
+
+def build_graph(spec: ModelSpec, *, mode: str = "train",
+                with_backward: Optional[bool] = None) -> GraphBuilder:
+    """Assemble the full-model STG.  ``mode``: train | prefill | decode."""
+    if mode not in ("train", "prefill", "decode"):
+        raise ValueError(mode)
+    do_bwd = with_backward if with_backward is not None else (mode == "train")
+    b = GraphBuilder()
+
+    cross = None
+    if spec.encoder_layers:
+        if mode == "decode":
+            # encoder ran during prefill; its (cached) output conditions decode
+            cross = b.input("enc_out_cached", (M.B, M.Senc, M.H))
+        else:
+            # encoder (stub frontend: inputs are precomputed frame embeddings)
+            enc = b.input("frames", (M.B, M.Senc, M.H))
+            for l in range(spec.encoder_layers):
+                enc = M.attention_gqa(b, enc, l, kv_len=M.Senc, causal=False,
+                                      prefix="e", tags_extra={"sub": "enc"})
+                enc = M.ffn(b, enc, l, gated=False, prefix="e", module="encffn")
+            cross = M.rmsnorm(b, enc, "ln_enc_final",
+                              {"layer": spec.encoder_layers - 1, "module": "enc"})
+
+    x = M.embedding(b)
+    if spec.vision_seq:
+        # VLM stub frontend: precomputed patch embeddings prepended to text
+        vis = b.input("vision_embeds", (M.B, M.Sv, M.H))
+        x = b.concat("cat_vision", [vis, x], dim=1,
+                     tags={"layer": -1, "module": "embed"})
+
+    layer_off = spec.encoder_layers
+    for l in range(spec.n_layers):
+        x = _decoder_layer(b, spec, x, layer_off + l, mode=mode, cross_kv=cross)
+
+    loss = M.lm_head(b, x, softcap=spec.softcap, seq=x.shape[1],
+                     n_layers_tag=layer_off + spec.n_layers)
+    if do_bwd:
+        backward(b, loss)
+        add_optimizer(b)
+    b.graph.validate()
+    return b
+
+
+def total_layers(spec: ModelSpec) -> int:
+    """Layer count used for pipeline-stage splitting."""
+    return spec.encoder_layers + spec.n_layers

@@ -5,8 +5,21 @@ from typing import Optional
 
 import torch
 
+from . import cost_reduce as _cr
 from . import flash_attention as _fa
 from . import rwkv6_scan as _wkv
+
+
+def cost_reduce(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """Batched cost reduction ``out[b, e] = sum_t x[b, t] * w[e, t]``: the
+    busy-group contraction of the batched DSE backend, x [B, K] per-slot
+    durations, w [G, K] static membership rows -> [B, G] in x's dtype.
+
+    Unlike the JAX wrapper there is no dtype split: on the card the kernel
+    runs in the input's dtype (float64 on the batched backend's default
+    path, which its 1e-6 parity budget needs), on the CPU the plain
+    version does."""
+    return _cr.cost_reduce_bet(x, w)
 
 
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,

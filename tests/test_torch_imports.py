@@ -45,7 +45,9 @@ def test_no_library_attention_and_no_compile(path):
 
 def test_import_leaves_jax_out_of_the_process():
     code = ("import sys; import repro_torch, repro_torch.launch.serve, "
-            "repro_torch.kernels, repro_torch.serve, repro_torch.configs; "
+            "repro_torch.kernels, repro_torch.serve, repro_torch.configs, "
+            "repro_torch.core.dse, repro_torch.core.batched, "
+            "repro_torch.obs; "
             "bad = [m for m in sys.modules if m.split('.')[0] in "
             "('jax', 'jaxlib', 'repro')]; print(bad); sys.exit(bool(bad))")
     r = subprocess.run([sys.executable, "-c", code], capture_output=True,
@@ -57,8 +59,9 @@ def test_import_leaves_jax_out_of_the_process():
 def test_kernel_sources_and_build_dir():
     from repro_torch.kernels import _build
     cu = sorted(p.name for p in (PKG / "kernels" / "csrc").glob("*.cu"))
-    assert cu == ["flash_attention.cu", "rwkv6_scan.cu"]
-    assert _build.sources() == ["flash_attention", "rwkv6_scan"]
+    assert cu == ["cost_reduce.cu", "flash_attention.cu", "rwkv6_scan.cu"]
+    assert _build.sources() == ["cost_reduce", "flash_attention",
+                                "rwkv6_scan"]
     for name in cu:
         text = (PKG / "kernels" / "csrc" / name).read_text()
         assert "__global__" in text and 'extern "C"' in text
@@ -112,6 +115,10 @@ def test_wrapper_on_cpu_is_the_plain_version():
     got, want = wkv.wkv6(r, k, v, w, u, s0, chunk=4), \
         wkv.wkv6_plain(r, k, v, w, u, s0, chunk=4)
     assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+    from repro_torch.kernels import cost_reduce as cr
+    x = torch.randn(5, 40, generator=g, dtype=torch.float64)
+    w = torch.randint(0, 3, (3, 40), generator=g).double()
+    assert torch.equal(cr.cost_reduce_bet(x, w), cr.cost_reduce_plain(x, w))
 
 
 def test_chip_smoke_refuses_without_a_card():

@@ -201,3 +201,86 @@ def test_launch_count_untouched_on_cpu():
     ops.flash_attention(torch.zeros(1, 2, 1, 1, 16), torch.zeros(1, 2, 1, 16),
                         torch.zeros(1, 2, 1, 16))
     assert fa.launches == before
+
+
+# ---------------------------------------------------------------------------
+# cost_reduce: out[b, e] = sum_t x[b, t] * w[e, t]
+# ---------------------------------------------------------------------------
+
+from repro.kernels.cost_reduce import cost_reduce_bet as jax_cost_reduce_bet  # noqa: E402
+from repro_torch.kernels import cost_reduce as cr  # noqa: E402
+
+
+@pytest.mark.parametrize("b,e,t", [
+    (1, 1, 1),
+    (4, 7, 33),             # all dims below one TPU tile (padding path)
+    (128, 128, 128),        # exactly one TPU tile
+    (130, 257, 140),        # multi-tile with ragged remainders
+])
+def test_cost_reduce_plain_vs_pallas_interpret(b, e, t):
+    """The reference's shapes and its 1e-4 (tests/test_kernels.py)."""
+    rng = np.random.RandomState(7)
+    x = rng.standard_normal((b, t)).astype(np.float32)
+    w = rng.standard_normal((e, t)).astype(np.float32)
+    want = jax_cost_reduce_bet(to_jax(x), to_jax(w), interpret=True)
+    got = ops.cost_reduce(to_torch(x), to_torch(w))
+    assert got.shape == (b, e) and got.dtype == torch.float32
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), atol=1e-4,
+                               rtol=1e-4)
+
+
+def test_cost_reduce_plain_f64_vs_numpy():
+    """The float64 plain version is double-precision close to numpy's
+    product (1e-14 fails by ~7 digits for a sum in float32)."""
+    rng = np.random.default_rng(11)
+    x, w = rng.standard_normal((5, 37)), rng.standard_normal((9, 37))
+    got = cr.cost_reduce_plain(torch.from_numpy(x), torch.from_numpy(w))
+    assert got.dtype == torch.float64
+    np.testing.assert_allclose(got.numpy(), x @ w.T, rtol=1e-14, atol=1e-14)
+    assert torch.equal(ops.cost_reduce(torch.from_numpy(x),
+                                       torch.from_numpy(w)), got)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+def test_cost_reduce_counts_semantics(dtype):
+    """Integer selection rows act as exact gather-sums: 0/1/k weights stay
+    exact (the reference's test_cost_reduce_counts_semantics)."""
+    x = torch.arange(1, 13, dtype=dtype).reshape(2, 6)
+    w = torch.tensor([[1, 0, 1, 0, 0, 0],
+                      [0, 2, 0, 0, 0, 3]], dtype=dtype)
+    want = torch.tensor([[1 + 3, 2 * 2 + 3 * 6],
+                         [7 + 9, 2 * 8 + 3 * 12]], dtype=dtype)
+    assert torch.equal(ops.cost_reduce(x, w), want)
+    jx = jnp.arange(1, 13, dtype=jnp.float32).reshape(2, 6)
+    jw = jnp.asarray(w.float().numpy())
+    assert np.array_equal(np.asarray(jax_cost_reduce_bet(jx, jw,
+                                                         interpret=True)),
+                          want.float().numpy())
+
+
+def test_cost_reduce_counts_no_launch_on_cpu():
+    before = cr.launches
+    ops.cost_reduce(torch.ones(3, 4, dtype=torch.float64),
+                    torch.ones(2, 4, dtype=torch.float64))
+    assert cr.launches == before
+
+
+@pytest.mark.parametrize("bad", ["rank", "terms", "dtype", "mixed-dtype",
+                                 "strided", "int"])
+def test_cost_reduce_refuses(bad):
+    x = torch.zeros(3, 8, dtype=torch.float64)
+    w = torch.zeros(2, 8, dtype=torch.float64)
+    if bad == "rank":
+        x = x[0]
+    elif bad == "terms":
+        w = torch.zeros(2, 9, dtype=torch.float64)
+    elif bad == "dtype":
+        x, w = x.bfloat16(), w.bfloat16()
+    elif bad == "mixed-dtype":
+        w = w.float()
+    elif bad == "strided":
+        x = torch.zeros(3, 16, dtype=torch.float64)[:, ::2]
+    elif bad == "int":
+        x, w = x.long(), w.long()
+    with pytest.raises((TypeError, ValueError)):
+        ops.cost_reduce(x, w)

@@ -40,3 +40,43 @@ def shared_params(spec, dtype="float32", seed=0):
     jparams = jax_init_params(spec, jrt, jax.random.PRNGKey(seed))
     as_numpy = jax.tree.map(np.asarray, pvalue(jparams))
     return jparams, params_from_reference(as_numpy, device="cpu")
+
+
+def port_spec(jspec):
+    """The port's ModelSpec built from the JAX package's field by field,
+    with the nested MoESpec / MLASpec / SSMSpec built the same way."""
+    import dataclasses
+    from repro_torch.core import MLASpec, ModelSpec, MoESpec, SSMSpec
+    nested = {"moe": MoESpec, "mla": MLASpec, "ssm": SSMSpec}
+    kw = {}
+    for f in dataclasses.fields(jspec):
+        v = getattr(jspec, f.name)
+        if f.name in nested and v is not None:
+            v = nested[f.name](**{g.name: getattr(v, g.name)
+                                  for g in dataclasses.fields(v)})
+        kw[f.name] = v
+    return ModelSpec(**kw)
+
+
+def port_cfg(jcfg):
+    """The port's ParallelCfg with the JAX package's field values."""
+    import dataclasses
+    from repro_torch.core import ParallelCfg
+    return ParallelCfg(**{f.name: getattr(jcfg, f.name)
+                          for f in dataclasses.fields(jcfg)})
+
+
+def port_engine(jspec, mode, *, batch, seq, kv_len=None):
+    """The port's CompiledBackend for a JAX spec and workload, built as
+    ``repro.api`` builds the JAX package's: one assembly, cloned per
+    structure class.  Returns (engine, build, env, n_layers)."""
+    from repro_torch.core import CompiledBackend, bind_env, build_graph, \
+        total_layers
+    spec = port_spec(jspec)
+    env = bind_env(spec, batch=batch, seq=seq, kv_len=kv_len, mode=mode)
+    src = build_graph(spec, mode=mode)
+
+    def build():
+        return src.clone().graph
+    n_layers = total_layers(spec)
+    return CompiledBackend(build, env, n_layers=n_layers), build, env, n_layers
