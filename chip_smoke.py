@@ -13,7 +13,10 @@ Phases, one JSON line each on standard output:
   kernels  each hand-written kernel (flash_attention, wkv6, cost_reduce)
            against its plain PyTorch version on the card, at the shapes of the
            main paths and at edge shapes: max abs error vs a stated tolerance,
-           kernel / plain / library time and the card's bound for the same work
+           kernel / plain / library time and the card's bound for the same work.
+           Attention shapes also print the kernel the wrapper chose (tc, fma
+           or decode), the decode split, and the device time per launch
+           beside the library's
   serve    two served models, one after the other, each at published width
            and depth, bf16, random weights from a seed: qwen3-14b (attention
            through flash_attention), then rwkv6-7b (every WKV recurrence
@@ -131,6 +134,32 @@ def time_ms(fn, budget_ms: float = 400.0, max_iters: int = 50) -> float:
     return start.elapsed_time(end) / iters
 
 
+def device_ms(fn, calls: int = 40, spin_cycles: int = 20_000_000) -> tuple:
+    """Device time per call of ``fn``: the calls are queued behind a spin of
+    the card (``torch.cuda._sleep``) that outlasts the host's enqueueing, so
+    the events bracket back-to-back device work, not the host's call rate.
+    Returns (ms per call, whether the host had queued every call before the
+    spin ended); the spin doubles until it has."""
+    fn()
+    torch.cuda.synchronize()
+    e0, start, end = (torch.cuda.Event(enable_timing=True) for _ in range(3))
+    for _ in range(4):
+        e0.record()
+        torch.cuda._sleep(spin_cycles)
+        start.record()
+        t0 = time.perf_counter()
+        for _ in range(calls):
+            fn()
+        host_ms = (time.perf_counter() - t0) * 1e3
+        end.record()
+        torch.cuda.synchronize()
+        ahead = host_ms < e0.elapsed_time(start)
+        if ahead:
+            break
+        spin_cycles *= 2
+    return start.elapsed_time(end) / calls, ahead
+
+
 # ---------------------------------------------------------------------------
 # kernels
 # ---------------------------------------------------------------------------
@@ -180,6 +209,32 @@ ATTENTION_CASES = [
          causal=False, window=32, q_offset=100),
     dict(name="decode-no-visible-key", B=2, N=2, G=2, Sq=1, Sk=128, D=64,
          dtype=BF16, causal=False, window=16, q_offset=300),
+    # the tensor-core kernel's edges (bf16, Sq > 1): ragged Sq, Sk and D,
+    # window and softcap, no causal mask with Sq != Sk, rows that see no key
+    dict(name="tc-ragged-d80", B=2, N=2, G=2, Sq=300, Sk=300, D=80,
+         dtype=BF16, causal=True),
+    dict(name="tc-window-softcap", B=1, N=2, G=2, Sq=512, Sk=512, D=128,
+         dtype=BF16, causal=True, window=128, softcap=50.0),
+    dict(name="tc-full-96x160", B=2, N=1, G=2, Sq=96, Sk=160, D=128,
+         dtype=BF16, causal=False),
+    dict(name="tc-no-visible-key", B=2, N=2, G=2, Sq=80, Sk=128, D=64,
+         dtype=BF16, causal=False, window=32, q_offset=100),
+    # bf16 whose head dim the tensor-core kernel does not take: fma kernel
+    dict(name="fma-bf16-d20", B=1, N=2, G=2, Sq=64, Sk=64, D=20, dtype=BF16,
+         causal=True),
+    # the decode kernels: one and eight query heads per kv head; twelve in
+    # fp32 (two chunks of six) and twenty in bf16 (two chunks of ten); a
+    # split range with a window
+    dict(name="decode-g1", B=4, N=4, G=1, Sq=1, Sk=1024, D=128, dtype=BF16,
+         causal=True, q_offset=1000),
+    dict(name="decode-g8", B=2, N=2, G=8, Sq=1, Sk=640, D=64, dtype=BF16,
+         causal=True, q_offset=600),
+    dict(name="decode-g12-chunks", B=2, N=1, G=12, Sq=1, Sk=300, D=128,
+         dtype=F32, causal=True, q_offset=299),
+    dict(name="decode-g20-chunks", B=1, N=2, G=20, Sq=1, Sk=512, D=128,
+         dtype=BF16, causal=True, q_offset=511),
+    dict(name="decode-split-window", B=1, N=2, G=4, Sq=1, Sk=4096, D=128,
+         dtype=BF16, causal=True, q_offset=4000, window=1024),
 ]
 
 
@@ -277,6 +332,31 @@ def check_attention_case(case, seed: int) -> dict:
         require(((short.float() - want.float()).abs() > allowed).any(),
                 f"{case['name']}: the tolerance would let a lost key pass")
 
+    variant = fa._variant(q, k, v)
+    splits = 1
+    boundary_keys = []
+    if variant == "decode":
+        lo, hi = fa._decode_range(Sk, kw["causal"], kw["window"],
+                                  kw["q_offset"])
+        g_chunks = -(-G // fa.DECODE_MAX_HEADS[dtype])
+        splits = fa.decode_splits(B, N * g_chunks, max(0, hi - lo))
+        split_len = -(-(hi - lo) // splits)
+        # a kernel that loses the first key of a split is refused
+        boundary_keys = sorted({lo + split_len, lo + (splits - 1) * split_len}
+                               ) if splits > 1 else []
+    for kb in boundary_keys:
+        keep = torch.ones(Sk, dtype=torch.bool, device=DEV)
+        keep[kb] = False
+        lost_kw = dict(kw)
+        if kw["causal"]:          # the same range without key kb
+            lost_kw["q_offset"] = kw["q_offset"] - 1
+            if kw["window"]:
+                lost_kw["window"] = kw["window"] - 1
+        lost = fa.flash_attention_plain(q, k[:, keep], v[:, keep], **lost_kw)
+        require(((lost.float() - want.float()).abs() > allowed).any(),
+                f"{case['name']}: the tolerance would let the lost key {kb} "
+                "at a split boundary pass")
+
     mask = fa._visible(Sq, Sk, kw["causal"], kw["window"], kw["q_offset"], DEV)
     blind_rows = int((~mask.any(1)).sum())
     if blind_rows:
@@ -299,18 +379,30 @@ def check_attention_case(case, seed: int) -> dict:
         require(not (lib_err > 4 * allowed).any(),
                 f"{case['name']}: the library call computes something else "
                 f"(max abs err {lib_err.max().item():.3e})")
-    return {
+    dev_ms, ahead = device_ms(lambda: fa.flash_attention(q, k, v, **kw))
+    lib_dev_ms, lib_ahead = device_ms(lib) if lib else (None, None)
+    row = {
         "shape": case["name"], "main_path": bool(case.get("main")),
+        "variant": variant, "splits": splits,
+        "split_boundary_keys_checked": boundary_keys,
         "B": B, "N": N, "G": G, "Sq": Sq, "Sk": Sk, "D": D,
         "dtype": str(dtype)[6:], **{k_: v_ for k_, v_ in kw.items() if v_},
         "max_abs_err": err.max().item(),
         "max_err_over_allowed": (err / allowed).max().item(),
         "tolerance": TOL[dtype], "rows_without_visible_key": blind_rows,
         "ms": time_ms(lambda: fa.flash_attention(q, k, v, **kw)),
+        "device_ms": dev_ms, "device_ms_queued_ahead": ahead,
         "plain_ms": time_ms(lambda: fa.flash_attention_plain(q, k, v, **kw)),
         "library_ms": time_ms(lib) if lib else None,
+        "library_device_ms": lib_dev_ms,
+        "library_device_ms_queued_ahead": lib_ahead,
         "bound_ms": bound_ms, "bound_by": bound_by,
     }
+    row["bound_share_device"] = bound_ms / dev_ms
+    if lib:
+        row["over_library"] = row["ms"] / row["library_ms"]
+        row["over_library_device"] = dev_ms / lib_dev_ms
+    return row
 
 
 def check_strided_cache_view() -> float:
@@ -599,6 +691,7 @@ def kernel_entry(name: str, replaces: str, shapes: list, **extra) -> dict:
         "launches": 0,                       # filled in by the serve phase
         **{k: head[k] for k in ("max_abs_err", "ms", "plain_ms", "bound_ms",
                                 "bound_by", "library_ms")},
+        **({"device_ms": head["device_ms"]} if "device_ms" in head else {}),
         "shape": head["shape"], **extra, "shapes": shapes,
     }
 

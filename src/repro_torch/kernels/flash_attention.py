@@ -14,6 +14,7 @@ from __future__ import annotations
 
 import ctypes
 import math
+import threading
 from typing import Optional
 
 import torch
@@ -23,7 +24,18 @@ launches = 0
 
 MAX_HEAD_DIM = 128
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
+_VARIANT_CODE = {"fma": 0, "tc": 1, "decode": 2}
+# decode: query heads one block reads a K/V row for (bf16: the 16 rows of
+# an mma tile; fp32: 8 lane-group accumulators); a range this short is one
+# block's work; blocks a long range is split to (one wave: three resident
+# per SM of an H100's 132); the fewest keys of one split
+DECODE_MAX_HEADS = {torch.bfloat16: 16, torch.float32: 8}
+DECODE_SHORT_RANGE = 256
+DECODE_TARGET_BLOCKS = 3 * 132
+DECODE_MIN_SPLIT = 128
 _fn = None
+_local = threading.local()      # the ctypes meta array, one per thread
+_scratch: dict = {}             # (device index, stream) -> decode scratch
 
 
 def _visible(sq: int, sk: int, causal: bool, window: Optional[int],
@@ -87,21 +99,107 @@ def _kernel_fn():
         fn = _build.load("flash_attention").flash_attention_launch
         ptr = ctypes.c_void_p
         fn.argtypes = [ptr, ptr, ptr, ptr, ctypes.POINTER(ctypes.c_longlong),
-                       ctypes.c_float, ctypes.c_float, ctypes.c_int, ptr]
+                       ctypes.c_float, ctypes.c_float, ctypes.c_int,
+                       ctypes.c_int, ptr, ptr, ptr]
         fn.restype = ctypes.c_int
         _fn = fn
     return _fn
 
 
-def _check_cuda(name: str, t: torch.Tensor):
-    """The kernel reads 4 elements at a time along a contiguous D."""
-    vec_bytes = 4 * t.element_size()
-    if t.stride(-1) != 1:
+def _fits16(d: int, esize: int, layouts) -> bool:
+    """Every (strides, base address) of ``layouts`` on 16 bytes except the
+    last stride, and a head dim ``d`` of whole 16-byte pieces."""
+    vec = 16 // esize
+    return d % vec == 0 and all(
+        ptr % 16 == 0 and all(s % vec == 0 for s in stride[:-1])
+        for stride, ptr in layouts)
+
+
+def _rule(sq: int, dtype: torch.dtype, fits: bool) -> str:
+    if sq == 1 and fits:
+        return "decode"
+    if dtype == torch.bfloat16 and fits:
+        return "tc"
+    return "fma"
+
+
+def _variant(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> str:
+    """The kernel a CUDA call goes to, by an explicit rule:
+
+    * ``"decode"``: one query row (Sq = 1) and 16-byte loads fit: D a
+      multiple of 16 bytes, every stride but the last and every base address
+      on 16 bytes;
+    * ``"tc"``: bf16 with more rows and the same fit (the tensor-core
+      kernel's TMA boxes and wgmma tiles need it);
+    * ``"fma"``: everything else, and fp32 with more rows (IEEE fp32
+      arithmetic, never TF32).
+
+    The C entry launches the kernel named here or fails; nothing falls back."""
+    return _rule(q.shape[1], q.dtype, _fits16(
+        q.shape[-1], q.element_size(),
+        [(t.stride(), t.data_ptr()) for t in (q, k, v)]))
+
+
+def _decode_range(sk: int, causal: bool, window: Optional[int],
+                  q_offset: int) -> tuple:
+    """The keys ``[lo, hi)`` one query row at ``q_offset`` sees (may be
+    empty), as the decode kernel computes them."""
+    hi = min(sk, q_offset + 1) if causal else sk
+    lo = max(0, q_offset - window + 1) if window else 0
+    return lo, hi
+
+
+def decode_splits(b: int, n: int, visible: int) -> int:
+    """Blocks the decode kernel splits ``visible`` keys over, for ``b x n``
+    (batch, kv head x chunk of query heads) units.
+
+    One block per unit for a short range (the engine's caches up to a few
+    hundred keys): no combine.  A longer range gets as many splits as keep
+    every block in one wave of ``DECODE_TARGET_BLOCKS`` (three resident
+    blocks per SM of an H100: a second, partial wave would double the time),
+    but never more splits than whole ``DECODE_MIN_SPLIT``-key pieces of the
+    range."""
+    if visible <= DECODE_SHORT_RANGE:
+        return 1
+    fit = DECODE_TARGET_BLOCKS // max(1, b * n)
+    return max(1, min(fit, visible // DECODE_MIN_SPLIT))
+
+
+def _decode_scratch(device: torch.device, stream: int, n_part: int,
+                    n_ticket: int) -> tuple:
+    """Scratch of the split decode, one per (device, stream) and grown as
+    needed: partial (m, l, acc) floats, and the arrival counters, which start
+    at 0 and are left at 0 by the kernel that used them (so calls queued on
+    one stream may share them)."""
+    key = (device.index, stream)
+    part, ticket = _scratch.get(key, (None, None))
+    if part is None or part.numel() < n_part:
+        part = torch.empty(n_part, dtype=torch.float32, device=device)
+    if ticket is None or ticket.numel() < n_ticket:
+        ticket = torch.zeros(n_ticket, dtype=torch.int32, device=device)
+    _scratch[key] = (part, ticket)
+    return part, ticket
+
+
+def _check_layout(name: str, stride: tuple, ptr: int, esize: int, d: int,
+                  variant: str):
+    """The fma kernel reads 4 elements at a time along a contiguous D; the
+    tc and decode kernels read q, k and v 16 bytes at a time."""
+    if stride[-1] != 1:
         raise ValueError(f"{name}: the head dim must be contiguous "
-                         f"(strides {t.stride()})")
-    if any(s % 4 for s in t.stride()[:-1]) or t.data_ptr() % vec_bytes:
-        raise ValueError(f"{name}: strides {t.stride()} / address must be "
+                         f"(strides {stride})")
+    if any(s % 4 for s in stride[:-1]) or ptr % (4 * esize):
+        raise ValueError(f"{name}: strides {stride} / address must be "
                          "multiples of 4 elements")
+    if variant != "fma" and name != "out" and not _fits16(
+            d, esize, [(stride, ptr)]):
+        raise ValueError(f"{name}: the {variant} kernel needs strides "
+                         f"{stride}, head dim {d} and address on 16 bytes")
+
+
+def _check_cuda(name: str, t: torch.Tensor, variant: str = "fma"):
+    _check_layout(name, t.stride(), t.data_ptr(), t.element_size(),
+                  t.shape[-1], variant)
 
 
 def _launch(q, k, v, out, causal, window, softcap, q_offset):
@@ -116,24 +214,50 @@ def _launch(q, k, v, out, causal, window, softcap, q_offset):
                          f"are multiples of 4 up to {MAX_HEAD_DIM}, got {d}")
     if b > 65535 or n * g > 65535:
         raise ValueError(f"batch {b} / heads {n * g} exceed the grid's 65535")
-    for name, t in (("q", q), ("k", k), ("v", v), ("out", out)):
-        _check_cuda(name, t)
-    meta = [b, n, g, sq, sk, d,
-            q.stride(0), q.stride(1), q.stride(2), q.stride(3),
-            k.stride(0), k.stride(1), k.stride(2),
-            v.stride(0), v.stride(1), v.stride(2),
-            out.stride(0), out.stride(1), out.stride(2), out.stride(3),
-            int(bool(causal)), int(window or 0), int(q_offset)]
+    # strides and addresses read once, for the rule and the checks
+    esize = q.element_size()
+    qs, ks, vs, os_ = q.stride(), k.stride(), v.stride(), out.stride()
+    qp, kp, vp, op = q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr()
+    variant = _rule(sq, q.dtype,
+                    _fits16(d, esize, [(qs, qp), (ks, kp), (vs, vp)]))
+    for name, st, ptr in (("q", qs, qp), ("k", ks, kp), ("v", vs, vp),
+                          ("out", os_, op)):
+        _check_layout(name, st, ptr, esize, d, variant)
+    device = q.device
+    stream = torch.cuda.current_stream(device).cuda_stream
+    splits, split_len, g_chunks = 1, 1, 1
+    part = ticket = None
+    if variant == "decode":
+        g_chunks = -(-g // DECODE_MAX_HEADS[q.dtype])
+        lo, hi = _decode_range(sk, causal, window, q_offset)
+        visible = max(0, hi - lo)
+        splits = decode_splits(b, n * g_chunks, visible)
+        split_len = max(1, -(-visible // splits))
+        if splits > 1:
+            units = b * n * g_chunks
+            part, ticket = _decode_scratch(
+                device, stream, units * splits * -(-g // g_chunks) * (d + 2),
+                units)
+            part, ticket = part.data_ptr(), ticket.data_ptr()
+    meta = getattr(_local, "meta", None)
+    if meta is None:
+        meta = _local.meta = (ctypes.c_longlong * 26)()
+    meta[:] = [b, n, g, sq, sk, d, qs[0], qs[1], qs[2], qs[3],
+               ks[0], ks[1], ks[2], vs[0], vs[1], vs[2],
+               os_[0], os_[1], os_[2], os_[3],
+               int(bool(causal)), int(window or 0), int(q_offset),
+               splits, split_len, g_chunks]
+    args = (qp, kp, vp, op, meta, 1.0 / math.sqrt(d), float(softcap or 0.0),
+            _DTYPE_CODE[q.dtype], _VARIANT_CODE[variant], part, ticket, stream)
     fn = _kernel_fn()
-    with torch.cuda.device(q.device):
-        stream = torch.cuda.current_stream().cuda_stream
-        err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
-                 (ctypes.c_longlong * len(meta))(*meta),
-                 1.0 / math.sqrt(d), float(softcap or 0.0),
-                 _DTYPE_CODE[q.dtype], stream)
+    if device.index == torch.cuda.current_device():
+        err = fn(*args)
+    else:
+        with torch.cuda.device(device):
+            err = fn(*args)
     if err != 0:
-        raise RuntimeError(f"flash_attention kernel launch failed with "
-                           f"cudaError {err} (q {tuple(q.shape)}, "
+        raise RuntimeError(f"flash_attention {variant} kernel launch failed "
+                           f"with cudaError {err} (q {tuple(q.shape)}, "
                            f"k {tuple(k.shape)}, {q.dtype})")
     launches += 1
 

@@ -204,6 +204,130 @@ def test_launch_count_untouched_on_cpu():
 
 
 # ---------------------------------------------------------------------------
+# which kernel a CUDA call goes to, the decode split, the layout checks: pure
+# Python, so they are held here on CPU tensors (strides and addresses only)
+# ---------------------------------------------------------------------------
+
+def _padded(shape, dtype, pad):
+    """A view of ``shape`` whose rows are ``pad`` elements longer than D."""
+    base = torch.zeros(*shape[:-1], shape[-1] + pad, dtype=dtype)
+    return base[..., :shape[-1]]
+
+
+@pytest.mark.parametrize("case,want", [
+    ("bf16-d128", "tc"),                # the qwen3 prefill shape, aligned
+    ("bf16-d80", "tc"),                 # ragged head dim, still 16-byte rows
+    ("fp32", "fma"),                    # fp32 keeps IEEE fp32 arithmetic
+    ("bf16-d20", "fma"),                # D not a multiple of 8
+    ("bf16-misaligned", "fma"),         # row stride 132 elements: not 16 B
+    ("bf16-offset", "fma"),             # base address 8 bytes off
+    ("bf16-decode", "decode"),          # Sq = 1
+    ("fp32-decode", "decode"),
+    ("bf16-decode-d20", "fma"),         # Sq = 1 but 16-byte loads do not fit
+])
+def test_variant_rule(case, want):
+    dtype = torch.float32 if case.startswith("fp32") else torch.bfloat16
+    d = {"bf16-d80": 80, "bf16-d20": 20, "bf16-decode-d20": 20}.get(case, 128)
+    sq = 1 if "decode" in case else 64
+    q = torch.zeros(2, sq, 2, 5, d, dtype=dtype)
+    k = torch.zeros(2, 64, 2, d, dtype=dtype)
+    v = torch.zeros(2, 64, 2, d, dtype=dtype)
+    if case == "bf16-misaligned":
+        k = _padded((2, 64, 2, d), dtype, 4)
+    if case == "bf16-offset":
+        v = torch.zeros(2 * 64 * 2 * d + 4, dtype=dtype)[4:].view(2, 64, 2, d)
+    assert fa._variant(q, k, v) == want
+
+
+def test_variant_of_the_served_layouts():
+    """The model's prefill tensors and a decode step's cache view (a slice
+    of a [B, kv_len, N, D] cache) take the tensor-core and decode kernels."""
+    q = torch.zeros(2, 2048, 8, 5, 128, dtype=torch.bfloat16)
+    k = torch.zeros(2, 2048, 8, 128, dtype=torch.bfloat16)
+    assert fa._variant(q, k, k) == "tc"
+    cache = torch.zeros(8, 2048, 8, 128, dtype=torch.bfloat16)
+    q1 = torch.zeros(8, 1, 8, 5, 128, dtype=torch.bfloat16)
+    assert fa._variant(q1, cache, cache) == "decode"
+    assert fa._variant(q1, cache[:, :137], cache[:, :137]) == "decode"
+    # the [B,H,S,D] entry's views keep the rule
+    qb = torch.zeros(2, 40, 64, 128, dtype=torch.bfloat16)
+    qv = qb.unflatten(1, (8, 5)).permute(0, 3, 1, 2, 4)
+    kb = torch.zeros(2, 8, 64, 128, dtype=torch.bfloat16).transpose(1, 2)
+    assert fa._variant(qv, kb, kb) == "tc"
+
+
+@pytest.mark.parametrize("b,n,visible", [
+    (8, 8, 1), (8, 8, 101), (8, 8, 137), (8, 8, 256),   # the engine's ranges
+    (8, 8, 0), (1, 1, 256),
+])
+def test_decode_splits_short_range_is_one_block(b, n, visible):
+    assert fa.decode_splits(b, n, visible) == 1
+
+
+def test_decode_splits_fill_the_card_at_the_long_cache():
+    """B = 8, N = 8 kv heads (one chunk of G = 5), 2048 keys: at least two
+    blocks per SM of the H100's 132, all in one resident wave."""
+    s = fa.decode_splits(8, 8, 2048)
+    assert 264 <= 8 * 8 * s <= fa.DECODE_TARGET_BLOCKS and s <= 2048 // 128
+
+
+@pytest.mark.parametrize("b,n", [(1, 1), (1, 2), (2, 4), (4, 4), (8, 8),
+                                 (16, 8), (64, 8), (300, 1)])
+@pytest.mark.parametrize("visible", [257, 300, 511, 1000, 2048, 4096, 32768])
+def test_decode_splits_bounds(b, n, visible):
+    """At least one split and never more than whole 128-key pieces; no more
+    blocks than one resident wave unless one split per unit already is; and
+    no further split would fit in that wave."""
+    s = fa.decode_splits(b, n, visible)
+    pieces = visible // fa.DECODE_MIN_SPLIT
+    assert 1 <= s <= max(1, pieces)
+    assert s == 1 or b * n * s <= fa.DECODE_TARGET_BLOCKS
+    assert s == pieces or b * n * (s + 1) > fa.DECODE_TARGET_BLOCKS
+    split_len = -(-visible // s)
+    assert (s - 1) * split_len < visible        # no split is empty
+
+
+@pytest.mark.parametrize("sk,causal,window,q_offset,want", [
+    (2048, True, None, 2047, (0, 2048)),
+    (2048, True, None, 100, (0, 101)),
+    (500, True, 128, 400, (273, 401)),
+    (77, False, None, 0, (0, 77)),
+    (128, False, 16, 300, (285, 128)),          # empty: no visible key
+])
+def test_decode_range(sk, causal, window, q_offset, want):
+    assert fa._decode_range(sk, causal, window, q_offset) == want
+
+
+@pytest.mark.parametrize("bad", ["tc-misaligned", "tc-d20", "decode-offset",
+                                 "fma-stride", "not-contiguous"])
+def test_cuda_layout_checks_refuse(bad):
+    """What the chosen kernel cannot take is refused before a launch: the
+    tc and decode kernels read q, k, v 16 bytes at a time, the fma kernel 4
+    elements at a time along a contiguous head dim."""
+    bf = torch.bfloat16
+    variant, t = {
+        "tc-misaligned": ("tc", _padded((2, 64, 2, 128), bf, 4)),
+        "tc-d20": ("tc", torch.zeros(2, 64, 2, 20, dtype=bf)),
+        "decode-offset": ("decode", torch.zeros(2 * 64 * 128 + 4, dtype=bf)
+                          [4:].view(2, 64, 128)),
+        "fma-stride": ("fma", _padded((2, 64, 2, 16), torch.float32, 2)),
+        "not-contiguous": ("fma", torch.zeros(2, 16, 64).transpose(1, 2)),
+    }[bad]
+    with pytest.raises(ValueError):
+        fa._check_cuda("k", t, variant)
+
+
+def test_cuda_layout_checks_accept_the_served_layouts():
+    q = torch.zeros(2, 64, 8, 5, 128, dtype=torch.bfloat16)
+    cache = torch.zeros(8, 2048, 8, 128, dtype=torch.bfloat16)[:, :100]
+    for variant in ("tc", "decode", "fma"):
+        fa._check_cuda("q", q, variant)
+        fa._check_cuda("k", cache, variant)
+    # the output is written 4 bytes at a time: only the fma rule applies
+    fa._check_cuda("out", _padded((2, 64, 2, 128), torch.bfloat16, 4), "tc")
+
+
+# ---------------------------------------------------------------------------
 # cost_reduce: out[b, e] = sum_t x[b, t] * w[e, t]
 # ---------------------------------------------------------------------------
 
