@@ -2,7 +2,7 @@
 """Quickest proof that the PyTorch/CUDA port starts and is right on the GPU.
 
     python3 chip_smoke.py              # everything, on one CUDA device
-    python3 chip_smoke.py --phases build,kernels --ptxas-info
+    python3 chip_smoke.py --phases build,kernels --ptxas-info --wkv-tiles
     python3 chip_smoke.py --phases build,kernels,sweep --profile
 
 Phases, one JSON line each on standard output:
@@ -16,13 +16,17 @@ Phases, one JSON line each on standard output:
            kernel / plain / library time and the card's bound for the same work.
            Attention shapes also print the kernel the wrapper chose (tc, fma
            or decode), the decode split, and the device time per launch
-           beside the library's
+           beside the library's; wkv6 shapes the kernel its wrapper chose
+           (decode or tiled), the tile, and the device time per launch.
+           --wkv-tiles also times wkv6's tile instances against each other
   serve    two served models, one after the other, each at published width
            and depth, bf16, random weights from a seed: qwen3-14b (attention
            through flash_attention), then rwkv6-7b (every WKV recurrence
-           through wkv6).  For each, an Engine with 8 slots answers 16
-           requests, then one [2, 2048] prefill.  Every launch count is set to
-           0 just before each model's run and read just after
+           through wkv6: decode steps on its decode kernel, the prefill on
+           its tiled kernel, counted apart).  For each, an Engine with 8
+           slots answers 16 requests, then one [2, 2048] prefill.  Every
+           launch count is set to 0 just before each model's run and read
+           just after
   sweep    the generator's design-space sweep on the batched backend:
            dse.sweep over every (dp, tp, cp, pp) factorisation of 64 devices
            for qwen3-14b's published spec, train, batch 256 x seq 4096, on
@@ -91,6 +95,14 @@ COUNTERS = {"flash_attention": fa, "wkv6": wkv, "cost_reduce": cr}
 SOURCES = {"flash_attention": "src/repro_torch/kernels/csrc/flash_attention.cu",
            "wkv6": "src/repro_torch/kernels/csrc/rwkv6_scan.cu",
            "cost_reduce": "src/repro_torch/kernels/csrc/cost_reduce.cu"}
+
+
+def reset_counts() -> None:
+    """Every kernel's launch count to 0 (and wkv6's count by variant)."""
+    for module in COUNTERS.values():
+        module.launches = 0
+    for variant in wkv.launches_by_variant:
+        wkv.launches_by_variant[variant] = 0
 
 
 def require(ok, message) -> None:
@@ -430,30 +442,55 @@ def check_strided_cache_view() -> float:
 
 # wkv6, [B, S, N, D] and the chunk C.  Decays as the model draws them,
 # w = exp(-exp(dec)) with dec ~ N(0, 1): about 18 % of them are below the
-# e^{-80/32} floor, and at the prefill shape a few hundred below 1e-30.
+# e^{-80/32} floor, and at the prefill shape a few hundred below 1e-30.  Each
+# shape prints the kernel kernels/rwkv6_scan.py:_variant names (decode for
+# one step, tiled for more) and, for tiled, its tile (steps, columns).
 WKV_CASES = [
     # the two shapes the rwkv6-7b serve path gives the kernel
     dict(name="prefill", main=True, B=2, S=2048, N=64, D=64, chunk=32),
     dict(name="decode-in-place", main=True, B=8, S=1, N=64, D=64, chunk=1,
          state=True, in_place=True),
+    # the served model's r, k, v are bf16: read as they are, cast on load
+    dict(name="prefill-bf16", B=2, S=2048, N=64, D=64, chunk=32,
+         dtype=torch.bfloat16),
     # a prompt whose length 32 does not divide is one chunk of S
     dict(name="single-chunk-40", B=2, S=40, N=64, D=64, chunk=40, state=True),
     dict(name="single-chunk-1000", B=1, S=1000, N=8, D=64, chunk=1000,
          state=True),
+    # a ragged last tile in every chunk (57 = 16 + 16 + 16 + 9); a chunk
+    # shorter than the tile, so the tile is cut at every chunk boundary
+    dict(name="chunk-57", B=2, S=114, N=8, D=64, chunk=57, state=True),
+    dict(name="chunk-8", B=2, S=64, N=8, D=64, chunk=8, state=True),
+    # decays below 1e-30 at the first step of a tile and of the sequence
+    dict(name="w-below-1e-30", B=2, S=256, N=8, D=64, chunk=32, state=True,
+         tiny_w=True),
     # the smoke spec's head dim, and a head dim that is no power of two
     dict(name="d32", B=2, S=64, N=4, D=32, chunk=32, state=True),
     dict(name="d48", B=1, S=96, N=3, D=48, chunk=32, state=True),
+    # the decode kernel at one sequence and at the other head dims
+    dict(name="decode-b1", B=1, S=1, N=64, D=64, chunk=1, state=True,
+         in_place=True),
+    dict(name="decode-d32", B=4, S=1, N=8, D=32, chunk=1, state=True),
+    dict(name="decode-d48-bf16", B=3, S=1, N=5, D=48, chunk=1, state=True,
+         dtype=torch.bfloat16),
     # the state carried across two calls
     dict(name="carry-two-calls", B=2, S=256, N=8, D=64, chunk=32, state=True,
          split=128),
 ]
+# the tiled kernel's instances at head dim 64 (steps, columns; 0 steps:
+# one tile per chunk, the one-accumulator instance for chunks of at most
+# 32), timed against each other at the prefill shape with --wkv-tiles
+WKV_TILES = [(0, 64), (16, 16), (16, 32), (32, 16), (32, 32)]
 # kernel vs plain version: |err| <= absolute + relative * |plain|, on the
 # output and on the final state.  The plain version is run in float64 for
 # this: in fp32 it (like the TPU kernel) scales r and k by factors up to
 # e^{+-80} inside a chunk, which costs it up to 2.6e-4 of (1 + |x|) and grows
-# with the chunk (0.86 of a 1e-3 limit at C = 1000 on the card), while the
-# kernel walks the recurrence and stays within 2e-5 of (1 + |x|) of the
-# float64 function at every chunk size.  The limit is ten times that.
+# with the chunk (0.86 of a 1e-3 limit at C = 1000 on the card), while a
+# one-step walk of the recurrence stays within 2e-5 of (1 + |x|) of the
+# float64 function at every chunk size.  The limit is ten times that.  The
+# tiled kernel divides only by running products of floored decays (>= e^-80
+# over a chunk); its arithmetic in fp32 on the CPU (wkv6_tiled_plain, in
+# tests/test_torch_wkv6_tiled.py) stays within 0.05 of this limit.
 # Dropping one token's k^T v moves outputs by tens: the script checks that
 # the limit refuses that.
 WKV_TOL = dict(absolute=2e-4, relative=2e-4)
@@ -461,11 +498,13 @@ WKV_TOL = dict(absolute=2e-4, relative=2e-4)
 
 def wkv_bound(case) -> tuple:
     """(bound_ms, bound_by): 4 D^2 operations per (b, n, step) at the fp32
-    rate against the bytes of r, k, v, w, out once and the state in and
-    out once."""
+    rate against the bytes of r, k, v (in their dtype), w and out (fp32)
+    once and the state in and out once."""
     B, S, N, D = case["B"], case["S"], case["N"], case["D"]
+    esize = torch.empty((), dtype=case.get("dtype", F32)).element_size()
     t_ops = B * S * N * 4 * D * D / PEAK_FLOPS[torch.float32]
-    t_bytes = (5 * B * S * N * D + 2 * B * N * D * D) * 4 / PEAK_BYTES_PER_S
+    t_bytes = ((3 * esize + 8) * B * S * N * D
+               + 2 * 4 * B * N * D * D) / PEAK_BYTES_PER_S
     return (max(t_ops, t_bytes) * 1e3,
             "operations" if t_ops >= t_bytes else "bytes")
 
@@ -474,18 +513,32 @@ def wkv_tolerance(want: torch.Tensor) -> torch.Tensor:
     return WKV_TOL["absolute"] + WKV_TOL["relative"] * want.abs()
 
 
-def check_wkv_case(case, seed: int) -> dict:
+def wkv_inputs(case, seed: int) -> tuple:
+    """r, k, v (in the case's dtype), w, u, state0 on the card, from a seed;
+    ``tiny_w`` sets decays below 1e-30 at the first step of the second tile
+    (and chunk) and at the first step of the sequence."""
     gen = torch.Generator(device=DEV).manual_seed(seed)
-    B, S, N, D, C = case["B"], case["S"], case["N"], case["D"], case["chunk"]
+    B, S, N, D = case["B"], case["S"], case["N"], case["D"]
 
     def rand(*shape):
         return torch.randn(shape, generator=gen, device=DEV)
 
-    r, k, v = rand(B, S, N, D), rand(B, S, N, D), rand(B, S, N, D)
+    dtype = case.get("dtype", F32)
+    r, k, v = (rand(B, S, N, D).to(dtype) for _ in range(3))
     w = torch.exp(-torch.exp(rand(B, S, N, D)))
+    if case.get("tiny_w"):
+        w[:, 32, :, :8] = 1e-35
+        w[:, 0, :, 8:16] = 1e-38
     u = rand(N, D)
     s0 = rand(B, N, D, D) if case.get("state") else \
         torch.zeros(B, N, D, D, device=DEV)
+    return r, k, v, w, u, s0
+
+
+def check_wkv_case(case, seed: int) -> dict:
+    B, S, N, D, C = case["B"], case["S"], case["N"], case["D"], case["chunk"]
+    r, k, v, w, u, s0 = wkv_inputs(case, seed)
+    variant = wkv._variant(r)
     before = wkv.launches
     if case.get("split"):
         h = case["split"]
@@ -516,9 +569,9 @@ def check_wkv_case(case, seed: int) -> dict:
     err_s = (got_s.double() - want_s).abs()
     allowed, allowed_s = wkv_tolerance(want), wkv_tolerance(want_s)
     require(not (err > allowed).any() and not (err_s > allowed_s).any(),
-            f"wkv6 {name}: kernel disagrees with its plain version: max abs "
-            f"err {err.max().item():.3e} (out), {err_s.max().item():.3e} "
-            f"(state), {WKV_TOL}")
+            f"wkv6 {name} ({variant}): kernel disagrees with its plain "
+            f"version: max abs err {err.max().item():.3e} (out), "
+            f"{err_s.max().item():.3e} (state), {WKV_TOL}")
 
     # a kernel that drops one token's k^T v is refused by this limit
     k_lost = k.clone()
@@ -537,9 +590,13 @@ def check_wkv_case(case, seed: int) -> dict:
 
     bound_ms, bound_by = wkv_bound(case)
     floor = np.exp(-80.0 / C)
-    return {
+    dev_ms, ahead = device_ms(run_kernel)
+    row = {
         "shape": name, "main_path": bool(case.get("main")),
+        "variant": variant,
+        "tile": list(wkv.tile_config(D, C)) if variant == "tiled" else None,
         "B": B, "S": S, "N": N, "D": D, "chunk": C, "calls": calls,
+        "dtype": str(r.dtype)[6:],
         "max_abs_err": max(err.max().item(), err_s.max().item()),
         "max_abs_err_out": err.max().item(),
         "max_abs_err_state": err_s.max().item(),
@@ -555,10 +612,43 @@ def check_wkv_case(case, seed: int) -> dict:
         else 0.0,
         "count_w_below_1e-30": int((w < 1e-30).sum()),
         "ms": time_ms(run_kernel),
+        "device_ms": dev_ms, "device_ms_queued_ahead": ahead,
         "plain_ms": time_ms(lambda: wkv.wkv6_plain(r, k, v, w, u, s0,
                                                    chunk=C)),
         "library_ms": None, "bound_ms": bound_ms, "bound_by": bound_by,
     }
+    row["bound_share_device"] = bound_ms / dev_ms
+    return row
+
+
+def time_wkv_tiles() -> dict:
+    """Device ms per launch of the tiled kernel's instances at the prefill
+    shape, in turns (forward, then backward), each held to the limit."""
+    case = WKV_CASES[0]
+    r, k, v, w, u, s0 = wkv_inputs(case, seed=100)
+    want = wkv.wkv6_plain(r, k, v, w, u, s0, chunk=case["chunk"],
+                          dtype=torch.float64)[0]
+    keep = wkv.WHOLE_CHUNKS, wkv.TILE_STEPS, wkv.TILE_COLS
+    times = {f"{L}x{E}": [] for L, E in WKV_TILES}
+    try:
+        for L, E in WKV_TILES + WKV_TILES[::-1]:
+            wkv.WHOLE_CHUNKS = L == 0
+            wkv.TILE_STEPS, wkv.TILE_COLS = L, E
+            require(wkv.tile_config(case["D"], case["chunk"]) == (L, E),
+                    f"wkv6 tile {L}x{E} not selected")
+            got = wkv.wkv6(r, k, v, w, u, s0, chunk=case["chunk"])[0]
+            torch.cuda.synchronize()
+            share = ((got.double() - want).abs()
+                     / wkv_tolerance(want)).max().item()
+            require(share <= 1.0, f"wkv6 tile {L}x{E}: {share:.3f} of the "
+                    "limit")
+            times[f"{L}x{E}"].append(device_ms(
+                lambda: wkv.wkv6(r, k, v, w, u, s0, chunk=case["chunk"]))[0])
+    finally:
+        wkv.WHOLE_CHUNKS, wkv.TILE_STEPS, wkv.TILE_COLS = keep
+    return {"shape": case["name"], "steps_x_cols_device_ms": times,
+            "in_use": "x".join(map(str, wkv.tile_config(case["D"],
+                                                         case["chunk"])))}
 
 
 # cost_reduce, out[b, e] = sum_t x[b, t] w[e, t]: x [B, T], w [E, T].  The
@@ -805,8 +895,7 @@ def phase_serve(name: str, kernels: list, with_profile: bool = False) -> dict:
     prefill = make_prefill(spec, rt)
 
     # ---- the main path, with every launch count at 0 just before ----
-    for module in COUNTERS.values():
-        module.launches = 0
+    reset_counts()
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     done = engine.run(max_steps=kv_len)
@@ -817,6 +906,7 @@ def phase_serve(name: str, kernels: list, with_profile: bool = False) -> dict:
     torch.cuda.synchronize()
     prefill_s = time.perf_counter() - t0
     counts = {k: module.launches for k, module in COUNTERS.items()}
+    wkv_variants = dict(wkv.launches_by_variant)
     # ---- read just after ----
 
     require(len(done) == n_req,
@@ -837,6 +927,17 @@ def phase_serve(name: str, kernels: list, with_profile: bool = False) -> dict:
             f"{engine.steps} steps x {spec.n_layers} + {spec.n_layers} = {expected}")
     require(all(n == 0 for k, n in counts.items() if k != kernel),
             f"{name} launched another model's kernel: {counts}")
+    if kernel == "wkv6":
+        # the rule: every engine step is one token (decode), the [2, 2048]
+        # prefill is 2048 steps (tiled)
+        predicted = {"decode": engine.steps * spec.n_layers,
+                     "tiled": spec.n_layers}
+        require(wkv_variants == predicted,
+                f"wkv6 launches by variant {wkv_variants}, the rule predicts "
+                f"{predicted}")
+        extra_counts = {"wkv6_launches_by_variant": wkv_variants}
+    else:
+        extra_counts = {}
     entry = next(k for k in kernels if k["name"] == kernel)
     entry["launches"] = counts[kernel]
 
@@ -846,7 +947,7 @@ def phase_serve(name: str, kernels: list, with_profile: bool = False) -> dict:
     torch.cuda.synchronize()
     prefill_warm_s = time.perf_counter() - t0
     generated = sum(len(r.out) for r in done)
-    extra = {}
+    extra = dict(extra_counts)
     if with_profile:
         extra["profile"] = profile_decode(spec, rt, params)
     return {
@@ -993,8 +1094,7 @@ def phase_sweep(kernels: list, with_profile: bool = False) -> dict:
 
     # ---- the main path, with every launch count at 0 just before ----
     torch.cuda.reset_peak_memory_stats()
-    for module in COUNTERS.values():
-        module.launches = 0
+    reset_counts()
     start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
     torch.cuda.synchronize()
     with spans.profiled() as prof:
@@ -1159,7 +1259,7 @@ def phase_parity_rwkv() -> dict:
             eng.submit(Request(rid=rid, prompt=pr, max_new=6))
         return {r.rid: r.out for r in eng.run(max_steps=64)}
 
-    wkv.launches = 0
+    reset_counts()
     got, want = serve(params, DEV), serve(cpu_params, "cpu")
     engine_launches = wkv.launches
     require(engine_launches > 0, "the card's engine did not run the kernel")
@@ -1189,6 +1289,10 @@ def main(argv=None) -> int:
     ap.add_argument("--ptxas-info", action="store_true",
                     help="also compile with -Xptxas -v and print registers, "
                          "shared memory and spills to standard error")
+    ap.add_argument("--wkv-tiles", action="store_true",
+                    help="kernels phase: also time the wkv6 tiled kernel's "
+                         "tile instances against each other at the prefill "
+                         "shape")
     ap.add_argument("--profile", action="store_true",
                     help="serve phase: also trace four decode steps with "
                          "torch.profiler (device-busy time, idle share, top "
@@ -1218,6 +1322,8 @@ def main(argv=None) -> int:
                 sys.stderr.write(f"---- ptxas: {name} ----\n{log}\n")
     if "kernels" in phases:
         kernels = phase_kernels()
+        if args.wkv_tiles:
+            emit("wkv_tiles", **time_wkv_tiles())
         if "serve" not in phases and "sweep" not in phases:
             print(json.dumps({"kernels": kernels}), flush=True)
     if ("serve" in phases or "sweep" in phases) and not kernels:

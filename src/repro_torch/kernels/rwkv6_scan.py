@@ -13,26 +13,43 @@ do.  The floor is part of the result: wherever a decay ``w`` is below
 (``ref.ref_wkv``), so the chunk size is an argument, not a tiling choice.
 
 Model layout throughout: ``r/k/v/w [B, S, N, D]``, ``u [N, D]``,
-``state [B, N, D, D]``, all fp32.  ``wkv6_bhsd`` takes the ``[B, N, S, D]``
-layout of the TPU kernel and hands the same memory to the same kernel by
-strides.
+``state [B, N, D, D]``.  r, k and v share a dtype, float32 or bfloat16, and
+are cast on load as the TPU kernel does; w, u and the state are float32, and
+so is the output.  ``wkv6_bhsd`` takes the ``[B, N, S, D]`` layout of the TPU
+kernel and hands the same memory to the same kernels by strides.
 
 For tensors on the CPU the wrapper computes ``wkv6_plain``.  For CUDA tensors
-it launches the kernel or raises; there is no fallback.
+it launches the kernel that ``_variant`` names (``decode`` for one step,
+``tiled`` for more) or raises; there is no fallback.
 """
 from __future__ import annotations
 
 import ctypes
 import math
+import threading
 from typing import Optional
 
 import torch
 
-# Number of kernel launches made by this module (CUDA tensors only).
+# Number of kernel launches made by this module (CUDA tensors only), and
+# the same launches by the kernel ``_variant`` named.
 launches = 0
+launches_by_variant = {"decode": 0, "tiled": 0}
 
-HEAD_DIMS = (16, 32, 48, 64)        # the kernel's instances
+HEAD_DIMS = (16, 32, 48, 64)        # the kernels' instances
+INPUT_DTYPES = (torch.float32, torch.bfloat16)   # of r, k, v
+_DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
+_VARIANT_CODE = {"decode": 0, "tiled": 1}
+# the tiled kernel's instance (``tile_config``).  Chunks of at most 32 steps
+# at head dim 32 or 64: one tile per chunk and one block per head (the
+# one-accumulator kernel, ``WHOLE_CHUNKS``).  Otherwise tiles of
+# ``TILE_STEPS`` steps (a tile never spans a chunk boundary) and blocks of
+# ``TILE_COLS`` state columns at head dim 64; 16 x 16 at the other head dims
+WHOLE_CHUNKS = True
+TILE_STEPS = 16
+TILE_COLS = 32
 _fn = None
+_local = threading.local()      # the ctypes meta array, one per thread
 
 
 def _chunk_plain(r, k, v, w, u, state):
@@ -80,11 +97,96 @@ def wkv6_plain(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     return torch.cat(outs, dim=1), state
 
 
+def _suffix_excl(x: torch.Tensor) -> torch.Tensor:
+    """``out[:, i] = prod_{j > i} x[:, j]`` along dim 1, by running products
+    from the end (no division)."""
+    ones = torch.ones_like(x[:, :1])
+    rev = torch.cumprod(torch.flip(x[:, 1:], dims=[1]), dim=1)
+    return torch.cat([torch.flip(rev, dims=[1]), ones], dim=1)
+
+
+def wkv6_tiled_plain(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                     w: torch.Tensor, u: torch.Tensor, state0: torch.Tensor,
+                     *, chunk: int, tile: int) -> tuple:
+    """The ``tiled`` kernel's algorithm in fp32 PyTorch, model layout: the
+    same function as ``wkv6_plain``, computed from the same factors as the
+    kernel (whose products run as fp32 FMAs or 3xTF32 tensor-core products,
+    both of fp32 accuracy).
+
+    Three ``[D, D]`` accumulators are carried (A: the chunk-start state
+    decayed by the true w; B: the intra-chunk sum under the floored decay
+    wc = max(w, e^{-80/C}); T: the same sum under the true w) and advanced
+    ``tile`` steps at a time.  A tile never spans a chunk boundary, so the
+    last tile of a chunk may be shorter.  Within a tile, P are running
+    prefix products and Sfx running suffix products to the tile's end:
+
+        out   = (r ⊙ Pw_excl) A + (r ⊙ Pwc_excl) B
+                + mask_strict((r ⊙ Pwc_excl)(k ⊘ Pwc_incl)ᵀ) V + (r·(u ⊙ k)) v
+        T <- diag(Pw_tot) T + (k ⊙ Sfx_w)ᵀ V,  B <- diag(Pwc_tot) B + (k ⊙ Sfx_wc)ᵀ V
+        A <- diag(Pw_tot) A;  at a chunk's end A <- A + T, B, T <- 0
+
+    Only the floored products are divided by (times their reciprocal; the
+    kernel's is the hardware's approximate one, within 2 ulp): over one
+    chunk they stay above e^{-80}, inside fp32's normal range.  The
+    true-decay products may underflow (w goes down to 1e-30) and are only
+    multiplied.  The bonus term is the diagonal of the score matrix, with k
+    replaced by u ⊙ k ⊘ Pwc_excl."""
+    f32 = torch.float32
+    r, k, v, w, u, state = (t.to(f32) for t in (r, k, v, w, u, state0))
+    s = r.shape[1]
+    floor = torch.tensor(math.exp(-80.0 / chunk), dtype=f32,
+                         device=r.device)
+    acc_a = state.clone()
+    acc_b = torch.zeros_like(state)
+    acc_t = torch.zeros_like(state)
+    outs = []
+    for c0 in range(0, s, chunk):
+        for t0 in range(c0, c0 + chunk, tile):
+            sl = slice(t0, min(t0 + tile, c0 + chunk))
+            rt, kt, vt = r[:, sl], k[:, sl], v[:, sl]
+            wt = torch.clamp_min(w[:, sl], 1e-30)
+            wct = torch.maximum(wt, floor)
+            ones = torch.ones_like(wt[:, :1])
+            pw = torch.cumprod(wt, dim=1)
+            pw_excl = torch.cat([ones, pw[:, :-1]], dim=1)
+            pwc = torch.cumprod(wct, dim=1)
+            pwc_excl = torch.cat([ones, pwc[:, :-1]], dim=1)
+            r_a, r_b = rt * pw_excl, rt * pwc_excl
+            inv = torch.reciprocal(pwc)
+            inv_excl = torch.cat([ones, inv[:, :-1]], dim=1)
+            k_q = kt * inv
+            k_d = u * kt * inv_excl
+            l_ = rt.shape[1]
+            sc = torch.einsum("bind,bjnd->bnij", r_b, k_q)
+            strict = torch.tril(torch.ones(l_, l_, dtype=torch.bool,
+                                           device=r.device), -1)
+            sc = torch.where(strict, sc, torch.zeros_like(sc))
+            sc = sc + torch.diag_embed(torch.einsum("bind,bind->bni", r_b, k_d))
+            out = (torch.einsum("bind,bnde->bine", r_a, acc_a)
+                   + torch.einsum("bind,bnde->bine", r_b, acc_b)
+                   + torch.einsum("bnij,bjne->bine", sc, vt))
+            outs.append(out)
+            pw_tot, pwc_tot = pw[:, -1], pwc[:, -1]               # [B,N,D]
+            acc_t = acc_t * pw_tot[..., None] + torch.einsum(
+                "bjnd,bjne->bnde", kt * _suffix_excl(wt), vt)
+            acc_b = acc_b * pwc_tot[..., None] + torch.einsum(
+                "bjnd,bjne->bnde", kt * _suffix_excl(wct), vt)
+            acc_a = acc_a * pw_tot[..., None]
+        acc_a = acc_a + acc_t
+        acc_b = torch.zeros_like(state)
+        acc_t = torch.zeros_like(state)
+    return torch.cat(outs, dim=1), acc_a
+
+
 def _check(r, k, v, w, u, state0, chunk):
     tensors = dict(r=r, k=k, v=v, w=w, u=u, state0=state0)
-    for name, t in tensors.items():
-        if t.dtype != torch.float32:
-            raise TypeError(f"wkv6 takes float32 tensors; {name} is {t.dtype}")
+    if r.dtype not in INPUT_DTYPES or not (r.dtype == k.dtype == v.dtype):
+        raise TypeError(f"wkv6 takes r, k, v of one dtype, float32 or "
+                        f"bfloat16; got {r.dtype}, {k.dtype}, {v.dtype}")
+    for name in ("w", "u", "state0"):
+        if tensors[name].dtype != torch.float32:
+            raise TypeError(f"wkv6 takes a float32 {name}; it is "
+                            f"{tensors[name].dtype}")
     if r.dim() != 4:
         raise ValueError(f"wkv6 takes r/k/v/w [B,S,N,D]; r is {tuple(r.shape)}")
     b, s, n, d = r.shape
@@ -110,40 +212,93 @@ def _kernel_fn():
     if _fn is None:
         from . import _build
         fn = _build.load("rwkv6_scan").wkv6_launch
-        ptr = ctypes.c_void_p
+        ptr, c_int = ctypes.c_void_p, ctypes.c_int
         fn.argtypes = [ptr] * 8 + [ctypes.POINTER(ctypes.c_longlong),
-                                   ctypes.c_float, ptr]
+                                   ctypes.c_float, c_int, c_int, c_int, c_int,
+                                   ptr]
         fn.restype = ctypes.c_int
         _fn = fn
     return _fn
 
 
+def _variant(r: torch.Tensor) -> str:
+    """The kernel a CUDA call goes to, by an explicit rule:
+
+    * ``"decode"``: one step (S = 1, which forces C = 1): the streaming
+      kernel, one block per (batch, head), the state read and written once
+      in coalesced float4s;
+    * ``"tiled"``: more steps: the tile-stepped walk, one block per (batch,
+      head, state-column slice), the state in registers throughout.
+
+    The C entry launches the kernel named here or fails; nothing falls back."""
+    return "decode" if r.shape[1] == 1 else "tiled"
+
+
+def tile_config(d: int, chunk: int) -> tuple:
+    """(steps per tile, state columns per block) of the tiled kernel at head
+    dim ``d`` and chunk ``chunk``.  (0, d): one tile per chunk, one block per
+    head, for chunks of at most 32 steps at head dims 32 and 64 (the
+    one-accumulator kernel).  Else (``TILE_STEPS``, ``TILE_COLS``) at head
+    dim 64 and (16, 16) at the others."""
+    if WHOLE_CHUNKS and chunk <= 32 and d in (32, 64):
+        return 0, d
+    return (TILE_STEPS, TILE_COLS) if d == 64 else (16, 16)
+
+
+def _check_layout(name: str, stride: tuple, ptr: int, esize: int,
+                  variant: str):
+    """Every tensor reads its head dim contiguously.  The tiled kernel copies
+    r, k and v in 4-byte pieces, so bf16 ones need even strides and a base on
+    4 bytes; the decode kernel reads the state in float4s, on 16 bytes."""
+    if stride[-1] != 1:
+        raise ValueError(f"wkv6 kernel: {name} needs a contiguous head dim "
+                         f"(strides {stride})")
+    if variant == "tiled" and esize == 2 and (
+            ptr % 4 or any(s_ % 2 for s_ in stride[:-1])):
+        raise ValueError(f"wkv6 tiled kernel: bf16 {name} needs even strides "
+                         f"{stride} and an address on 4 bytes")
+    if variant == "decode" and name.startswith("state") and ptr % 16:
+        raise ValueError(f"wkv6 decode kernel: {name} needs an address on "
+                         "16 bytes")
+
+
 def _launch(r, k, v, w, u, state0, out, state_out, chunk):
     global launches
     b, s, n, d = r.shape
-    for name, t in (("r", r), ("k", k), ("v", v), ("w", w), ("out", out)):
-        if t.stride(-1) != 1:
-            raise ValueError(f"wkv6 kernel: {name} needs a contiguous head dim "
-                             f"(strides {t.stride()})")
+    variant = _variant(r)
+    for name, t in (("r", r), ("k", k), ("v", v), ("w", w), ("out", out),
+                    ("state0", state0), ("state_out", state_out)):
+        _check_layout(name, t.stride(), t.data_ptr(), t.element_size(),
+                      variant)
     for name, t in (("u", u), ("state0", state0), ("state_out", state_out)):
         if not t.is_contiguous():
             raise ValueError(f"wkv6 kernel: {name} must be contiguous")
     if b > 65535 or n > 65535:
         raise ValueError(f"batch {b} / heads {n} exceed the grid's 65535")
-    meta = [b, s, n, d, chunk]
-    for t in (r, k, v, w, out):
-        meta += [t.stride(0), t.stride(1), t.stride(2)]
+    meta = getattr(_local, "meta", None)
+    if meta is None:
+        meta = _local.meta = (ctypes.c_longlong * 20)()
+    meta[:] = [b, s, n, d, chunk, *r.stride()[:3], *k.stride()[:3],
+               *v.stride()[:3], *w.stride()[:3], *out.stride()[:3]]
+    steps, cols = tile_config(d, chunk)
+    device = r.device
+    args = (r.data_ptr(), k.data_ptr(), v.data_ptr(), w.data_ptr(),
+            u.data_ptr(), state0.data_ptr(), out.data_ptr(),
+            state_out.data_ptr(), meta, math.exp(-80.0 / chunk),
+            _DTYPE_CODE[r.dtype], _VARIANT_CODE[variant], steps, cols,
+            torch.cuda.current_stream(device).cuda_stream)
     fn = _kernel_fn()
-    with torch.cuda.device(r.device):
-        stream = torch.cuda.current_stream().cuda_stream
-        err = fn(r.data_ptr(), k.data_ptr(), v.data_ptr(), w.data_ptr(),
-                 u.data_ptr(), state0.data_ptr(), out.data_ptr(),
-                 state_out.data_ptr(), (ctypes.c_longlong * len(meta))(*meta),
-                 math.exp(-80.0 / chunk), stream)
+    if device.index == torch.cuda.current_device():
+        err = fn(*args)
+    else:
+        with torch.cuda.device(device):
+            err = fn(*args)
     if err != 0:
-        raise RuntimeError(f"wkv6 kernel launch failed with cudaError {err} "
-                           f"(r {tuple(r.shape)}, chunk {chunk})")
+        raise RuntimeError(f"wkv6 {variant} kernel launch failed with "
+                           f"cudaError {err} (r {tuple(r.shape)} {r.dtype}, "
+                           f"chunk {chunk})")
     launches += 1
+    launches_by_variant[variant] += 1
 
 
 def _scan(r, k, v, w, u, state0, out, state_out, chunk):

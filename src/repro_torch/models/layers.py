@@ -282,7 +282,8 @@ def rwkv6_layer(p: dict, x: torch.Tensor, spec, rt: RuntimeCfg, *,
     def heads(nm):
         return torch.einsum("bsh,hnd->bsnd", mix(nm), cast(p[f"w_{nm}"], rt))
 
-    r, k, v = (heads(nm).float() for nm in ("r", "k", "v"))
+    # r, k, v in the compute dtype: the kernel casts them on load (exact)
+    r, k, v = (heads(nm) for nm in ("r", "k", "v"))
     g = heads("g")
     d1 = mix("w") @ cast(p["w_dec1"], rt)
     dec = torch.einsum("bsr,rnd->bsnd", d1, cast(p["w_dec2"], rt)).float()
