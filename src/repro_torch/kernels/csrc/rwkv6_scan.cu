@@ -57,8 +57,9 @@
 //     A is carried; one block per (b, n) with two warp roles.  State warps
 //     hold A^T in mma.sync fragments and run the tile's three products on
 //     the tensor cores in 3xTF32; input warps load tile t + 2 and compute
-//     tile t + 1's prefix walks and [L, L] scores (fp32 FMAs), which depend
-//     on the inputs only.  One block barrier per tile.
+//     tile t + 1's factors (product scans across the 32 lanes of a warp,
+//     lane = step) and [L, L] scores (fp32 FMAs), which depend on the inputs
+//     only.  One block barrier per tile.
 //   * wkv6_tiled_kernel, for longer chunks (a prompt of S steps that 32 does
 //     not divide is one chunk of S): tiles of 16 steps, all three
 //     accumulators as fp32 FMA register tiles, one block per (b, n, 32
@@ -88,8 +89,8 @@
 // bytes of r, k, v, w and out (5 D floats) plus the state once in and once
 // out.  At the main prefill shape [2, 2048, 64, 64] the bytes bound it (340 MB
 // at 3.35 TB/s = 0.101 ms).  The kernel is not: with 128 blocks of 12 warps
-// it is bound by the input warps' prefix walks and scores (issue and
-// latency; PERF.md section 7).
+// it loads its inputs at about that rate, and the input warps' scans and
+// scores and the state warps' products add to it (PERF.md section 7).
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -127,6 +128,17 @@ __device__ __forceinline__ float2 to_f2(const float* x) {
 }
 __device__ __forceinline__ float2 to_f2(const __nv_bfloat16* x) {
   return __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(x));
+}
+
+// four consecutive elements (16-byte aligned for fp32, 8-byte for bf16)
+__device__ __forceinline__ float4 to_f4(const float* x) {
+  return *reinterpret_cast<const float4*>(x);
+}
+__device__ __forceinline__ float4 to_f4(const __nv_bfloat16* x) {
+  const uint2 u = *reinterpret_cast<const uint2*>(x);
+  const float2 a = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&u.x));
+  const float2 b = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&u.y));
+  return make_float4(a.x, a.y, b.x, b.y);
 }
 
 // 1/x for the floored decay products (e^-80 <= x <= 1): the hardware's
@@ -268,10 +280,14 @@ struct Tiled {
   static constexpr int kRows = 4 * kRuns;
   static constexpr int kUnit = 4 / sizeof(T);    // elements per 4-byte copy
   // one stage of the ring: r, k [L][DP] and v [L][E] as read, w [L][DP] fp32
-  static constexpr int kStageK = L * DP * sizeof(T);
-  static constexpr int kStageV = 2 * L * DP * sizeof(T);
+  // stage rows of r, k (RS elements) and w (RW floats) padded by 16 bytes,
+  // so the 32 steps of a row group are read across lanes in few wavefronts
+  static constexpr int RS = DP + 16 / sizeof(T);
+  static constexpr int RW = DP + 4;
+  static constexpr int kStageK = L * RS * sizeof(T);
+  static constexpr int kStageV = 2 * L * RS * sizeof(T);
   static constexpr int kStageW = kStageV + L * E * sizeof(T);
-  static constexpr int kStageBytes = kStageW + L * DP * 4;
+  static constexpr int kStageBytes = kStageW + L * RW * 4;
   static constexpr int kFactor = L * DPP;        // floats of one factor array
   static constexpr int kSmemBytes =
       2 * kStageBytes + (6 * kFactor + L * LP + 3 * DP) * 4;
@@ -290,7 +306,7 @@ __device__ __forceinline__ void copy_tile(unsigned char* st, const Params& p,
                                           const T* rp, const T* kp,
                                           const float* wp, const T* vp,
                                           int t0, int len, int tid) {
-  constexpr int DP = K::DP;
+  constexpr int RS = K::RS, RW = K::RW;
   constexpr int kRK = D * sizeof(T) / BYTES;   // pieces of an r or k row
   constexpr int kEl = BYTES / sizeof(T);       // elements per piece
   auto copy = [](void* dst, const void* src, bool ok) {
@@ -301,15 +317,15 @@ __device__ __forceinline__ void copy_tile(unsigned char* st, const Params& p,
     const int i = x / kRK, c = (x % kRK) * kEl;
     const bool ok = i < len;
     const long long t = t0 + (ok ? i : 0);
-    copy(st + (i * DP + c) * sizeof(T), rp + t * p.r_ss + c, ok);
-    copy(st + K::kStageK + (i * DP + c) * sizeof(T), kp + t * p.k_ss + c, ok);
+    copy(st + (i * RS + c) * sizeof(T), rp + t * p.r_ss + c, ok);
+    copy(st + K::kStageK + (i * RS + c) * sizeof(T), kp + t * p.k_ss + c, ok);
   }
   constexpr int kW = D * 4 / BYTES, kWEl = BYTES / 4;
   for (int x = tid; x < L * kW; x += NT) {
     const int i = x / kW, c = (x % kW) * kWEl;
     const bool ok = i < len;
     const long long t = t0 + (ok ? i : 0);
-    copy(st + K::kStageW + (i * DP + c) * 4, wp + t * p.w_ss + c, ok);
+    copy(st + K::kStageW + (i * RW + c) * 4, wp + t * p.w_ss + c, ok);
   }
   constexpr int kV = E * sizeof(T) / BYTES;
   for (int x = tid; x < L * kV; x += NT) {
@@ -414,9 +430,9 @@ __global__ void __launch_bounds__(4 * E) wkv6_tiled_kernel(const Params p) {
 #pragma unroll
       for (int i = 0; i < L; ++i) {
         const bool in = i < len && d < D;
-        r_[i] = in ? to_f(sr[i * DP + d]) : 0.f;
-        k_[i] = in ? to_f(sk[i * DP + d]) : 0.f;
-        w_[i] = in ? fmaxf(sw[i * DP + d], 1e-30f) : 1.f;
+        r_[i] = in ? to_f(sr[i * K::RS + d]) : 0.f;
+        k_[i] = in ? to_f(sk[i * K::RS + d]) : 0.f;
+        w_[i] = in ? fmaxf(sw[i * K::RW + d], 1e-30f) : 1.f;
       }
       if (job < DP) {
         const float ud = su[d];
@@ -642,9 +658,9 @@ __global__ void __launch_bounds__(4 * E) wkv6_tiled_kernel(const Params p) {
 // V^T (k*Sfx_w).  A^T's C fragments are the A operand of the first product
 // as they are (its d order permuted within each 8, and the B operand read in
 // the same order).  4D input threads meanwhile load tile t + 2 and compute
-// tile t + 1's factors and scores in fp32 FMAs (a three-stage input ring, two
-// factor buffers).  One block barrier per tile, and one among the input
-// threads.
+// tile t + 1's factors (product scans over the lanes, lane = step) and
+// scores (fp32 FMAs): a three-stage input ring, two factor buffers.  One
+// block barrier per tile, and one among the input threads.
 template <int D, int E, typename T>
 struct Chunked {
   using Stage = Tiled<D, E, 32, T>;       // the same stage layout
@@ -704,7 +720,6 @@ __global__ void __launch_bounds__(6 * D, 1) wkv6_chunk_kernel(const Params p) {
   constexpr int L = K::L, DP = K::DP, DPP = K::DPP, LP = K::LP, SA = K::SA;
   constexpr int NS = K::kState, NI = K::kInput;
   constexpr int IPW = L / (NI / 32);      // score rows per input warp
-  constexpr int kHalf = L / 2;
   extern __shared__ __align__(16) unsigned char smem[];
   float* const buf0 = reinterpret_cast<float*>(smem + 3 * S::kStageBytes);
   float* const su = buf0 + 2 * K::kBufFloats;
@@ -729,73 +744,77 @@ __global__ void __launch_bounds__(6 * D, 1) wkv6_chunk_kernel(const Params p) {
   };
 
   if (input) {
-    // ---- input threads: loads, the four walks per row, the scores ----
+    // ---- input threads: loads, the tile's factors, the scores ----
     const int it = tid - NS;
     for (int dd = it; dd < DP; dd += NI) su[dd] = p.u[(long long)n * D + dd];
-    const int kind = it / DP, d = it % DP;  // one walk per thread
     const int iwarp = it >> 5;
     auto load = [&](int t) {
       prefetch_tile<S, D, E, L, NI>(stage_of(t), p, rp, kp, wp, vp, t * C, C,
                                     it);
     };
-    // the true prefix (r*Pw_excl, Pw_tot); the floored prefix (r*Pwc_excl,
-    // k/Pwc_incl); the same for the bonus (u*k/Pwc_excl); the true suffix
-    // (k*Sfx_w).  Steps past C read as r = k = 0, w = 1
+    // the tile's factors, four rows d at a time per warp, lane = step:
+    // product scans over the lanes give the true prefix (r*Pw_excl, Pw_tot),
+    // the floored prefix (r*Pwc_excl, k/Pwc_incl, u*k/Pwc_excl) and the true
+    // suffix (k*Sfx_w).  Steps past C read as r = k = 0, w = 1
     auto prefix = [&](int t) {
       const unsigned char* st = stage_of(t);
       const T* sr = reinterpret_cast<const T*>(st);
       const T* sk = reinterpret_cast<const T*>(st + S::kStageK);
       const float* sw = reinterpret_cast<const float*>(st + S::kStageW);
       float* f = buf_of(t);
-      const float ud = su[d];
-      float run = 1.f, inv_excl = 1.f;
+      const int i = lane;
+      const bool in = i < C;
+      for (int q = iwarp; q < DP / 4; q += NI / 32) {
+        const int d0 = 4 * q;
+        const float4 wv = to_f4(sw + i * S::RW + d0);
+        const float4 rv = to_f4(sr + i * S::RS + d0);
+        const float4 kv = to_f4(sk + i * S::RS + d0);
+        float w4[4], r4[4], k4[4];
 #pragma unroll
-      for (int h = 0; h < 2; ++h) {
-        // kind 3 walks from the end: its first half is steps 16..31
-        const int i0 = kind == 3 ? (1 - h) * kHalf : h * kHalf;
-        float w_[kHalf], x_[kHalf];
-#pragma unroll
-        for (int ii = 0; ii < kHalf; ++ii) {
-          const int i = i0 + ii;
-          const bool in = i < C;
-          w_[ii] = in ? fmaxf(sw[i * DP + d], 1e-30f) : 1.f;
-          x_[ii] = in ? to_f(kind == 0 ? sr[i * DP + d] : sk[i * DP + d]) : 0.f;
+        for (int c = 0; c < 4; ++c) {
+          w4[c] = in ? fmaxf(comp(wv, c), 1e-30f) : 1.f;
+          r4[c] = in ? comp(rv, c) : 0.f;
+          k4[c] = in ? comp(kv, c) : 0.f;
         }
-        if (kind == 0) {                  // rA, Pw_tot
+        float o_ra[4], o_rb[4], o_kq[4], o_kd[4], o_kt[4], tot[4];
 #pragma unroll
-          for (int ii = 0; ii < kHalf; ++ii) {
-            f[(i0 + ii) * SA + d] = x_[ii] * run;
-            run *= w_[ii];
-          }
-        } else if (kind == 3) {           // kT
+        for (int c = 0; c < 4; ++c) {
+          const float wc = fmaxf(w4[c], floor_w);
+          float pw = w4[c], pc = wc, sx = w4[c];   // inclusive scans
 #pragma unroll
-          for (int ii = kHalf - 1; ii >= 0; --ii) {
-            f[K::oKT + (i0 + ii) * SA + d] = x_[ii] * run;
-            run *= w_[ii];
+          for (int o = 1; o < 32; o <<= 1) {
+            const float a = __shfl_up_sync(0xffffffffu, pw, o);
+            const float b2 = __shfl_up_sync(0xffffffffu, pc, o);
+            const float z = __shfl_down_sync(0xffffffffu, sx, o);
+            if (lane >= o) {
+              pw *= a;
+              pc *= b2;
+            }
+            if (lane + o < 32) sx *= z;
           }
-        } else if (kind == 1) {           // rB (r read here), kq
-          float r_[kHalf];
-#pragma unroll
-          for (int ii = 0; ii < kHalf; ++ii) {
-            const int i = i0 + ii;
-            r_[ii] = i < C ? to_f(sr[i * DP + d]) : 0.f;
-          }
-#pragma unroll
-          for (int ii = 0; ii < kHalf; ++ii) {
-            f[K::oRB + (i0 + ii) * DPP + d] = r_[ii] * run;
-            run *= fmaxf(w_[ii], floor_w);
-            f[K::oKQ + (i0 + ii) * DPP + d] = x_[ii] * recip(run);
-          }
-        } else {                          // kd
-#pragma unroll
-          for (int ii = 0; ii < kHalf; ++ii) {
-            f[K::oKD + (i0 + ii) * DPP + d] = ud * x_[ii] * inv_excl;
-            run *= fmaxf(w_[ii], floor_w);
-            inv_excl = recip(run);
-          }
+          float pw_ex = __shfl_up_sync(0xffffffffu, pw, 1);
+          float pc_ex = __shfl_up_sync(0xffffffffu, pc, 1);
+          float sx_ex = __shfl_down_sync(0xffffffffu, sx, 1);
+          if (lane == 0) pw_ex = pc_ex = 1.f;
+          if (lane == 31) sx_ex = 1.f;
+          tot[c] = __shfl_sync(0xffffffffu, pw, 31);
+          o_ra[c] = r4[c] * pw_ex;
+          o_rb[c] = r4[c] * pc_ex;
+          o_kq[c] = k4[c] * recip(pc);
+          o_kd[c] = su[d0 + c] * k4[c] * recip(pc_ex);
+          o_kt[c] = k4[c] * sx_ex;
         }
+        auto put = [&](int off, int stride, const float (&x)[4]) {
+          *reinterpret_cast<float4*>(f + off + i * stride + d0) =
+              make_float4(x[0], x[1], x[2], x[3]);
+        };
+        put(0, SA, o_ra);
+        put(K::oRB, DPP, o_rb);
+        put(K::oKQ, DPP, o_kq);
+        put(K::oKD, DPP, o_kd);
+        put(K::oKT, SA, o_kt);
+        if (lane == 0) put(K::oPW, 0, tot);
       }
-      if (kind == 0) f[K::oPW + d] = run;
       // v of the tile in fp32, in rows read as mma operands
       const T* sv = reinterpret_cast<const T*>(st + S::kStageV);
       for (int x = it; x < L * E; x += NI)
