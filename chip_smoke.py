@@ -2,7 +2,7 @@
 """Quickest proof that the PyTorch/CUDA port starts and is right on the GPU.
 
     python3 chip_smoke.py              # everything, on one CUDA device
-    python3 chip_smoke.py --phases build,kernels --ptxas-info --wkv-tiles
+    python3 chip_smoke.py --phases build,kernels --ptxas-info
     python3 chip_smoke.py --phases build,kernels,sweep --profile
 
 Phases, one JSON line each on standard output:
@@ -17,8 +17,7 @@ Phases, one JSON line each on standard output:
            Attention shapes also print the kernel the wrapper chose (tc, fma
            or decode), the decode split, and the device time per launch
            beside the library's; wkv6 shapes the kernel its wrapper chose
-           (decode or tiled), the tile, and the device time per launch.
-           --wkv-tiles also times wkv6's tile instances against each other
+           (decode or tiled), the tile, and the device time per launch
   serve    two served models, one after the other, each at published width
            and depth, bf16, random weights from a seed: qwen3-14b (attention
            through flash_attention), then rwkv6-7b (every WKV recurrence
@@ -26,7 +25,8 @@ Phases, one JSON line each on standard output:
            its tiled kernel, counted apart).  For each, an Engine with 8
            slots answers 16 requests, then one [2, 2048] prefill.  Every
            launch count is set to 0 just before each model's run and read
-           just after
+           just after.  Three warm prefills follow: every reading, their
+           median as prefill_ms
   sweep    the generator's design-space sweep on the batched backend:
            dse.sweep over every (dp, tp, cp, pp) factorisation of 64 devices
            for qwen3-14b's published spec, train, batch 256 x seq 4096, on
@@ -446,13 +446,16 @@ def check_strided_cache_view() -> float:
 # shape prints the kernel kernels/rwkv6_scan.py:_variant names (decode for
 # one step, tiled for more) and, for tiled, its tile (steps, columns).
 WKV_CASES = [
-    # the two shapes the rwkv6-7b serve path gives the kernel
-    dict(name="prefill", main=True, B=2, S=2048, N=64, D=64, chunk=32),
-    dict(name="decode-in-place", main=True, B=8, S=1, N=64, D=64, chunk=1,
-         state=True, in_place=True),
-    # the served model's r, k, v are bf16: read as they are, cast on load
-    dict(name="prefill-bf16", B=2, S=2048, N=64, D=64, chunk=32,
+    # the two calls the rwkv6-7b serve path makes: its r, k, v are bf16,
+    # read as they are and cast on load
+    dict(name="prefill", main=True, B=2, S=2048, N=64, D=64, chunk=32,
          dtype=torch.bfloat16),
+    dict(name="decode-in-place", main=True, B=8, S=1, N=64, D=64, chunk=1,
+         state=True, in_place=True, dtype=torch.bfloat16),
+    # the same shapes with fp32 r, k, v
+    dict(name="prefill-fp32", B=2, S=2048, N=64, D=64, chunk=32),
+    dict(name="decode-in-place-fp32", B=8, S=1, N=64, D=64, chunk=1,
+         state=True, in_place=True),
     # a prompt whose length 32 does not divide is one chunk of S
     dict(name="single-chunk-40", B=2, S=40, N=64, D=64, chunk=40, state=True),
     dict(name="single-chunk-1000", B=1, S=1000, N=8, D=64, chunk=1000,
@@ -477,10 +480,6 @@ WKV_CASES = [
     dict(name="carry-two-calls", B=2, S=256, N=8, D=64, chunk=32, state=True,
          split=128),
 ]
-# the tiled kernel's instances at head dim 64 (steps, columns; 0 steps:
-# one tile per chunk, the one-accumulator instance for chunks of at most
-# 32), timed against each other at the prefill shape with --wkv-tiles
-WKV_TILES = [(0, 64), (16, 16), (16, 32), (32, 16), (32, 32)]
 # kernel vs plain version: |err| <= absolute + relative * |plain|, on the
 # output and on the final state.  The plain version is run in float64 for
 # this: in fp32 it (like the TPU kernel) scales r and k by factors up to
@@ -619,36 +618,6 @@ def check_wkv_case(case, seed: int) -> dict:
     }
     row["bound_share_device"] = bound_ms / dev_ms
     return row
-
-
-def time_wkv_tiles() -> dict:
-    """Device ms per launch of the tiled kernel's instances at the prefill
-    shape, in turns (forward, then backward), each held to the limit."""
-    case = WKV_CASES[0]
-    r, k, v, w, u, s0 = wkv_inputs(case, seed=100)
-    want = wkv.wkv6_plain(r, k, v, w, u, s0, chunk=case["chunk"],
-                          dtype=torch.float64)[0]
-    keep = wkv.WHOLE_CHUNKS, wkv.TILE_STEPS, wkv.TILE_COLS
-    times = {f"{L}x{E}": [] for L, E in WKV_TILES}
-    try:
-        for L, E in WKV_TILES + WKV_TILES[::-1]:
-            wkv.WHOLE_CHUNKS = L == 0
-            wkv.TILE_STEPS, wkv.TILE_COLS = L, E
-            require(wkv.tile_config(case["D"], case["chunk"]) == (L, E),
-                    f"wkv6 tile {L}x{E} not selected")
-            got = wkv.wkv6(r, k, v, w, u, s0, chunk=case["chunk"])[0]
-            torch.cuda.synchronize()
-            share = ((got.double() - want).abs()
-                     / wkv_tolerance(want)).max().item()
-            require(share <= 1.0, f"wkv6 tile {L}x{E}: {share:.3f} of the "
-                    "limit")
-            times[f"{L}x{E}"].append(device_ms(
-                lambda: wkv.wkv6(r, k, v, w, u, s0, chunk=case["chunk"]))[0])
-    finally:
-        wkv.WHOLE_CHUNKS, wkv.TILE_STEPS, wkv.TILE_COLS = keep
-    return {"shape": case["name"], "steps_x_cols_device_ms": times,
-            "in_use": "x".join(map(str, wkv.tile_config(case["D"],
-                                                         case["chunk"])))}
 
 
 # cost_reduce, out[b, e] = sum_t x[b, t] w[e, t]: x [B, T], w [E, T].  The
@@ -807,6 +776,12 @@ def phase_kernels() -> list:
 # serve: the main paths
 # ---------------------------------------------------------------------------
 
+def device_us(e) -> float:
+    """Device time of a torch.profiler event row, microseconds."""
+    return getattr(e, "self_device_time_total",
+                   getattr(e, "self_cuda_time_total", 0.0))
+
+
 def profile_decode(spec, rt, params, steps: int = 4) -> dict:
     """Where a decode step's time goes (``--profile``): a full 8-slot engine
     takes 16 steps on the host's clock, then ``steps`` more under
@@ -830,10 +805,6 @@ def profile_decode(spec, rt, params, steps: int = 4) -> dict:
         eng.run(max_steps=steps)
         torch.cuda.synchronize()
 
-    def device_us(e):
-        return getattr(e, "self_device_time_total",
-                       getattr(e, "self_cuda_time_total", 0.0))
-
     # kernel events only: the CPU-side op rows repeat their kernels' time
     events = [e for e in prof.key_averages()
               if e.device_type == DeviceType.CUDA and device_us(e) > 0]
@@ -850,6 +821,71 @@ def profile_decode(spec, rt, params, steps: int = 4) -> dict:
         "top_device_ms_per_step": [
             {"name": e.key[:60], "ms": device_us(e) / 1e3 / steps,
              "calls": e.count / steps} for e in top],
+    }
+
+
+def timed_prefill(prefill, params, tokens) -> tuple:
+    """One prefill on the host's clock, ending in a sync -> (logits, {ms,
+    what else the host did meanwhile: the caching allocator's new device
+    allocations and its retries (a retry frees cached blocks after a
+    sync), and the milliseconds Python's garbage collector ran})."""
+    pauses = []
+
+    def on_gc(phase, info):
+        if phase == "start":
+            on_gc.t0 = time.perf_counter()
+        else:
+            pauses.append((time.perf_counter() - on_gc.t0) * 1e3)
+
+    before = torch.cuda.memory_stats()
+    gc.callbacks.append(on_gc)
+    try:
+        t0 = time.perf_counter()
+        logits = prefill(params, tokens)
+        torch.cuda.synchronize()
+        ms = (time.perf_counter() - t0) * 1e3
+    finally:
+        gc.callbacks.remove(on_gc)
+    after = torch.cuda.memory_stats()
+
+    def grew(key):
+        return after.get(key, 0) - before.get(key, 0)
+
+    return logits, {"ms": ms, "device_mallocs": grew("num_device_alloc"),
+                    "alloc_retries": grew("num_alloc_retries"),
+                    "gc_ms": sum(pauses)}
+
+
+def profile_prefill(prefill, params, tokens, kernel: str) -> dict:
+    """Where a warm [2, 2048] prefill's time goes (``--profile``): one
+    prefill under torch.profiler; its wall time on the host beside the
+    device-busy time and the device time of the model's kernel in it."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    prefill(params, tokens)                              # warm-up
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        prefill(params, tokens)
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+
+    events = [e for e in prof.key_averages()
+              if e.device_type == DeviceType.CUDA and device_us(e) > 0]
+    if not events:
+        return {"device_busy_ms": "not measured",
+                "reason": "the profiler recorded no device time"}
+    busy_ms = sum(device_us(e) for e in events) / 1e3
+    tag = {"wkv6": "wkv6", "flash_attention": "flash"}[kernel]
+    mine = [e for e in events if tag in e.key]
+    top = sorted(events, key=device_us, reverse=True)[:8]
+    return {
+        "wall_ms_profiled": wall_ms, "device_busy_ms": busy_ms,
+        "device_idle_share": max(0.0, 1.0 - busy_ms / wall_ms),
+        f"{kernel}_device_ms": sum(device_us(e) for e in mine) / 1e3,
+        f"{kernel}_kernel_launches": sum(e.count for e in mine),
+        "top_device_ms": [{"name": e.key[:60], "ms": device_us(e) / 1e3,
+                           "calls": e.count} for e in top],
     }
 
 
@@ -901,10 +937,7 @@ def phase_serve(name: str, kernels: list, with_profile: bool = False) -> dict:
     done = engine.run(max_steps=kv_len)
     torch.cuda.synchronize()
     decode_s = time.perf_counter() - t0
-    t0 = time.perf_counter()
-    last_logits = prefill(params, prefill_tokens)
-    torch.cuda.synchronize()
-    prefill_s = time.perf_counter() - t0
+    last_logits, first = timed_prefill(prefill, params, prefill_tokens)
     counts = {k: module.launches for k, module in COUNTERS.items()}
     wkv_variants = dict(wkv.launches_by_variant)
     # ---- read just after ----
@@ -941,15 +974,17 @@ def phase_serve(name: str, kernels: list, with_profile: bool = False) -> dict:
     entry = next(k for k in kernels if k["name"] == kernel)
     entry["launches"] = counts[kernel]
 
-    # a second prefill, now warm, for the time that is reported
-    t0 = time.perf_counter()
-    prefill(params, prefill_tokens)
-    torch.cuda.synchronize()
-    prefill_warm_s = time.perf_counter() - t0
+    # three more prefills, now warm: every reading, and their median as the
+    # time that is reported
+    warm = [timed_prefill(prefill, params, prefill_tokens)[1]
+            for _ in range(3)]
+    warm_ms = [w.pop("ms") for w in warm]
     generated = sum(len(r.out) for r in done)
     extra = dict(extra_counts)
     if with_profile:
         extra["profile"] = profile_decode(spec, rt, params)
+        extra["profile_prefill"] = profile_prefill(prefill, params,
+                                                   prefill_tokens, kernel)
     return {
         **extra,
         "model": spec.name, "layers": spec.n_layers, "d_model": spec.d_model,
@@ -961,8 +996,10 @@ def phase_serve(name: str, kernels: list, with_profile: bool = False) -> dict:
         "decode_ms_per_step": decode_s * 1e3 / engine.steps,
         "tokens_per_s": (prompt_tokens + generated) / decode_s,
         "generated_tokens_per_s": generated / decode_s,
-        "prefill_shape": [2, 2048], "prefill_first_ms": prefill_s * 1e3,
-        "prefill_ms": prefill_warm_s * 1e3,
+        "prefill_shape": [2, 2048], "prefill_first_ms": first.pop("ms"),
+        "prefill_ms": float(np.median(warm_ms)),
+        "prefill_warm_ms_readings": warm_ms,
+        "prefill_host_events": [first, *warm],
         "kernel": kernel, "launches": counts,
         "launches_per_decode_step": spec.n_layers,
         "launches_per_prefill": spec.n_layers,
@@ -1047,10 +1084,6 @@ def profile_sweep(bengine, cfgs, hw) -> dict:
         bengine.evaluate_many(cfgs, hw)
         torch.cuda.synchronize()
     wall = time.perf_counter() - t0
-
-    def device_us(e):
-        return getattr(e, "self_device_time_total",
-                       getattr(e, "self_cuda_time_total", 0.0))
     events = [e for e in prof.key_averages()
               if e.device_type == DeviceType.CUDA and device_us(e) > 0]
     if not events:
@@ -1289,15 +1322,11 @@ def main(argv=None) -> int:
     ap.add_argument("--ptxas-info", action="store_true",
                     help="also compile with -Xptxas -v and print registers, "
                          "shared memory and spills to standard error")
-    ap.add_argument("--wkv-tiles", action="store_true",
-                    help="kernels phase: also time the wkv6 tiled kernel's "
-                         "tile instances against each other at the prefill "
-                         "shape")
     ap.add_argument("--profile", action="store_true",
-                    help="serve phase: also trace four decode steps with "
-                         "torch.profiler (device-busy time, idle share, top "
-                         "kernels); sweep phase: the same for one warm "
-                         "evaluation of the sweep's points")
+                    help="serve phase: also trace four decode steps and "
+                         "one warm prefill with torch.profiler (device-busy "
+                         "time, idle share, top kernels); sweep phase: the "
+                         "same for one warm evaluation of the sweep's points")
     args = ap.parse_args(argv)
     phases = [p for p in args.phases.split(",") if p]
     unknown = set(phases) - set(PHASES)
@@ -1322,8 +1351,6 @@ def main(argv=None) -> int:
                 sys.stderr.write(f"---- ptxas: {name} ----\n{log}\n")
     if "kernels" in phases:
         kernels = phase_kernels()
-        if args.wkv_tiles:
-            emit("wkv_tiles", **time_wkv_tiles())
         if "serve" not in phases and "sweep" not in phases:
             print(json.dumps({"kernels": kernels}), flush=True)
     if ("serve" in phases or "sweep" in phases) and not kernels:

@@ -1022,9 +1022,8 @@ cudaError_t launch_tiled(const Params& p, cudaStream_t stream) {
 
 // The tile instances.  steps = 0: one tile per chunk (chunks of at most 32
 // steps, head dims 32 and 64, all D columns), the one-accumulator kernel.
-// Otherwise 16 steps x 16 columns at every head dim, and at the served head
-// dim 64 also 16 x 32 (the faster, in use) and 32 x 16, 32 x 32 (measured
-// against it by chip_smoke.py --wkv-tiles).
+// Otherwise 16 steps x 32 columns at head dim 64 (the fastest of 16 x 16,
+// 16 x 32, 32 x 16 and 32 x 32 on the card) and 16 x 16 at the others.
 template <typename T>
 cudaError_t dispatch_tiled(const Params& p, int steps, int cols,
                            cudaStream_t st) {
@@ -1039,10 +1038,7 @@ cudaError_t dispatch_tiled(const Params& p, int steps, int cols,
     case 161616: return launch_tiled<16, 16, 16, T>(p, st);
     case 321616: return launch_tiled<32, 16, 16, T>(p, st);
     case 481616: return launch_tiled<48, 16, 16, T>(p, st);
-    case 641616: return launch_tiled<64, 16, 16, T>(p, st);
-    case 641632: return launch_tiled<64, 16, 32, T>(p, st);
     case 643216: return launch_tiled<64, 32, 16, T>(p, st);
-    case 643232: return launch_tiled<64, 32, 32, T>(p, st);
     default: return cudaErrorInvalidValue;
   }
 }

@@ -9,6 +9,9 @@ from . import cost_reduce as _cr
 from . import flash_attention as _fa
 from . import rwkv6_scan as _wkv
 
+# the dtypes in which wkv6 reads r, k and v (cast on load)
+WKV6_INPUT_DTYPES = _wkv.INPUT_DTYPES
+
 
 def cost_reduce(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     """Batched cost reduction ``out[b, e] = sum_t x[b, t] * w[e, t]``: the

@@ -40,14 +40,6 @@ HEAD_DIMS = (16, 32, 48, 64)        # the kernels' instances
 INPUT_DTYPES = (torch.float32, torch.bfloat16)   # of r, k, v
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 _VARIANT_CODE = {"decode": 0, "tiled": 1}
-# the tiled kernel's instance (``tile_config``).  Chunks of at most 32 steps
-# at head dim 32 or 64: one tile per chunk and one block per head (the
-# one-accumulator kernel, ``WHOLE_CHUNKS``).  Otherwise tiles of
-# ``TILE_STEPS`` steps (a tile never spans a chunk boundary) and blocks of
-# ``TILE_COLS`` state columns at head dim 64; 16 x 16 at the other head dims
-WHOLE_CHUNKS = True
-TILE_STEPS = 16
-TILE_COLS = 32
 _fn = None
 _local = threading.local()      # the ctypes meta array, one per thread
 
@@ -238,11 +230,12 @@ def tile_config(d: int, chunk: int) -> tuple:
     """(steps per tile, state columns per block) of the tiled kernel at head
     dim ``d`` and chunk ``chunk``.  (0, d): one tile per chunk, one block per
     head, for chunks of at most 32 steps at head dims 32 and 64 (the
-    one-accumulator kernel).  Else (``TILE_STEPS``, ``TILE_COLS``) at head
-    dim 64 and (16, 16) at the others."""
-    if WHOLE_CHUNKS and chunk <= 32 and d in (32, 64):
+    one-accumulator kernel, which serves C = 32).  Else tiles of 16 steps (a
+    tile never spans a chunk boundary) and blocks of 32 state columns at head
+    dim 64, 16 at the others."""
+    if chunk <= 32 and d in (32, 64):
         return 0, d
-    return (TILE_STEPS, TILE_COLS) if d == 64 else (16, 16)
+    return (16, 32) if d == 64 else (16, 16)
 
 
 def _check_layout(name: str, stride: tuple, ptr: int, esize: int,

@@ -282,8 +282,11 @@ def rwkv6_layer(p: dict, x: torch.Tensor, spec, rt: RuntimeCfg, *,
     def heads(nm):
         return torch.einsum("bsh,hnd->bsnd", mix(nm), cast(p[f"w_{nm}"], rt))
 
-    # r, k, v in the compute dtype: the kernel casts them on load (exact)
-    r, k, v = (heads(nm) for nm in ("r", "k", "v"))
+    # r, k, v in the compute dtype where the kernel reads it (bf16, fp32)
+    # and casts on load (exact); any other compute dtype is cast to fp32
+    from ..kernels import ops as kops
+    r, k, v = (t if t.dtype in kops.WKV6_INPUT_DTYPES else t.float()
+               for t in (heads(nm) for nm in ("r", "k", "v")))
     g = heads("g")
     d1 = mix("w") @ cast(p["w_dec1"], rt)
     dec = torch.einsum("bsr,rnd->bsnd", d1, cast(p["w_dec2"], rt)).float()
@@ -299,7 +302,6 @@ def rwkv6_layer(p: dict, x: torch.Tensor, spec, rt: RuntimeCfg, *,
         state0 = torch.zeros((b, nh, dh, dh), dtype=torch.float32,
                              device=x.device)
         state_out = None
-    from ..kernels import ops as kops
     out, _ = kops.wkv6(r, k, v, w, u, state0, chunk=cs, state_out=state_out)
     out = rms_norm(p["gn"], out.to(x.dtype))             # per-head groupnorm
     out = out * F.silu(g)

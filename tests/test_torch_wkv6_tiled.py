@@ -8,17 +8,25 @@ float64 under the limit ``chip_smoke.py`` holds the kernel to on the card,
 Pallas kernel in interpret mode and its exact recurrence ``ref_wkv`` at the
 reference's shapes with the 1e-4 tolerance of ``test_torch_rwkv6.py``.  Also
 here: the rule that names the kernel of a CUDA call (``_variant``), the tile
-configuration, the wrapper's layout checks for the two kernels, and bf16
-r, k, v."""
+configuration, the wrapper's layout checks for the two kernels, bf16
+r, k, v, and the model's layer at a float16 runtime."""
+import jax
+import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
 
+from repro.core import ModelSpec as JaxModelSpec
 from repro.kernels import ref as jref
 from repro.kernels.rwkv6_scan import wkv6_bhsd as jax_wkv6_bhsd
+from repro.models import layers as JL
+from repro.models.common import Initializer as JaxInitializer
+from repro.models.common import pvalue
+from repro_torch import ModelSpec
 from repro_torch.kernels import ops
 from repro_torch.kernels import rwkv6_scan as W
-from torch_port_helpers import as_f32, to_jax, to_torch
+from repro_torch.models import layers, params_from_reference
+from torch_port_helpers import as_f32, runtimes, to_jax, to_torch
 
 CHIP_TOL = dict(absolute=2e-4, relative=2e-4)     # chip_smoke.py's WKV_TOL
 TOL = 1e-4                                        # test_torch_rwkv6.py's
@@ -192,16 +200,15 @@ def test_variant_of_the_served_calls():
 
 def test_tile_config():
     """Chunks of at most 32 at head dims 32 and 64: one tile per chunk over
-    all columns (the one-accumulator kernel); else the configured tile at
+    all columns (the one-accumulator kernel); else 16 steps x 32 columns at
     head dim 64 and 16 x 16 at the others."""
     for d in (32, 64):
         for chunk in (1, 8, 32):
             assert W.tile_config(d, chunk) == (0, d)
-    assert W.tile_config(64, 40) == (W.TILE_STEPS, W.TILE_COLS)
-    assert W.tile_config(64, 1000) == (W.TILE_STEPS, W.TILE_COLS)
+    assert W.tile_config(64, 40) == (16, 32)
+    assert W.tile_config(64, 1000) == (16, 32)
     for d, chunk in ((16, 32), (48, 32), (32, 57), (16, 1000)):
         assert W.tile_config(d, chunk) == (16, 16)
-    assert W.TILE_STEPS in (16, 32) and W.TILE_COLS in (16, 32)
 
 
 def _layout(t):
@@ -284,3 +291,43 @@ def test_dtypes_refused(bad):
         s0 = s0.bfloat16()
     with pytest.raises(TypeError):
         ops.wkv6(r, k, v, w, u, s0, chunk=2)
+
+
+# ---------------------------------------------------------------------------
+# the model's layer at a compute dtype the kernel does not read
+# ---------------------------------------------------------------------------
+
+LAYER_KW = dict(name="t", n_layers=1, d_model=64, n_heads=2, n_kv_heads=2,
+                d_ff=96, vocab=64, d_head=32, block="rwkv6",
+                rwkv_decay_rank=8)
+
+
+@pytest.mark.parametrize("steps", [[40], [1, 1, 3, 1]])
+def test_rwkv6_layer_float16_runtime(steps):
+    """A float16 runtime: the layer hands r, k, v to wkv6 as fp32 (the
+    kernel reads bf16 and fp32 only) and agrees with the JAX layer at
+    float16, in a prefill and in decode steps through a cache."""
+    jspec, tspec = JaxModelSpec(**LAYER_KW), ModelSpec(**LAYER_KW)
+    jp = JL.init_rwkv6(JaxInitializer(jax.random.PRNGKey(3), "float16"),
+                       jspec)
+    tp = params_from_reference(jax.tree.map(np.asarray, pvalue(jp)),
+                               device="cpu")
+    jrt, trt = runtimes("float16")
+    b, H, nh, dh = 2, tspec.d_model, tspec.n_heads, tspec.head_dim
+    cached = len(steps) > 1
+    jcache = {"wkv": jnp.zeros((b, nh, dh, dh), jnp.float32),
+              "shift_tm": jnp.zeros((b, H), jnp.float16),
+              "shift_cm": jnp.zeros((b, H), jnp.float16)} if cached else None
+    tcache = {"wkv": torch.zeros(b, nh, dh, dh),
+              "shift_tm": torch.zeros(b, H, dtype=torch.float16),
+              "shift_cm": torch.zeros(b, H, dtype=torch.float16)} \
+        if cached else None
+    for i, s in enumerate(steps):
+        a = np.random.RandomState(20 + i).standard_normal(
+            (b, s, H)).astype(np.float32)
+        jx, tx = to_jax(a, "float16"), to_torch(a, "float16")
+        want, jcache = JL.rwkv6_layer(jp, jx, jspec, jrt, None, cache=jcache)
+        got, tcache = layers.rwkv6_layer(tp, tx, tspec, trt, cache=tcache)
+        assert got.dtype == torch.float16 and got.shape == tx.shape
+        np.testing.assert_allclose(as_f32(got), as_f32(want), atol=1e-2,
+                                   rtol=1e-2)
