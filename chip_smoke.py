@@ -17,7 +17,9 @@ Phases, one JSON line each on standard output:
            Attention shapes also print the kernel the wrapper chose (tc, fma
            or decode), the decode split, and the device time per launch
            beside the library's; wkv6 shapes the kernel its wrapper chose
-           (decode or tiled), the tile, and the device time per launch
+           (decode or tiled), the tile, and the device time per launch;
+           cost_reduce rows (the sweep's merged calls first) the split its
+           wrapper's rule chose, and its and torch.matmul's device times
   serve    two served models, one after the other, each at published width
            and depth, bf16, random weights from a seed: qwen3-14b (attention
            through flash_attention), then rwkv6-7b (every WKV recurrence
@@ -30,14 +32,15 @@ Phases, one JSON line each on standard output:
   sweep    the generator's design-space sweep on the batched backend:
            dse.sweep over every (dp, tp, cp, pp) factorisation of 64 devices
            for qwen3-14b's published spec, train, batch 256 x seq 4096, on
-           H100_HGX, every busy-group contraction through cost_reduce; each
+           H100_HGX, one cost_reduce launch per class call (checked); each
            point held against the compiled backend (rel 1e-6) and the whole
            sweep against the same sweep on the CPU (rel 1e-10).  Every launch
            count is set to 0 just before the sweep and read just after
-  parity   the smoke specs in fp32 on the card: qwen3 attention through the
+  parity   the smoke specs on the card in fp32, then in float16 (which the
+           attention kernel reads as fp32): qwen3 attention through the
            kernel against the naive core; rwkv6 through the wkv6 kernel
            against the same parameters on the CPU (the plain version).  Same
-           greedy tokens and logits within 1e-4
+           greedy tokens and logits within 1e-4 (fp32) / 5e-2 (float16)
 
 Each phase line carries the seconds since the script started.  After serve
 and sweep, the ``kernels`` line: every kernel with its launches on the main
@@ -621,17 +624,29 @@ def check_wkv_case(case, seed: int) -> dict:
 
 
 # cost_reduce, out[b, e] = sum_t x[b, t] w[e, t]: x [B, T], w [E, T].  The
-# reference's four shapes (tests/test_kernels.py) in fp32 and fp64, and the
-# two shapes the batched sweep gives it (first is the main path's): a pp = 1
-# structure class (K = 4189 slot entries, 2 busy groups) and a pp = 2 class
-# (6 groups), with x as the path makes it (positive durations) and w as 0/1
-# group-membership rows (each slot in one group, compute and comm apart).
-F64 = torch.float64
+# main rows are the calls the batched sweep makes: one per class call, x the
+# [B, K] slot durations of B configs (positive), w the stacked [2G, K]
+# busy-group rows (every slot in exactly one row: its group's compute row or
+# its comm row), at the sweep's batches (1, 3 and 18 configs at pp = 1, 2G =
+# 4; 3 configs at pp = 2, 2G = 12).  Then the compute rows alone at B = 64
+# (half the slots in no row), a large batch, fp32, a strided view, a half x,
+# more than one e-tile, the reference's four shapes (tests/test_kernels.py)
+# in fp32 and fp64, and integer counts.
+F64, F16 = torch.float64, torch.float16
 COST_CASES = [
-    dict(name="path-pp1", main=True, B=64, E=2, T=4189, dtype=F64,
-         rows="membership"),
-    dict(name="path-pp2", main=True, B=64, E=6, T=4191, dtype=F64,
-         rows="membership"),
+    *[dict(name=f"sweep-{b}x{e}x{t}", main=True, B=b, E=e, T=t, dtype=F64,
+           rows="busy")
+      for b, e, t in ((1, 4, 4189), (3, 4, 4189), (18, 4, 4189),
+                      (3, 12, 4191))],
+    dict(name="path-pp1", B=64, E=2, T=4189, dtype=F64, rows="membership"),
+    dict(name="path-pp2", B=64, E=6, T=4191, dtype=F64, rows="membership"),
+    dict(name="large-1024x12x4191", B=1024, E=12, T=4191, dtype=F64,
+         rows="busy"),
+    dict(name="busy-f32", B=64, E=8, T=4096, dtype=F32, rows="busy"),
+    dict(name="row-stride-f64", B=18, E=4, T=4189, dtype=F64, rows="busy",
+         row_stride=4200),
+    dict(name="half-x-f16", B=18, E=4, T=4189, dtype=F16, rows="busy"),
+    dict(name="pp8-48-rows", B=3, E=48, T=4195, dtype=F64, rows="busy"),
     *[dict(name=f"ref-{b}x{e}x{t}", B=b, E=e, T=t, dtype=dt, rows="normal")
       for dt in (F32, F64)
       for b, e, t in ((1, 1, 1), (4, 7, 33), (128, 128, 128), (130, 257, 140))],
@@ -641,9 +656,12 @@ COST_CASES = [
 ]
 # kernel vs plain version.  fp32: the reference's 1e-4 + 1e-4 |x|.  fp64:
 # 1e-12 of sum_t |x||w| per output (the two differ only in the order of the
-# sum; 4 200 terms move a float64 sum by ~1e-13 of that at most).  Counts:
-# exact.  Dropping one t term is refused by each limit: the script checks.
+# sum; 4 200 terms move a float64 sum by ~1e-13 of that at most).  A half x
+# is summed in fp32 and rounded once: the fp32 limit plus one ulp of the
+# half type.  Counts: exact.  Dropping one t term is refused by each limit:
+# the script checks.
 COST_TOL = {F32: dict(absolute=1e-4, relative=1e-4),
+            F16: dict(absolute=1e-4, relative=1e-4 + 2.0 ** -10),
             F64: dict(scale=1e-12)}
 
 
@@ -653,12 +671,13 @@ def cost_inputs(case, gen):
     if rows == "normal":
         return (torch.randn((B, T), generator=gen, device=DEV, dtype=F64),
                 torch.randn((E, T), generator=gen, device=DEV, dtype=F64))
-    if rows == "membership":
+    if rows in ("membership", "busy"):
         x = torch.rand((B, T), generator=gen, device=DEV, dtype=F64) * 1e-3
         group = torch.randint(0, E, (T,), generator=gen, device=DEV)
         keep = torch.rand((T,), generator=gen, device=DEV) < 0.5
         w = torch.zeros((E, T), device=DEV, dtype=F64)
-        w[group, torch.arange(T, device=DEV)] = keep.to(F64)
+        w[group, torch.arange(T, device=DEV)] = \
+            1.0 if rows == "busy" else keep.to(F64)
         return x, w
     x = torch.randint(0, 1000, (B, T), generator=gen, device=DEV).to(F64)
     w = torch.randint(0, 4, (E, T), generator=gen, device=DEV).to(F64)
@@ -670,7 +689,7 @@ def cost_allowed(want, x, w):
     tol = COST_TOL[want.dtype]
     if want.dtype == F64:
         return tol["scale"] * (x.abs() @ w.abs().T)
-    return tol["absolute"] + tol["relative"] * want.abs()
+    return tol["absolute"] + tol["relative"] * want.double().abs()
 
 
 def cost_bound(case, w) -> tuple:
@@ -678,9 +697,10 @@ def cost_bound(case, w) -> tuple:
     the operations these inputs need, 2 B nnz(w) (a zero of a membership row
     needs none), at the peak rate of the type."""
     B, E, T, dtype = case["B"], case["E"], case["T"], case["dtype"]
-    size = torch.empty((), dtype=dtype).element_size()
+    size = dtype.itemsize
     t_bytes = (B * T + E * T + B * E) * size / PEAK_BYTES_PER_S
-    t_ops = 2 * B * int(torch.count_nonzero(w)) / PEAK_FLOPS[dtype]
+    t_ops = 2 * B * int(torch.count_nonzero(w)) / PEAK_FLOPS[
+        cr._compute_dtype(dtype)]
     return (max(t_bytes, t_ops) * 1e3,
             "bytes" if t_bytes >= t_ops else "operations")
 
@@ -690,6 +710,10 @@ def check_cost_case(case, seed: int) -> dict:
     x64, w64 = cost_inputs(case, gen)
     dtype, name = case["dtype"], case["name"]
     x, w = x64.to(dtype).contiguous(), w64.to(dtype).contiguous()
+    if "row_stride" in case:             # the same values, rows further apart
+        wide = torch.zeros((case["B"], case["row_stride"]), dtype=dtype,
+                           device=DEV)
+        x = wide[:, :case["T"]].copy_(x)
     before = cr.launches
     got = cr.cost_reduce_bet(x, w)
     again = cr.cost_reduce_bet(x, w)
@@ -701,13 +725,13 @@ def check_cost_case(case, seed: int) -> dict:
             f"cost_reduce {name}: kernel and plain version differ in shape "
             f"or dtype")
     require(torch.isfinite(got).all(), f"cost_reduce {name}: not finite")
-    err = (got - want).abs()
+    err = (got.double() - want.double()).abs()
     if case["rows"] == "counts":
         exact = (x.double() @ w.double().T).to(dtype)
         require(torch.equal(got, exact),
                 f"cost_reduce {name}: integer counts not exact "
                 f"(max abs err {(got - exact).abs().max().item()})")
-        allowed = torch.zeros_like(want)
+        allowed = torch.zeros_like(err)
         share = 0.0
     else:
         allowed = cost_allowed(want, x, w)
@@ -720,22 +744,32 @@ def check_cost_case(case, seed: int) -> dict:
     t0 = int((x.abs().amax(0) * w.abs().amax(0)).argmax())
     x_lost = x.clone()
     x_lost[:, t0] = 0
-    lost = cr.cost_reduce_plain(x_lost, w)
-    require(((lost - want).abs() > allowed).any(),
+    lost = cr.cost_reduce_plain(x_lost, w).double()
+    require(((lost - want.double()).abs() > allowed).any(),
             f"cost_reduce {name}: the tolerance would let a lost term pass")
     bound_ms, bound_by = cost_bound(case, w)
+    slices, e_tile = cr._split(case["B"], case["E"], case["T"])
+    dev_ms, ahead = device_ms(lambda: cr.cost_reduce_bet(x, w))
+    lib_dev_ms, lib_ahead = device_ms(lambda: torch.matmul(x, w.T))
     return {
         "shape": name, "main_path": bool(case.get("main")),
         "B": case["B"], "E": case["E"], "T": case["T"],
         "dtype": str(dtype)[6:], "rows": case["rows"],
+        "split": {"slices": slices, "e_tile": e_tile,
+                  "slice_len": cr.slice_len(case["T"], slices),
+                  "warps": cr._warps(case["B"]), "rows_per_warp": cr.ROWS},
         "max_abs_err": err.max().item(), "max_err_over_allowed": share,
         "tolerance": "exact" if case["rows"] == "counts" else COST_TOL[dtype],
         "deterministic": True,
-        "lost_term_max_change": (lost - want).abs().max().item(),
+        "lost_term_max_change": (lost - want.double()).abs().max().item(),
+        "device_ms": dev_ms, "device_ms_queued_ahead": ahead,
         "ms": time_ms(lambda: cr.cost_reduce_bet(x, w)),
         "plain_ms": time_ms(lambda: cr.cost_reduce_plain(x, w)),
+        "library_device_ms": lib_dev_ms,
+        "library_device_ms_queued_ahead": lib_ahead,
         "library_ms": time_ms(lambda: torch.matmul(x, w.T)),
         "bound_ms": bound_ms, "bound_by": bound_by,
+        "bound_share_device": bound_ms / dev_ms,
     }
 
 
@@ -750,7 +784,8 @@ def kernel_entry(name: str, replaces: str, shapes: list, **extra) -> dict:
         "launches": 0,                       # filled in by the serve phase
         **{k: head[k] for k in ("max_abs_err", "ms", "plain_ms", "bound_ms",
                                 "bound_by", "library_ms")},
-        **({"device_ms": head["device_ms"]} if "device_ms" in head else {}),
+        **{k: head[k] for k in ("device_ms", "library_device_ms")
+           if k in head},
         "shape": head["shape"], **extra, "shapes": shapes,
     }
 
@@ -1056,7 +1091,7 @@ def _worst(points, reference):
 
 def _class_call_split(prof, calls: int) -> dict:
     """Host seconds per class call from the spans of one evaluate_many:
-    the scan loop, the two cost_reduce calls, the replay, the rest."""
+    the scan loop, the cost_reduce call, the replay, the rest."""
     tot = prof.totals()
 
     def total(name):
@@ -1149,9 +1184,9 @@ def phase_sweep(kernels: list, with_profile: bool = False) -> dict:
     require(bstats["points"] == len(res),
             f"{len(res) - bstats['points']} of {len(res)} points went to the "
             f"compiled path")
-    require(counts["cost_reduce"] == 2 * calls,
+    require(counts["cost_reduce"] == calls,
             f"cost_reduce launched {counts['cost_reduce']} times for {calls} "
-            f"class calls (want 2 each)")
+            f"class calls (want 1 each)")
     require(all(n == 0 for k, n in counts.items() if k != "cost_reduce"),
             f"the sweep launched a model's kernel: {counts}")
     for p in res:
@@ -1239,9 +1274,20 @@ def phase_sweep(kernels: list, with_profile: bool = False) -> dict:
 # parity: the kernel inside the model against the naive core
 # ---------------------------------------------------------------------------
 
-def phase_parity() -> dict:
+# logits of the smoke specs, card against its reference path: fp32 sums
+# differ only in their order; in float16 each side rounds every layer's
+# activations to float16 (about 1e-3 relative) on its own path, so the
+# logits (|x| ~5, an ulp 0.004) differ by a few float16 ulps (0.006 in a CPU
+# rehearsal of the qwen3 pair), and 5e-2 is ~13 ulps
+PARITY_TOL = {"float32": 1e-4, "float16": 5e-2}
+
+
+def phase_parity(dtype: str = "float32") -> dict:
+    """The qwen3 smoke spec at ``dtype``: attention through the kernel
+    (``"cuda"``; a float16 runtime hands it fp32 q/k/v) against the naive
+    core, same greedy tokens and logits within ``PARITY_TOL``."""
     spec = get_arch("qwen3-14b").smoke
-    kw = dict(param_dtype="float32", compute_dtype="float32")
+    kw = dict(param_dtype=dtype, compute_dtype=dtype)
     rt_cuda = RuntimeCfg(attention_impl="cuda", **kw)
     rt_naive = RuntimeCfg(attention_impl="naive", **kw)
     gen = torch.Generator(device=DEV).manual_seed(1)
@@ -1256,29 +1302,36 @@ def phase_parity() -> dict:
             eng.submit(Request(rid=rid, prompt=pr, max_new=6))
         return {r.rid: r.out for r in eng.run(max_steps=64)}
 
-    got, want = serve(rt_cuda), serve(rt_naive)
+    reset_counts()
+    got = serve(rt_cuda)
+    kernel_launches = fa.launches
+    want = serve(rt_naive)
+    require(kernel_launches > 0, "the cuda path did not run the kernel")
     require(sorted(got) == [0, 1, 2] and got == want,
-            f"greedy tokens differ: cuda {got}, naive {want}")
+            f"greedy tokens differ ({dtype}): cuda {got}, naive {want}")
     tokens = torch.from_numpy(rng.randint(0, spec.vocab, size=(2, 40))).to(DEV)
     l_cuda = lm.forward(params, tokens, spec, rt_cuda)
     l_naive = lm.forward(params, tokens, spec, rt_naive)
     torch.cuda.synchronize()
+    require(l_cuda.dtype == getattr(torch, dtype),
+            f"smoke logits in {l_cuda.dtype}, not {dtype}")
     require(torch.isfinite(l_cuda).all(), "smoke logits not finite")
-    err = (l_cuda - l_naive).abs().max().item()
-    require(err <= 1e-4,
-            f"smoke logits: cuda vs naive max abs err {err}")
-    return {"spec": spec.name, "dtype": "float32", "requests": 3,
-            "tokens_equal": True, "logits_max_abs_err": err,
-            "tolerance": 1e-4}
+    err = (l_cuda.float() - l_naive.float()).abs().max().item()
+    require(err <= PARITY_TOL[dtype],
+            f"smoke logits ({dtype}): cuda vs naive max abs err {err}")
+    return {"spec": spec.name, "dtype": dtype, "requests": 3,
+            "tokens_equal": True, "engine_flash_launches": kernel_launches,
+            "logits_max_abs": l_naive.float().abs().max().item(),
+            "logits_max_abs_err": err, "tolerance": PARITY_TOL[dtype]}
 
 
-def phase_parity_rwkv() -> dict:
-    """The rwkv6 smoke spec in fp32: the same parameters through the wkv6
-    kernel on the card and through its plain version on the CPU.  Prefill of
-    40 tokens (one chunk of 40) and of 64 (two chunks of 32), and an engine
-    whose decode steps run the kernel with C = 1."""
+def phase_parity_rwkv(dtype: str = "float32") -> dict:
+    """The rwkv6 smoke spec at ``dtype``: the same parameters through the
+    wkv6 kernel on the card and through its plain version on the CPU.
+    Prefill of 40 tokens (one chunk of 40) and of 64 (two chunks of 32),
+    and an engine whose decode steps run the kernel with C = 1."""
     spec = get_arch("rwkv6-7b").smoke
-    rt = RuntimeCfg(param_dtype="float32", compute_dtype="float32")
+    rt = RuntimeCfg(param_dtype=dtype, compute_dtype=dtype)
     gen = torch.Generator(device=DEV).manual_seed(2)
     params = init_params(spec, rt, gen, device=DEV)
     cpu_params = lm._tree_map(lambda t: t.cpu(), params)
@@ -1293,25 +1346,29 @@ def phase_parity_rwkv() -> dict:
         return {r.rid: r.out for r in eng.run(max_steps=64)}
 
     reset_counts()
-    got, want = serve(params, DEV), serve(cpu_params, "cpu")
+    got = serve(params, DEV)
     engine_launches = wkv.launches
+    want = serve(cpu_params, "cpu")
     require(engine_launches > 0, "the card's engine did not run the kernel")
     require(sorted(got) == [0, 1, 2] and got == want,
-            f"greedy tokens differ: card {got}, cpu {want}")
+            f"greedy tokens differ ({dtype}): card {got}, cpu {want}")
     errs = {}
     for length in (40, 64):
         tokens = torch.from_numpy(rng.randint(0, spec.vocab, size=(2, length)))
         l_card = lm.forward(params, tokens.to(DEV), spec, rt)
         l_cpu = lm.forward(cpu_params, tokens, spec, rt)
+        require(l_card.dtype == getattr(torch, dtype),
+                f"smoke logits in {l_card.dtype}, not {dtype}")
         require(torch.isfinite(l_card).all(), "smoke logits not finite")
-        errs[length] = (l_card.cpu() - l_cpu).abs().max().item()
-        require(errs[length] <= 1e-4,
-                f"rwkv6 smoke logits ({length} tokens): card vs cpu max abs "
-                f"err {errs[length]}")
-    return {"spec": spec.name, "dtype": "float32", "requests": 3,
+        errs[length] = (l_card.cpu().float()
+                        - l_cpu.float()).abs().max().item()
+        require(errs[length] <= PARITY_TOL[dtype],
+                f"rwkv6 smoke logits ({dtype}, {length} tokens): card vs "
+                f"cpu max abs err {errs[length]}")
+    return {"spec": spec.name, "dtype": dtype, "requests": 3,
             "tokens_equal": True, "engine_wkv6_launches": engine_launches,
             "logits_max_abs_err": {f"S={k}": v for k, v in errs.items()},
-            "tolerance": 1e-4}
+            "tolerance": PARITY_TOL[dtype]}
 
 
 def main(argv=None) -> int:
@@ -1372,11 +1429,15 @@ def main(argv=None) -> int:
                         f"kernel {k['name']} never ran on the main path")
         print(json.dumps({"kernels": kernels}), flush=True)
     if "parity" in phases:
-        # fp32 products in full fp32 on the card, as on the CPU (the defaults)
+        # fp32 products in full fp32 on the card, as on the CPU (the
+        # defaults), and float16 products summed in fp32, as on the CPU
         torch.backends.cuda.matmul.allow_tf32 = False
         torch.backends.cudnn.allow_tf32 = False
-        emit("parity", **phase_parity())
-        emit("parity", **phase_parity_rwkv())
+        torch.backends.cuda.matmul.allow_fp16_reduced_precision_reduction = \
+            False
+        for dtype in PARITY_TOL:
+            emit("parity", **phase_parity(dtype))
+            emit("parity", **phase_parity_rwkv(dtype))
 
     if set(phases) != set(PHASES):
         print(json.dumps({"ok": False, "partial": phases}), flush=True)

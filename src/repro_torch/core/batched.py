@@ -23,7 +23,8 @@ memory for the batch with eager PyTorch operations on one device
   arithmetic, no ``pow``).  The byte-access / memory-event selection
   tables are ~99% zeros, so they ship as COO triplets and reduce via
   ``index_add_`` (``_seg_reduce``); the dense busy-group contraction
-  (``[B, entries] x [groups, entries]``) goes through the hand-written
+  (``[B, entries] x [2 groups, entries]``, the compute and the comm rows
+  in one table, one call per class call) goes through the hand-written
   kernel (:func:`repro_torch.kernels.ops.cost_reduce`, ``csrc/
   cost_reduce.cu`` on the card, its plain version on the CPU).
 * **Two-stream scheduling** — the reference ``simulate._schedule`` list
@@ -299,10 +300,11 @@ class _ClassKernel:
                 glast[g] = len(seq_entry) - 1
         K = len(seq_entry)
         is_comm = [entries[k][11] is not None for k in seq_entry]
-        m_comp = np.zeros((G, K))
-        m_comm = np.zeros((G, K))
-        for i, (k, g) in enumerate(zip(seq_entry, seq_group)):
-            (m_comm if is_comm[i] else m_comp)[g, i] = 1.0
+        # busy-group rows, compute [:G] then comm [G:]: one table, so one
+        # cost_reduce call per class call reduces both
+        m_busy = np.zeros((2 * G, K))
+        m_busy[np.asarray(seq_group) + G * np.asarray(is_comm, np.intp),
+               np.arange(K)] = 1.0
         # the scan's static program: per step (reset, is_comm, deps), and
         # the group whose span is read off after each group-end step
         self._steps = list(zip(seq_reset, is_comm, seq_deps))
@@ -429,7 +431,7 @@ class _ClassKernel:
             # AllReduce, else 1
             "c_smul": f(np.where(c_allred, 2.0, 1.0)),
             "seq_entry": i(seq_entry),
-            "m_comp": f(m_comp), "m_comm": f(m_comm),
+            "m_busy": f(m_busy),
             "s_w": f(s_w), "u_m": f(u_m), "u_g": f(u_g),
             "s_mem": coo(s_mem), "s_layer": coo(s_layer),
         }
@@ -558,8 +560,8 @@ class _ClassKernel:
         with _span("batched.scan", steps=self._K):
             spans = self._scan(dur_bk)                      # [G, B]
         with _span("batched.cost_reduce"):
-            busy_c = cost_reduce(dur_bk, c["m_comp"])       # [B, G]
-            busy_m = cost_reduce(dur_bk, c["m_comm"])
+            busy = cost_reduce(dur_bk, c["m_busy"])         # [B, 2G]
+        busy_c, busy_m = busy[:, :self._G], busy[:, self._G:]   # [B, G]
 
         if self.pp <= 1:
             gm, go = self._g_mb, self._g_opt

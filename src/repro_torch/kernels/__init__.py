@@ -1,7 +1,8 @@
 """Hand-written CUDA kernels for Hopper (+ plain-torch oracles).
 
 ``csrc/`` holds the CUDA C++ sources, ``_build.py`` compiles them with
-``nvcc`` at first use, ``flash_attention.py``, ``rwkv6_scan.py`` and
+``nvcc`` at first use, ``_scratch.py`` holds the scratch of the kernels that
+finish in a second pass, ``flash_attention.py``, ``rwkv6_scan.py`` and
 ``cost_reduce.py`` the wrappers, launch counts and plain versions of the
 attention, wkv6 and cost-reduction kernels, ``ops.py`` the entries the layers
 and the batched DSE backend call, ``ref.py`` the oracles used by the allclose

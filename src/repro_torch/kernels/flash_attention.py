@@ -19,11 +19,14 @@ from typing import Optional
 
 import torch
 
+from ._scratch import split_scratch
+
 # Number of kernel launches made by this module (CUDA tensors only).
 launches = 0
 
 MAX_HEAD_DIM = 128
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
+INPUT_DTYPES = tuple(_DTYPE_CODE)     # of q, k, v on the card
 _VARIANT_CODE = {"fma": 0, "tc": 1, "decode": 2}
 # decode: query heads one block reads a K/V row for (bf16: the 16 rows of
 # an mma tile; fp32: 8 lane-group accumulators); a range this short is one
@@ -35,7 +38,6 @@ DECODE_TARGET_BLOCKS = 3 * 132
 DECODE_MIN_SPLIT = 128
 _fn = None
 _local = threading.local()      # the ctypes meta array, one per thread
-_scratch: dict = {}             # (device index, stream) -> decode scratch
 
 
 def _visible(sq: int, sk: int, causal: bool, window: Optional[int],
@@ -165,22 +167,6 @@ def decode_splits(b: int, n: int, visible: int) -> int:
     return max(1, min(fit, visible // DECODE_MIN_SPLIT))
 
 
-def _decode_scratch(device: torch.device, stream: int, n_part: int,
-                    n_ticket: int) -> tuple:
-    """Scratch of the split decode, one per (device, stream) and grown as
-    needed: partial (m, l, acc) floats, and the arrival counters, which start
-    at 0 and are left at 0 by the kernel that used them (so calls queued on
-    one stream may share them)."""
-    key = (device.index, stream)
-    part, ticket = _scratch.get(key, (None, None))
-    if part is None or part.numel() < n_part:
-        part = torch.empty(n_part, dtype=torch.float32, device=device)
-    if ticket is None or ticket.numel() < n_ticket:
-        ticket = torch.zeros(n_ticket, dtype=torch.int32, device=device)
-    _scratch[key] = (part, ticket)
-    return part, ticket
-
-
 def _check_layout(name: str, stride: tuple, ptr: int, esize: int, d: int,
                   variant: str):
     """The fma kernel reads 4 elements at a time along a contiguous D; the
@@ -235,10 +221,9 @@ def _launch(q, k, v, out, causal, window, softcap, q_offset):
         split_len = max(1, -(-visible // splits))
         if splits > 1:
             units = b * n * g_chunks
-            part, ticket = _decode_scratch(
-                device, stream, units * splits * -(-g // g_chunks) * (d + 2),
-                units)
-            part, ticket = part.data_ptr(), ticket.data_ptr()
+            part, ticket = split_scratch(
+                device, stream,
+                4 * units * splits * -(-g // g_chunks) * (d + 2), units)
     meta = getattr(_local, "meta", None)
     if meta is None:
         meta = _local.meta = (ctypes.c_longlong * 26)()

@@ -9,8 +9,8 @@ from . import cost_reduce as _cr
 from . import flash_attention as _fa
 from . import rwkv6_scan as _wkv
 
-# the dtypes in which wkv6 reads r, k and v (cast on load)
-WKV6_INPUT_DTYPES = _wkv.INPUT_DTYPES
+# the dtypes the attention kernel reads q, k and v in; a caller casts others
+FLASH_INPUT_DTYPES = _fa.INPUT_DTYPES
 
 
 def cost_reduce(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
@@ -18,10 +18,10 @@ def cost_reduce(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     busy-group contraction of the batched DSE backend, x [B, K] per-slot
     durations, w [G, K] static membership rows -> [B, G] in x's dtype.
 
-    Unlike the JAX wrapper there is no dtype split: on the card the kernel
-    runs in the input's dtype (float64 on the batched backend's default
-    path, which its 1e-6 parity budget needs), on the CPU the plain
-    version does."""
+    w is cast to x's dtype, as the JAX wrapper does.  Unlike there, the
+    sums run in x's own dtype on the card too (float64 on the batched
+    backend's default path, which its 1e-6 parity budget needs; a half x
+    in float32); on the CPU the plain version does the same."""
     return _cr.cost_reduce_bet(x, w)
 
 

@@ -13,10 +13,14 @@ do.  The floor is part of the result: wherever a decay ``w`` is below
 (``ref.ref_wkv``), so the chunk size is an argument, not a tiling choice.
 
 Model layout throughout: ``r/k/v/w [B, S, N, D]``, ``u [N, D]``,
-``state [B, N, D, D]``.  r, k and v share a dtype, float32 or bfloat16, and
-are cast on load as the TPU kernel does; w, u and the state are float32, and
-so is the output.  ``wkv6_bhsd`` takes the ``[B, N, S, D]`` layout of the TPU
-kernel and hands the same memory to the same kernels by strides.
+``state [B, N, D, D]``, of any float dtypes, as the TPU kernel casts on
+load: the kernels read r, k and v as float32 or bfloat16 (others are cast to
+float32 first), w, u and the state as float32, and write a float32 output.
+On the card the kernels have head dims ``HEAD_DIMS``; a smaller D is
+zero-padded up to the next (``pad_head_dim``, exact), a D above 64 raises.
+On the CPU the plain version takes any D.  ``wkv6_bhsd`` takes the
+``[B, N, S, D]`` layout of the TPU kernel and hands the same memory to the
+same kernels by strides.
 
 For tensors on the CPU the wrapper computes ``wkv6_plain``.  For CUDA tensors
 it launches the kernel that ``_variant`` names (``decode`` for one step,
@@ -30,6 +34,7 @@ import threading
 from typing import Optional
 
 import torch
+import torch.nn.functional as F
 
 # Number of kernel launches made by this module (CUDA tensors only), and
 # the same launches by the kernel ``_variant`` named.
@@ -172,13 +177,10 @@ def wkv6_tiled_plain(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 
 def _check(r, k, v, w, u, state0, chunk):
     tensors = dict(r=r, k=k, v=v, w=w, u=u, state0=state0)
-    if r.dtype not in INPUT_DTYPES or not (r.dtype == k.dtype == v.dtype):
-        raise TypeError(f"wkv6 takes r, k, v of one dtype, float32 or "
-                        f"bfloat16; got {r.dtype}, {k.dtype}, {v.dtype}")
-    for name in ("w", "u", "state0"):
-        if tensors[name].dtype != torch.float32:
-            raise TypeError(f"wkv6 takes a float32 {name}; it is "
-                            f"{tensors[name].dtype}")
+    for name, t in tensors.items():
+        if not t.dtype.is_floating_point:
+            raise TypeError(f"wkv6 takes floating tensors; {name} is "
+                            f"{t.dtype}")
     if r.dim() != 4:
         raise ValueError(f"wkv6 takes r/k/v/w [B,S,N,D]; r is {tuple(r.shape)}")
     b, s, n, d = r.shape
@@ -195,8 +197,38 @@ def _check(r, k, v, w, u, state0, chunk):
     if s < 1 or chunk < 1 or s % chunk:
         raise ValueError(f"the sequence ({s}) must divide into chunks of "
                          f"{chunk}")
-    if d not in HEAD_DIMS:
-        raise ValueError(f"wkv6 takes head dims {HEAD_DIMS}, got {d}")
+
+
+def _kernel_dtypes(r, k, v, w, u, state0) -> tuple:
+    """The inputs as the kernels read them: r, k, v in their dtype where
+    they share one of ``INPUT_DTYPES``, else all three in fp32; w, u and
+    the state in fp32 (casts, as the TPU kernel casts on load)."""
+    if not (r.dtype == k.dtype == v.dtype and r.dtype in INPUT_DTYPES):
+        r, k, v = r.float(), k.float(), v.float()
+    return (r, k, v, w.float(), u.float(), state0.float())
+
+
+def head_dim_instance(d: int) -> int:
+    """The head dim of the kernel instance a CUDA call of head dim ``d``
+    runs at: the smallest of ``HEAD_DIMS`` that holds it (the inputs are
+    zero-padded up to it by ``pad_head_dim``)."""
+    for inst in HEAD_DIMS:
+        if inst >= d:
+            return inst
+    raise ValueError(f"the wkv6 kernels take head dims up to "
+                     f"{HEAD_DIMS[-1]}, got {d} (the plain version on the "
+                     f"CPU takes any)")
+
+
+def pad_head_dim(r, k, v, w, u, state0, d_pad: int) -> tuple:
+    """r/k/v/w [B,S,N,D], u [N,D], state0 [B,N,D,D] zero-padded to head dim
+    ``d_pad``, w with 1, as the TPU kernel pads.  Exact: a padded row of the
+    state has k = 0 and decay 1, a padded column v = 0, so both stay zero
+    and add nothing to the outputs and state of the first D."""
+    p = d_pad - r.shape[-1]
+    r, k, v, u = (F.pad(t, (0, p)) for t in (r, k, v, u))
+    return r, k, v, F.pad(w, (0, p), value=1.0), u, \
+        F.pad(state0, (0, p, 0, p))
 
 
 def _kernel_fn():
@@ -298,16 +330,32 @@ def _scan(r, k, v, w, u, state0, out, state_out, chunk):
     """Fills ``out`` (a [B,S,N,D] view with any strides) and ``state_out``
     (which may be ``state0`` itself) and returns them."""
     _check(r, k, v, w, u, state0, chunk)
+    if state_out is state0 and state0.dtype != torch.float32:
+        raise TypeError(f"wkv6 updates state0 in place only when it is "
+                        f"float32; it is {state0.dtype}")
     if state_out.shape != state0.shape or state_out.dtype != torch.float32 \
             or state_out.device != state0.device:
         raise ValueError("state_out must be a float32 tensor shaped and "
                          "placed like state0")
+    args = _kernel_dtypes(r, k, v, w, u, state0)
+    d = r.shape[-1]
     if r.device.type == "cpu":
-        got, state = wkv6_plain(r, k, v, w, u, state0, chunk=chunk)
+        got, state = wkv6_plain(*args, chunk=chunk)
         out.copy_(got)
         state_out.copy_(state)
     elif r.device.type == "cuda":
-        _launch(r, k, v, w, u, state0, out, state_out, chunk)
+        d_pad = head_dim_instance(d)
+        if d_pad == d:
+            _launch(*args, out, state_out, chunk)
+        else:
+            b, s, n, _ = r.shape
+            out_p = torch.empty((b, s, n, d_pad), dtype=torch.float32,
+                                device=r.device)
+            state_p = torch.empty((b, n, d_pad, d_pad), dtype=torch.float32,
+                                  device=r.device)
+            _launch(*pad_head_dim(*args, d_pad), out_p, state_p, chunk)
+            out.copy_(out_p[..., :d])
+            state_out.copy_(state_p[..., :d, :d])
     else:
         raise ValueError(f"wkv6 runs on cuda (kernel) or cpu (plain "
                          f"version), not on {r.device}")

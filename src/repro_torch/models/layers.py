@@ -98,9 +98,16 @@ def attn_naive(q, k, v, *, causal: bool, window: Optional[int],
 def attn_core(q, k, v, rt: RuntimeCfg, *, causal: bool, window=None,
               softcap=None, q_offset: int = 0) -> torch.Tensor:
     if rt.attention_impl == "cuda":
+        # q, k, v go to the kernel in the compute dtype where it reads it
+        # (bf16, fp32); any other is cast to fp32 and the output comes back
+        # in q's dtype, as the Pallas kernel computes in fp32 and returns
         from ..kernels import ops as kops
+        dtype = q.dtype
+        if dtype not in kops.FLASH_INPUT_DTYPES:
+            q, k, v = q.float(), k.float(), v.float()
         return kops.flash_attention(q, k, v, causal=causal, window=window,
-                                    softcap=softcap, q_offset=q_offset)
+                                    softcap=softcap,
+                                    q_offset=q_offset).to(dtype)
     if rt.attention_impl == "naive":
         return attn_naive(q, k, v, causal=causal, window=window,
                           softcap=softcap, q_offset=q_offset)
@@ -282,11 +289,10 @@ def rwkv6_layer(p: dict, x: torch.Tensor, spec, rt: RuntimeCfg, *,
     def heads(nm):
         return torch.einsum("bsh,hnd->bsnd", mix(nm), cast(p[f"w_{nm}"], rt))
 
-    # r, k, v in the compute dtype where the kernel reads it (bf16, fp32)
-    # and casts on load (exact); any other compute dtype is cast to fp32
+    # r, k, v in the compute dtype: wkv6 reads bf16 and fp32 as they are
+    # and casts any other to fp32
     from ..kernels import ops as kops
-    r, k, v = (t if t.dtype in kops.WKV6_INPUT_DTYPES else t.float()
-               for t in (heads(nm) for nm in ("r", "k", "v")))
+    r, k, v = (heads(nm) for nm in ("r", "k", "v"))
     g = heads("g")
     d1 = mix("w") @ cast(p["w_dec1"], rt)
     dec = torch.einsum("bsr,rnd->bsnd", d1, cast(p["w_dec2"], rt)).float()

@@ -16,6 +16,7 @@ scaled by the step time.
 """
 import dataclasses
 
+import numpy as np
 import pytest
 import torch
 
@@ -210,9 +211,8 @@ def test_device_constants_in_the_backends_dtype():
     assert all(t.device.type == "cpu" for t in consts)
     assert all(t.dtype in (torch.float64, torch.int64, torch.bool)
                for t in consts)
-    for name in ("m_comp", "m_comm"):
-        assert kern._c[name].dtype == torch.float64
-        assert kern._c[name].shape == (kern._G, kern._K)
+    assert kern._c["m_busy"].dtype == torch.float64
+    assert kern._c["m_busy"].shape == (2 * kern._G, kern._K)
 
 
 def test_backend_without_device_needs_a_card(monkeypatch):
@@ -228,3 +228,36 @@ def test_backend_without_device_needs_a_card(monkeypatch):
     with pytest.raises(RuntimeError, match="CUDA"):
         dse.sweep(build, env, 8, PORT_TPU_V5E, n_layers=n_layers,
                   backend="batched", engine=engine)
+
+
+@pytest.mark.parametrize("pp", [1, 2])
+def test_one_busy_call_per_class_call(pp):
+    """The compute and comm busy rows are one [2G, K] table: every slot in
+    exactly one row (its group's compute row, or its comm row G further),
+    one cost_reduce call per class call, and that call equal to the two
+    separate calls on the halves of the table."""
+    sc = _scenario(get("qwen3-14b").smoke, "train").parallel(
+        dp=2, tp=2, sp=True, pp=pp, microbatches=2)
+    _, bengine = _port(sc)
+    calls = []
+    real = cr.cost_reduce_bet
+
+    def counting(x, w):
+        calls.append(tuple(w.shape))
+        return real(x, w)
+
+    with pytest.MonkeyPatch.context() as mp:
+        mp.setattr(cr, "cost_reduce_bet", counting)
+        assert bengine.evaluate_many([port_cfg(sc.cfg)], PORT_TPU_V5E)[0]
+    (kern,) = bengine._kernels.values()
+    G, K = kern._G, kern._K
+    m_busy = kern._c["m_busy"]
+    assert calls == [(2 * G, K)]
+    assert torch.equal(m_busy.sum(dim=0), torch.ones(K, dtype=torch.float64))
+    dur = torch.from_numpy(np.random.RandomState(pp).uniform(
+        0.0, 1e-3, (5, K)))
+    both = cr.cost_reduce_bet(dur, m_busy)
+    for half, rows in ((both[:, :G], m_busy[:G]), (both[:, G:], m_busy[G:])):
+        np.testing.assert_allclose(half.numpy(),
+                                   cr.cost_reduce_bet(dur, rows).numpy(),
+                                   rtol=1e-15, atol=0.0)

@@ -6,6 +6,7 @@ kernel itself is held against that plain version on the card by
 ``chip_smoke.py``.  Tolerances are the reference's own
 (``tests/test_kernels.py``): 2e-5 in fp32, 2e-2 in bf16.
 """
+import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -392,19 +393,152 @@ def test_cost_reduce_counts_no_launch_on_cpu():
 @pytest.mark.parametrize("bad", ["rank", "terms", "dtype", "mixed-dtype",
                                  "strided", "int"])
 def test_cost_reduce_refuses(bad):
-    x = torch.zeros(3, 8, dtype=torch.float64)
-    w = torch.zeros(2, 8, dtype=torch.float64)
-    if bad == "rank":
-        x = x[0]
-    elif bad == "terms":
-        w = torch.zeros(2, 9, dtype=torch.float64)
-    elif bad == "dtype":
+    """Wrong ranks, a T that differs and integer inputs are refused.  bf16
+    x and w, a w of another dtype than x and strided x, refused before, now
+    give the reference's result: the JAX wrapper casts w to x's dtype, and
+    its Pallas kernel takes any float dtype and layout."""
+    rng = np.random.RandomState(3)
+    xa = rng.standard_normal((3, 16))
+    wa = rng.standard_normal((2, 8))
+    x, w = torch.from_numpy(xa[:, :8].copy()), torch.from_numpy(wa)
+    jx, jw = xa[:, :8], wa
+    if bad in ("rank", "terms", "int"):
+        if bad == "rank":
+            x = x[0]
+        elif bad == "terms":
+            w = torch.zeros(2, 9, dtype=torch.float64)
+        else:
+            x, w = x.long(), w.long()
+        with pytest.raises((TypeError, ValueError)):
+            ops.cost_reduce(x, w)
+        return
+    if bad == "dtype":
         x, w = x.bfloat16(), w.bfloat16()
+        jx, jw = to_jax(jx, "bfloat16"), to_jax(jw, "bfloat16")
+        tol = 2e-2
     elif bad == "mixed-dtype":
         w = w.float()
-    elif bad == "strided":
-        x = torch.zeros(3, 16, dtype=torch.float64)[:, ::2]
-    elif bad == "int":
-        x, w = x.long(), w.long()
-    with pytest.raises((TypeError, ValueError)):
-        ops.cost_reduce(x, w)
+        jw = jw.astype(np.float32)
+        tol = 1e-12
+    else:
+        x = torch.from_numpy(xa)[:, ::2]
+        jx = xa[:, ::2]
+        tol = 1e-12
+    with jax.enable_x64(True):
+        want = np.asarray(jops.cost_reduce(jnp.asarray(jx), jnp.asarray(jw)),
+                          np.float64)
+    got = ops.cost_reduce(x, w)
+    assert got.dtype == x.dtype and got.shape == (3, 2)
+    np.testing.assert_allclose(got.double().numpy(), want, atol=tol, rtol=tol)
+
+
+def _busy_rows(rng, e, t):
+    """Busy-group rows as the batched backend stacks them: every slot in
+    exactly one of the E rows (compute rows of the groups, then comm)."""
+    w = np.zeros((e, t))
+    w[rng.randint(0, e, size=t), np.arange(t)] = 1.0
+    return w
+
+
+@pytest.mark.parametrize("x_dtype,w_dtype", [
+    ("bfloat16", "float32"), ("float16", "float16"), ("float16", "float64"),
+    ("float32", "float64"), ("float64", "float32")])
+def test_cost_reduce_dtypes_vs_reference(x_dtype, w_dtype):
+    """Any float dtypes: w cast to x's dtype as the reference does, half
+    types computed in fp32 and returned in x's dtype; against the JAX
+    wrapper with float64 enabled (1e-12 where x is float64, the reference's
+    1e-4 in float32, one half ulp of the output's scale in the half types)."""
+    rng = np.random.RandomState(4)
+    xa = rng.uniform(0.0, 1.0, (5, 300))
+    wa = _busy_rows(rng, 6, 300)
+    with jax.enable_x64(True):
+        want = np.asarray(jops.cost_reduce(to_jax(xa, x_dtype),
+                                           to_jax(wa, w_dtype)), np.float64)
+    got = ops.cost_reduce(to_torch(xa, x_dtype), to_torch(wa, w_dtype))
+    assert got.dtype == getattr(torch, x_dtype) and got.shape == (5, 6)
+    tol = {"float64": 1e-12, "float32": 1e-4}.get(x_dtype, 2e-2)
+    np.testing.assert_allclose(got.double().numpy(), want, rtol=tol,
+                               atol=tol)
+
+
+@pytest.mark.parametrize("layout", ["x-row-stride", "x-columns-strided",
+                                    "w-transposed-view", "x-offset-view"])
+def test_cost_reduce_layouts_vs_reference(layout):
+    """Rows read by a stride, views whose rows are not contiguous (the
+    wrapper copies them) and views at an offset: the reference's result,
+    as for contiguous inputs."""
+    rng = np.random.RandomState(5)
+    big = rng.standard_normal((7, 2 * 301))
+    wa = rng.standard_normal((9, 301))
+    w = torch.from_numpy(wa)
+    if layout == "x-row-stride":
+        x, xa = torch.from_numpy(big)[:, :301], big[:, :301]
+    elif layout == "x-columns-strided":
+        x, xa = torch.from_numpy(big)[:, ::2][:, :301], big[:, ::2][:, :301]
+    elif layout == "w-transposed-view":
+        x, xa = torch.from_numpy(big[:, :301].copy()), big[:, :301]
+        w = torch.from_numpy(wa.T.copy()).T
+    else:
+        x, xa = torch.from_numpy(big)[1:, 3:304], big[1:, 3:304]
+    with jax.enable_x64(True):
+        want = np.asarray(jops.cost_reduce(jnp.asarray(xa), jnp.asarray(wa)))
+    got = ops.cost_reduce(x, w)
+    assert got.shape == (x.shape[0], 9) and got.dtype == torch.float64
+    np.testing.assert_allclose(got.numpy(), want, rtol=1e-12, atol=1e-12)
+
+
+# the sweep's class calls (B configs, E = 2G stacked busy rows, K slots),
+# the PR-13 rows at B = 64, the large-batch row and the reference's shapes
+SPLITS = {
+    (1, 4, 4189): (33, 4), (3, 4, 4189): (33, 4), (18, 4, 4189): (33, 4),
+    (3, 12, 4191): (33, 8), (64, 2, 4189): (33, 4), (64, 6, 4191): (33, 8),
+    (1024, 12, 4191): (3, 8), (3, 48, 4000): (32, 8),
+    (1, 1, 1): (1, 4), (4, 7, 33): (1, 8), (128, 128, 128): (1, 8),
+    (130, 257, 140): (1, 8), (2, 3, 0): (1, 4),
+}
+
+
+@pytest.mark.parametrize("shape", list(SPLITS), ids=lambda s: "x".join(
+    map(str, s)))
+def test_split_rule(shape):
+    """``_split`` pinned: at the sweep's batches T is cut into 33 slices of
+    128 terms, at B in the thousands into few; every slice is whole granules
+    and none is empty; a grid cut into slices stays within one wave."""
+    b, e, t = shape
+    slices, e_tile = cr._split(b, e, t)
+    assert (slices, e_tile) == SPLITS[shape]
+    length = cr.slice_len(t, slices)
+    assert length % cr.GRANULE == 0
+    assert slices * length >= t and (slices - 1) * length < max(t, 1)
+    assert e_tile in cr.E_TILES and (e_tile >= e or e_tile == 8)
+    warps = cr._warps(b)
+    assert 1 <= warps <= cr.MAX_WARPS
+    blocks = slices * -(-b // (cr.ROWS * warps)) * -(-e // e_tile)
+    assert slices == 1 or blocks <= cr.WAVE_BLOCKS
+
+
+@pytest.mark.parametrize("b,e,t,slices", [(1, 4, 4189, 33), (3, 12, 4191, 33),
+                                          (18, 4, 4189, 33), (5, 3, 300, 2),
+                                          (4, 7, 33, 1)])
+def test_cost_reduce_split_plain(b, e, t, slices):
+    """The kernel's order (slice partials, then the slices in order) is the
+    same function: against the plain version in float64 (1e-12 of
+    sum |x||w|), against the Pallas kernel in interpret mode in float32
+    (the reference's 1e-4), and exact on integer count rows."""
+    rng = np.random.RandomState(b * 7 + e)
+    xa = rng.uniform(0.0, 1e-3, (b, t))
+    wa = _busy_rows(rng, e, t)
+    x, w = torch.from_numpy(xa), torch.from_numpy(wa)
+    got = cr.cost_reduce_split_plain(x, w, slices)
+    scale = (x.abs() @ w.abs().T).numpy()
+    assert np.all(np.abs(got.numpy() - cr.cost_reduce_plain(x, w).numpy())
+                  <= 1e-12 * scale)
+    x32, w32 = xa.astype(np.float32), wa.astype(np.float32)
+    want = jax_cost_reduce_bet(to_jax(x32), to_jax(w32), interpret=True)
+    got32 = cr.cost_reduce_split_plain(to_torch(x32), to_torch(w32), slices)
+    np.testing.assert_allclose(got32.numpy(), np.asarray(want), atol=1e-4,
+                               rtol=1e-4)
+    xi = torch.from_numpy(rng.randint(0, 1000, (b, t)).astype(np.float64))
+    wi = torch.from_numpy(rng.randint(0, 3, (e, t)).astype(np.float64))
+    assert torch.equal(cr.cost_reduce_split_plain(xi, wi, slices),
+                       xi @ wi.T)

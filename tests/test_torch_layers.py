@@ -1,6 +1,7 @@
 """Layer functions of the port against the JAX package's, in fp32 on the
 CPU, same numpy inputs and weights through both.  Tolerance 1e-5: both sides
 do the same fp32 arithmetic, only the order of sums differs."""
+import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -181,3 +182,43 @@ def test_default_runtime_goes_through_the_kernel_wrapper(monkeypatch):
     want = TL.attn_naive(q, k, k, causal=True, window=None, softcap=None,
                          q_offset=2)
     _close(got, want)
+
+
+@pytest.mark.parametrize("window,softcap,q_offset,sq", [
+    (None, None, 0, 12), (4, 20.0, 0, 12), (None, None, 11, 1)],
+    ids=["causal", "window-softcap", "decode"])
+@pytest.mark.parametrize("dtype", ["float16", "float64"])
+def test_attn_core_cuda_at_any_runtime_dtype(dtype, window, softcap, q_offset,
+                                             sq):
+    """A float16 or float64 runtime with ``attention_impl="cuda"``: q, k, v
+    reach the kernel's wrapper in a dtype it reads (fp32), and the output
+    comes back in q's dtype, as the Pallas kernel computes in fp32 and
+    returns q's dtype.  Against the JAX ``attn_core`` on its Pallas path
+    (interpret mode) with float64 enabled: 2e-5 as in fp32, plus one ulp
+    of the output for float16."""
+    from repro_torch.kernels import ops as kops
+    seen = []
+    real = kops.flash_attention
+
+    def recording(q, k, v, **kw):
+        seen.append((q.dtype, k.dtype, v.dtype))
+        return real(q, k, v, **kw)
+
+    rng = np.random.RandomState(8)
+    qa = rng.standard_normal((2, sq, 2, 2, 16))
+    ka, va = (rng.standard_normal((2, 12, 2, 16)) for _ in range(2))
+    kw = dict(causal=True, window=window, softcap=softcap, q_offset=q_offset)
+    jrt, trt = runtimes(dtype, impl="cuda", jax_impl="pallas")
+    with jax.enable_x64(True):
+        want = JL.attn_core(*(to_jax(a, dtype) for a in (qa, ka, va)), jrt,
+                            **kw)
+        want = np.asarray(want, np.float64)
+    with pytest.MonkeyPatch.context() as mp:
+        mp.setattr(kops, "flash_attention", recording)
+        got = TL.attn_core(*(to_torch(a, dtype) for a in (qa, ka, va)), trt,
+                           **kw)
+    assert seen and all(d in kops.FLASH_INPUT_DTYPES for d in seen[0])
+    assert got.dtype == getattr(torch, dtype) and got.shape == qa.shape
+    tol = 2e-5 if dtype == "float64" else 2e-5 + 2.0 ** -10
+    np.testing.assert_allclose(got.double().numpy(), want, atol=tol,
+                               rtol=tol)

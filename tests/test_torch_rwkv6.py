@@ -197,18 +197,36 @@ def test_wkv6_property(b, h, s, d, seed):
 @pytest.mark.parametrize("bad", ["chunk", "dtype", "device", "head_dim",
                                  "state_shape", "u_shape"])
 def test_wrapper_refuses(bad):
-    r, k, v, w = (torch.zeros(1, 8, 2, 16) for _ in range(4))
-    u, s0 = torch.zeros(2, 16), torch.zeros(1, 2, 16, 16)
+    """A chunk that does not divide S, a device that is neither the CPU nor
+    the card and shapes that do not fit are refused.  A k of another dtype
+    than r and v, and a head dim that is no kernel instance, refused
+    before, now give the reference's result (the JAX wrapper, Pallas in
+    interpret mode, casts every input on load and pads any D)."""
+    rng = np.random.RandomState(21)
+    d = 8 if bad == "head_dim" else 16
+    r, k, v = (to_torch(rng.standard_normal((1, 8, 2, d)).astype(np.float32))
+               for _ in range(3))
+    w = to_torch(rng.uniform(0.2, 0.9, (1, 8, 2, d)).astype(np.float32))
+    u = to_torch(rng.standard_normal((2, d)).astype(np.float32))
+    s0 = to_torch(rng.standard_normal((1, 2, d, d)).astype(np.float32))
     chunk = 4
+    if bad in ("dtype", "head_dim"):
+        if bad == "dtype":
+            k = k.bfloat16()
+        jr, jk, jv, jw = (to_jax(t.float().numpy(), str(t.dtype)[6:])
+                          for t in (r, k, v, w))
+        want_o, want_s = jops.wkv6(jr, jk, jv, jw, to_jax(u.numpy()),
+                                   to_jax(s0.numpy()), chunk=chunk,
+                                   interpret=True)
+        got_o, got_s = ops.wkv6(r, k, v, w, u, s0, chunk=chunk)
+        assert got_o.shape == r.shape and got_o.dtype == torch.float32
+        _close(got_o, want_o)
+        _close(got_s, want_s)
+        return
     if bad == "chunk":
         chunk = 3                                    # 3 does not divide 8
-    elif bad == "dtype":
-        k = k.bfloat16()
     elif bad == "device":                            # neither cpu nor cuda
         r, k, v, w, u, s0 = (t.to("meta") for t in (r, k, v, w, u, s0))
-    elif bad == "head_dim":
-        r, k, v, w = (torch.zeros(1, 8, 2, 8) for _ in range(4))
-        u, s0 = torch.zeros(2, 8), torch.zeros(1, 2, 8, 8)
     elif bad == "state_shape":
         s0 = torch.zeros(1, 2, 16, 8)
     elif bad == "u_shape":

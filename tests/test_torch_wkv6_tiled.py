@@ -9,7 +9,9 @@ Pallas kernel in interpret mode and its exact recurrence ``ref_wkv`` at the
 reference's shapes with the 1e-4 tolerance of ``test_torch_rwkv6.py``.  Also
 here: the rule that names the kernel of a CUDA call (``_variant``), the tile
 configuration, the wrapper's layout checks for the two kernels, bf16
-r, k, v, and the model's layer at a float16 runtime."""
+r, k, v, the dtypes and head dims the wrapper takes as the reference does
+(and the zero-pad rule of the card's instances), and the model's layer at a
+float16 runtime."""
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -278,8 +280,27 @@ def test_bf16_inputs_equal_their_fp32_casts(s, chunk):
     assert torch.equal(tiled[0], tiled_f[0])
 
 
-@pytest.mark.parametrize("bad", ["mixed", "float16", "w_bf16", "state_bf16"])
+def _pallas(r, k, v, w, u, s0, chunk):
+    """The JAX package's Pallas kernel (interpret mode) on the port's
+    model-layout tensors, each in its own dtype (float64 ones as the float32
+    values they hold) -> (out, state) as float32 numpy, model layout."""
+    def jx(t, bhsd=False):
+        a = t.float().numpy()
+        name = str(t.dtype)[6:]
+        return to_jax(a.transpose(0, 2, 1, 3) if bhsd else a,
+                      "float32" if name == "float64" else name)
+    out, state = jax_wkv6_bhsd(*(jx(t, True) for t in (r, k, v, w)), jx(u),
+                               jx(s0), chunk=chunk, interpret=True)
+    return as_f32(out).transpose(0, 2, 1, 3), as_f32(state)
+
+
+@pytest.mark.parametrize("bad", ["mixed", "float16", "w_bf16", "state_bf16",
+                                 "int", "in_place_bf16_state"])
 def test_dtypes_refused(bad):
+    """Integer inputs, and an in-place update of a state that is not
+    float32, are refused.  Mixed r/k/v, float16 r/k/v and bf16 w or state,
+    refused before, now give the reference's result: its Pallas kernel casts
+    every input to fp32 on load (interpret mode, 1e-4)."""
     r, k, v, w, u, s0 = _inputs(15, 1, 4, 2, 16)
     if bad == "mixed":
         v = v.bfloat16()
@@ -287,10 +308,66 @@ def test_dtypes_refused(bad):
         r, k, v = (t.half() for t in (r, k, v))
     elif bad == "w_bf16":
         r, k, v, w = (t.bfloat16() for t in (r, k, v, w))
+    elif bad == "state_bf16":
+        s0 = s0.bfloat16()
+    elif bad == "int":
+        with pytest.raises(TypeError):
+            ops.wkv6(r, k, v, w.long(), u, s0, chunk=2)
+        return
     else:
         s0 = s0.bfloat16()
-    with pytest.raises(TypeError):
-        ops.wkv6(r, k, v, w, u, s0, chunk=2)
+        with pytest.raises(TypeError, match="in place"):
+            ops.wkv6(r, k, v, w, u, s0, chunk=2, state_out=s0)
+        return
+    out, state = ops.wkv6(r, k, v, w, u, s0, chunk=2)
+    assert out.dtype == state.dtype == torch.float32
+    want_o, want_s = _pallas(r, k, v, w, u, s0, chunk=2)
+    np.testing.assert_allclose(as_f32(out), want_o, atol=TOL, rtol=TOL)
+    np.testing.assert_allclose(as_f32(state), want_s, atol=TOL, rtol=TOL)
+
+
+@pytest.mark.parametrize("d", [8, 24, 40, 96])
+@pytest.mark.parametrize("dtype", [torch.float16, torch.float64])
+def test_any_dtype_and_head_dim_vs_pallas_interpret(dtype, d):
+    """Every input in float16 or float64 and head dims that are no kernel
+    instance: the wrapper (the plain version here) against the Pallas kernel
+    in interpret mode, which pads D to 128, on the same values (1e-4).
+    D = 96 runs only on the CPU; on the card it raises (see
+    ``test_zero_pad_rule``)."""
+    args = [t.to(dtype) for t in _inputs(16, 2, 64, 2, d)]
+    out, state = ops.wkv6(*args, chunk=32)
+    assert out.dtype == state.dtype == torch.float32
+    assert out.shape == args[0].shape and state.shape == args[5].shape
+    want_o, want_s = _pallas(*args, chunk=32)
+    np.testing.assert_allclose(as_f32(out), want_o, atol=TOL, rtol=TOL)
+    np.testing.assert_allclose(as_f32(state), want_s, atol=TOL, rtol=TOL)
+
+
+@pytest.mark.parametrize("d", [8, 24, 40, 63])
+def test_zero_pad_rule(d):
+    """The card runs a head dim that is no instance at the next one, the
+    inputs zero-padded and w padded with 1: the plain version at the padded
+    width gives the unpadded result in the first D rows and columns, and
+    zeros in the padded ones.  Above 64 the card has no instance."""
+    args = _inputs(17, 2, 40, 2, d)
+    d_pad = W.head_dim_instance(d)
+    assert d_pad == min(h for h in W.HEAD_DIMS if h >= d) > d
+    padded = W.pad_head_dim(*args, d_pad)
+    assert padded[3][..., d:].eq(1.0).all()
+    f64 = torch.float64          # so that only the order of sums differs
+    got_o, got_s = W.wkv6_plain(*padded, chunk=8, dtype=f64)
+    want_o, want_s = W.wkv6_plain(*args, chunk=8, dtype=f64)
+    np.testing.assert_allclose(got_o[..., :d].numpy(), want_o.numpy(),
+                               atol=1e-10, rtol=1e-10)
+    np.testing.assert_allclose(got_s[..., :d, :d].numpy(), want_s.numpy(),
+                               atol=1e-10, rtol=1e-10)
+    assert not got_o[..., d:].any() and not got_s[..., d:, :].any() \
+        and not got_s[..., :, d:].any()
+    for inst in W.HEAD_DIMS:
+        assert W.head_dim_instance(inst) == inst
+    for big in (65, 96, 128):
+        with pytest.raises(ValueError, match="head dims up to 64"):
+            W.head_dim_instance(big)
 
 
 # ---------------------------------------------------------------------------
@@ -304,9 +381,9 @@ LAYER_KW = dict(name="t", n_layers=1, d_model=64, n_heads=2, n_kv_heads=2,
 
 @pytest.mark.parametrize("steps", [[40], [1, 1, 3, 1]])
 def test_rwkv6_layer_float16_runtime(steps):
-    """A float16 runtime: the layer hands r, k, v to wkv6 as fp32 (the
-    kernel reads bf16 and fp32 only) and agrees with the JAX layer at
-    float16, in a prefill and in decode steps through a cache."""
+    """A float16 runtime: wkv6 takes the layer's float16 r, k, v as fp32
+    (the kernel reads bf16 and fp32 only) and the layer agrees with the JAX
+    layer at float16, in a prefill and in decode steps through a cache."""
     jspec, tspec = JaxModelSpec(**LAYER_KW), ModelSpec(**LAYER_KW)
     jp = JL.init_rwkv6(JaxInitializer(jax.random.PRNGKey(3), "float16"),
                        jspec)
