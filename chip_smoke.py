@@ -36,15 +36,28 @@ Phases, one JSON line each on standard output:
            point held against the compiled backend (rel 1e-6) and the whole
            sweep against the same sweep on the CPU (rel 1e-10).  Every launch
            count is set to 0 just before the sweep and read just after
+  api      STAGE's front door on the card, at qwen3-14b's published widths:
+           Scenario(spec).train(256 x 4096).with_backend("batched")
+           .resilience(mtbf=3.6e6).sweep(64, H100_HGX, rank_by=
+           "effective_goodput", device="cuda", max_pp=2, microbatches=(8,))
+           through cost_reduce (one launch per class call, counted), held
+           against the same scenario on the compiled backend on the host
+           (rel 1e-6 by label, the same ranking) and on the CPU batched
+           backend (rel 1e-10); a Job.request serving sweep over 8 devices
+           (splits="auto") against the compiled backend; the best point's
+           64 Chakra rank files (a second export byte-equal) and its
+           timeline (schema-checked, reconciled); qwen3-14b's stage 0 over
+           32 768 GPUs (dp 512, tp 8, pp 8); the serve launcher's
+           pre-flight line.  Counts set to 0 just before and read just after
   parity   the smoke specs on the card in fp32, then in float16 (which the
            attention kernel reads as fp32): qwen3 attention through the
            kernel against the naive core; rwkv6 through the wkv6 kernel
            against the same parameters on the CPU (the plain version).  Same
            greedy tokens and logits within 1e-4 (fp32) / 5e-2 (float16)
 
-Each phase line carries the seconds since the script started.  After serve
-and sweep, the ``kernels`` line: every kernel with its launches on the main
-paths.  Then the line nvidia-smi gives for the card, and as the last line
+Each phase line carries the seconds since the script started.  After serve,
+sweep and api, the ``kernels`` line: every kernel with its launches on the
+main paths (cost_reduce's by path: the sweep and the api phase).  Then the line nvidia-smi gives for the card, and as the last line
 ``{"ok": true, "device": {...}}``.  Any failure is an exception and a non-zero
 exit code; without a CUDA device the script exits non-zero before any phase.
 """
@@ -92,7 +105,7 @@ PEAK_FLOPS = {torch.bfloat16: 989e12,     # tensor cores
 TOL = {torch.float32: dict(absolute=2e-5, rms_share=0.0, relative=2e-5),
        torch.bfloat16: dict(absolute=0.0, rms_share=1e-2, relative=2.0 ** -7)}
 
-PHASES = ("build", "kernels", "serve", "sweep", "parity")
+PHASES = ("build", "kernels", "serve", "sweep", "api", "parity")
 # the kernels' wrapper modules, each with its launch count, and their sources
 COUNTERS = {"flash_attention": fa, "wkv6": wkv, "cost_reduce": cr}
 SOURCES = {"flash_attention": "src/repro_torch/kernels/csrc/flash_attention.cu",
@@ -479,6 +492,12 @@ WKV_CASES = [
     dict(name="decode-d32", B=4, S=1, N=8, D=32, chunk=1, state=True),
     dict(name="decode-d48-bf16", B=3, S=1, N=5, D=48, chunk=1, state=True,
          dtype=torch.bfloat16),
+    # head dim 128, the widest instance of both kernels, and a head dim
+    # between 64 and 128 that the wrapper zero-pads to it
+    dict(name="d128", B=2, S=256, N=8, D=128, chunk=32, state=True),
+    dict(name="d96", B=1, S=96, N=4, D=96, chunk=32),
+    dict(name="decode-d128-bf16", B=4, S=1, N=8, D=128, chunk=1, state=True,
+         in_place=True, dtype=torch.bfloat16),
     # the state carried across two calls
     dict(name="carry-two-calls", B=2, S=256, N=8, D=64, chunk=32, state=True,
          split=128),
@@ -628,16 +647,23 @@ def check_wkv_case(case, seed: int) -> dict:
 # [B, K] slot durations of B configs (positive), w the stacked [2G, K]
 # busy-group rows (every slot in exactly one row: its group's compute row or
 # its comm row), at the sweep's batches (1, 3 and 18 configs at pp = 1, 2G =
-# 4; 3 configs at pp = 2, 2G = 12).  Then the compute rows alone at B = 64
+# 4; 3 configs at pp = 2, 2G = 12).  The api phase's two main paths make the
+# same kind of call at other sizes: its train sweep's largest batch and
+# longest table, and its serving sweep's prefill tables (one config, K of
+# 765-1371 slots, 2G up to 24).  Then the compute rows alone at B = 64
 # (half the slots in no row), a large batch, fp32, a strided view, a half x,
 # more than one e-tile, the reference's four shapes (tests/test_kernels.py)
 # in fp32 and fp64, and integer counts.
 F64, F16 = torch.float64, torch.float16
 COST_CASES = [
-    *[dict(name=f"sweep-{b}x{e}x{t}", main=True, B=b, E=e, T=t, dtype=F64,
+    *[dict(name=f"{path}-{b}x{e}x{t}", main=True, B=b, E=e, T=t, dtype=F64,
            rows="busy")
-      for b, e, t in ((1, 4, 4189), (3, 4, 4189), (18, 4, 4189),
-                      (3, 12, 4191))],
+      for path, b, e, t in (("sweep", 1, 4, 4189), ("sweep", 3, 4, 4189),
+                            ("sweep", 18, 4, 4189), ("sweep", 3, 12, 4191),
+                            ("api", 9, 4, 4952), ("api", 1, 4, 6157),
+                            ("api", 3, 12, 5839), ("serving", 1, 4, 765),
+                            ("serving", 1, 12, 1209),
+                            ("serving", 1, 24, 768))],
     dict(name="path-pp1", B=64, E=2, T=4189, dtype=F64, rows="membership"),
     dict(name="path-pp2", B=64, E=6, T=4191, dtype=F64, rows="membership"),
     dict(name="large-1024x12x4191", B=1024, E=12, T=4191, dtype=F64,
@@ -1271,6 +1297,270 @@ def phase_sweep(kernels: list, with_profile: bool = False) -> dict:
 
 
 # ---------------------------------------------------------------------------
+# api: STAGE's front door, through the batched backend on the card
+# ---------------------------------------------------------------------------
+
+# the sweep phase's model and training step, a narrower enumeration (pp <= 2,
+# 8 microbatches) ranked by goodput under failures (a chip MTBF of 1000
+# hours); a serving job of 8-request 2048-token prompts and 128 decode steps
+# over every power-of-two prefill/decode split of 8 devices; the paper's
+# scale (Fig 13: 32 768 GPUs)
+API = dict(arch="qwen3-14b", batch=256, seq=4096, world=64, mtbf=3.6e6,
+           enum=dict(max_pp=2, microbatches=(8,)),
+           serve=dict(batch=8, seq=2048, decode_steps=128, world=8),
+           paper=dict(batch=4096, seq=4096, dp=512, tp=8, pp=8))
+
+
+def _serving_worst(rows, reference) -> float:
+    """Largest relative error of a serving sweep's rows against
+    ``reference``'s, row by row, after requiring the same rows in the same
+    order: the prefill step time, TTFT and tokens/s."""
+    def key(p):
+        return p.split, p.prefill_cfg.describe(), p.decode_cfg.describe()
+    require(len(rows) > 0 and [key(p) for p in rows]
+            == [key(q) for q in reference],
+            "the serving sweeps differ in rows or their order")
+
+    def values(p):
+        pre = next(ph for ph in p.result.phases if ph.mode == "prefill")
+        return pre.step_last, p.result.ttft, p.tokens_per_s
+    return max(abs(a - b) / abs(b) for p, q in zip(rows, reference)
+               for a, b in zip(values(p), values(q)))
+
+
+def _dir_bytes(path) -> dict:
+    return {f.name: f.read_bytes() for f in sorted(Path(path).iterdir())}
+
+
+def phase_api(kernels: list) -> dict:
+    import contextlib
+    import io
+    import tempfile
+    from repro_torch import H100_HGX, Job, Scenario
+    from repro_torch.api import _batched_engines
+    from repro_torch.launch import serve as serve_launcher
+    from repro_torch.obs import spans
+    from repro_torch.obs.timeline import validate_chrome_trace
+    spec = get_arch(API["arch"]).spec
+    require((spec.n_layers, spec.d_model, spec.d_ff, spec.vocab)
+            == SERVED[API["arch"]]["widths"], "not the published qwen3-14b")
+    world, enum = API["world"], API["enum"]
+    base = Scenario(spec).train(batch=API["batch"], seq=API["seq"]) \
+        .resilience(mtbf=API["mtbf"])
+    sc = base.with_backend("batched")
+    kw = dict(rank_by="effective_goodput", **enum)
+    seconds = {}
+
+    # ---- 1. the train sweep through the front door: the main path, with
+    # every launch count at 0 just before and read just after ----
+    reset_counts()
+    torch.cuda.synchronize()
+    with spans.profiled() as prof:
+        t0 = time.perf_counter()
+        res = sc.sweep(world, H100_HGX, device="cuda", **kw)
+        torch.cuda.synchronize()
+        seconds["sweep"] = time.perf_counter() - t0
+    counts = {k: module.launches for k, module in COUNTERS.items()}
+    bstats = res.batch_stats
+    calls = len(bstats["batch_sizes"])
+    require(len(res) > 0, "the front-door sweep found no feasible point")
+    require(res.backend == "batched" and bstats["points"] == len(res),
+            f"{len(res) - bstats['points']} of {len(res)} points went to "
+            f"the compiled path")
+    require(counts["cost_reduce"] == calls,
+            f"cost_reduce launched {counts['cost_reduce']} times for {calls} "
+            f"class calls (want 1 each)")
+    require(all(n == 0 for k, n in counts.items() if k != "cost_reduce"),
+            f"the sweep launched a model's kernel: {counts}")
+    require(all(p.resilience is not None for p in res),
+            "a point was not scored for resilience")
+    effs = [p.effective_step_time for p in res]
+    require(effs == sorted(effs), "not ranked by effective goodput")
+    for p in res:
+        require(np.isfinite([p.sim.step_time, p.effective_step_time,
+                             p.mem.peak_bytes]).all()
+                and 0 < p.resilience.goodput <= 1,
+                f"{p.label}: not a finite step or goodput")
+
+    # the same scenario on the compiled backend, on the host (rel 1e-6 by
+    # label, the same ranking), and on the batched backend on the CPU
+    t0 = time.perf_counter()
+    comp = base.sweep(world, H100_HGX, **kw)
+    seconds["compiled_check"] = time.perf_counter() - t0
+    compiled = {p.label: p for p in comp}
+    require(sorted(compiled) == sorted(p.label for p in res)
+            and len(comp.skipped) == len(res.skipped),
+            "the batched and compiled sweeps differ in points or skips")
+    worst_compiled = max(
+        _worst(res, compiled),
+        max(abs(p.effective_step_time - compiled[p.label].effective_step_time)
+            / compiled[p.label].effective_step_time for p in res))
+    require(worst_compiled <= SWEEP_REL,
+            f"front door, batched vs compiled: {worst_compiled:.3e} > "
+            f"{SWEEP_REL}")
+    require([p.label for p in res] == [p.label for p in comp],
+            "the batched sweep ranks otherwise than the compiled one")
+    t0 = time.perf_counter()
+    cpu = sc.sweep(world, H100_HGX, device="cpu", **kw)
+    seconds["cpu_check"] = time.perf_counter() - t0
+    on_cpu = {p.label: p for p in cpu}
+    require(sorted(on_cpu) == sorted(compiled),
+            "the card's and the CPU's front-door sweeps differ in points")
+    worst_cpu = max(
+        _worst(res, on_cpu),
+        max(abs(p.effective_step_time - on_cpu[p.label].effective_step_time)
+            / on_cpu[p.label].effective_step_time for p in res))
+    require(worst_cpu <= CARD_VS_CPU_REL,
+            f"front door, card vs cpu: {worst_cpu:.3e} > {CARD_VS_CPU_REL}")
+
+    # ---- 2. a serving sweep, the prefill pool on the card: a main path of
+    # its own, every launch count at 0 just before and read just after ----
+    srv = API["serve"]
+
+    def job(backend):
+        return Job.request(prefill=Scenario(spec).prefill(
+            batch=srv["batch"], seq=srv["seq"]).with_backend(backend),
+            decode_steps=srv["decode_steps"])
+    reset_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    rows = job("batched").sweep(srv["world"], H100_HGX, splits="auto",
+                                device="cuda")
+    torch.cuda.synchronize()
+    seconds["serving_sweep"] = time.perf_counter() - t0
+    serve_counts = {k: module.launches for k, module in COUNTERS.items()}
+    pre_env = Scenario(spec).prefill(batch=srv["batch"], seq=srv["seq"]).env()
+    serve_calls = len(_batched_engines.engine(spec, "prefill", pre_env,
+                                              DEV).batch_sizes)
+    require(serve_counts["cost_reduce"] == serve_calls > 0,
+            f"serving sweep: {serve_counts['cost_reduce']} cost_reduce "
+            f"launches for {serve_calls} class calls (want 1 each)")
+    require(all(n == 0 for k, n in serve_counts.items() if k != "cost_reduce"),
+            f"the serving sweep launched a model's kernel: {serve_counts}")
+    # the same rows on the compiled backend (rel 1e-6) and on the batched
+    # backend on the CPU, through the plain cost_reduce (rel 1e-10)
+    t0 = time.perf_counter()
+    rows_compiled = job("compiled").sweep(srv["world"], H100_HGX,
+                                          splits="auto")
+    seconds["serving_compiled_check"] = time.perf_counter() - t0
+    serve_worst = _serving_worst(rows, rows_compiled)
+    require(serve_worst <= SWEEP_REL,
+            f"serving sweep vs compiled: {serve_worst:.3e} > {SWEEP_REL}")
+    t0 = time.perf_counter()
+    rows_cpu = job("batched").sweep(srv["world"], H100_HGX, splits="auto",
+                                    device="cpu")
+    seconds["serving_cpu_check"] = time.perf_counter() - t0
+    serve_worst_cpu = _serving_worst(rows, rows_cpu)
+    require(serve_worst_cpu <= CARD_VS_CPU_REL,
+            f"serving sweep, card vs cpu: {serve_worst_cpu:.3e} > "
+            f"{CARD_VS_CPU_REL}")
+    # a row's numbers come from one evaluation of the job it chose; the
+    # card's numbers behind each choice are its prefill pool's sweep, held
+    # here point by point against the CPU's and the compiled backend's
+    pre = Scenario(spec).prefill(batch=srv["batch"], seq=srv["seq"])
+    pool_worst = {"cpu": 0.0, "compiled": 0.0}
+    t0 = time.perf_counter()
+    for wp, _ in dse.enumerate_pool_splits(srv["world"]):
+        card = pre.with_backend("batched").sweep(wp, H100_HGX, device="cuda")
+        refs = {"cpu": pre.with_backend("batched").sweep(wp, H100_HGX,
+                                                         device="cpu"),
+                "compiled": pre.sweep(wp, H100_HGX)}
+        for name, ref in refs.items():
+            by_label = {p.label: p for p in ref}
+            require(sorted(by_label) == sorted(p.label for p in card),
+                    f"prefill pool of {wp}: the card's and the {name} "
+                    f"sweep differ in points")
+            pool_worst[name] = max(pool_worst[name], _worst(card, by_label))
+    seconds["serving_pool_checks"] = time.perf_counter() - t0
+    require(pool_worst["cpu"] <= CARD_VS_CPU_REL
+            and pool_worst["compiled"] <= SWEEP_REL,
+            f"prefill pool sweeps: {pool_worst}")
+
+    # ---- 3. Chakra export of the best point, and its timeline ----
+    best = res[0]
+    tr = base.with_cfg(best.cfg).trace()
+    with tempfile.TemporaryDirectory() as tmp:
+        t0 = time.perf_counter()
+        n_files = tr.export_chakra(str(Path(tmp) / "a"))
+        seconds["chakra_export"] = time.perf_counter() - t0
+        tr.export_chakra(str(Path(tmp) / "b"))
+        first, second = _dir_bytes(Path(tmp) / "a"), _dir_bytes(Path(tmp) / "b")
+        require(n_files == world and len(first) == world + 1,
+                f"{n_files} rank files for {world} ranks")
+        require(first == second, "a second Chakra export is not byte-equal")
+        export_bytes = sum(len(b) for b in first.values())
+        t0 = time.perf_counter()
+        tl = tr.timeline(str(Path(tmp) / "timeline.json"), H100_HGX)
+        seconds["timeline"] = time.perf_counter() - t0
+        obj = json.loads((Path(tmp) / "timeline.json").read_text())
+        problems = validate_chrome_trace(obj)
+        require(problems == [], f"timeline schema: {problems[:3]}")
+        require(tl.reconcile(tr.simulate(H100_HGX).step_time) == [],
+                "the timeline does not reconcile with the step time")
+        timeline_events = len(obj["traceEvents"])
+
+    # ---- 4. the paper's scale ----
+    pap = API["paper"]
+    t0 = time.perf_counter()
+    big = Scenario(spec).train(batch=pap["batch"], seq=pap["seq"]).parallel(
+        dp=pap["dp"], tp=pap["tp"], pp=pap["pp"]).trace()
+    stage0 = big.chakra_stage(0)
+    seconds["paper_scale_stage"] = time.perf_counter() - t0
+    nodes = stage0["nodes"]
+    comm = [nd for nd in nodes if nd["type"].startswith("COMM")]
+    require(big.scenario.world == 32768 and len(nodes) > 0 and comm,
+            "the 32 768-GPU stage has no nodes or no communication")
+
+    # ---- 5. the serve launcher's pre-flight line ----
+    out = io.StringIO()
+    with contextlib.redirect_stdout(out):
+        serve_launcher.announce_preflight(spec, slots=4, kv_len=128,
+                                          device=DEV)
+    line = out.getvalue().strip()
+    require(line.startswith("[serve] STAGE pre-flight: "),
+            f"no pre-flight line: {line!r}")
+    print(line, flush=True)
+
+    def span_s(name):
+        return prof.totals().get(name, {}).get("total_s", 0.0)
+    by_step = min(res, key=lambda p: p.sim.step_time)
+    return {
+        "model": spec.name, "layers": spec.n_layers, "batch": API["batch"],
+        "seq": API["seq"], "world": world, "hw": H100_HGX.name,
+        "mtbf_s": API["mtbf"], "enumerate": {k: list(v) if isinstance(
+            v, tuple) else v for k, v in enum.items()},
+        "points": len(res), "skipped": len(res.skipped),
+        "structure_classes": res.engine_stats["classes"],
+        "class_kernels": bstats["kernels"], "class_calls": calls,
+        "cost_reduce_launches": counts["cost_reduce"],
+        "seconds": seconds,
+        "lowering_s": span_s("compiled.lower"),
+        "class_kernel_build_s": span_s("batched.kernel_build"),
+        "best_by_step_time": {"label": by_step.label,
+                              "step_ms": by_step.step_ms},
+        "best_by_effective_goodput": {
+            "label": best.label, "step_ms": best.step_ms,
+            "effective_step_ms": best.effective_step_time * 1e3,
+            "goodput": best.resilience.goodput,
+            "recovery": best.resilience.recovery},
+        "vs_compiled_worst": worst_compiled, "vs_compiled_rel": SWEEP_REL,
+        "card_vs_cpu_worst": worst_cpu, "card_vs_cpu_rel": CARD_VS_CPU_REL,
+        "serving": {"world": srv["world"], "rows": len(rows),
+                    "launches": serve_counts, "class_calls": serve_calls,
+                    "vs_compiled_worst": serve_worst,
+                    "card_vs_cpu_worst": serve_worst_cpu,
+                    "prefill_pools_worst": pool_worst,
+                    "top": rows[0].row()},
+        "chakra": {"label": best.label, "files": n_files,
+                   "bytes": export_bytes, "reexport_byte_equal": True,
+                   "timeline_events": timeline_events},
+        "paper_scale": {"gpus": big.scenario.world, "stage": 0,
+                        "nodes": len(nodes), "comm_nodes": len(comm)},
+        "preflight": line,
+    }
+
+
+# ---------------------------------------------------------------------------
 # parity: the kernel inside the model against the naive core
 # ---------------------------------------------------------------------------
 
@@ -1408,10 +1698,11 @@ def main(argv=None) -> int:
                 sys.stderr.write(f"---- ptxas: {name} ----\n{log}\n")
     if "kernels" in phases:
         kernels = phase_kernels()
-        if "serve" not in phases and "sweep" not in phases:
+        if not {"serve", "sweep", "api"} & set(phases):
             print(json.dumps({"kernels": kernels}), flush=True)
-    if ("serve" in phases or "sweep" in phases) and not kernels:
-        ap.error("the serve and sweep phases need the kernels phase")
+    main_paths = {"serve", "sweep", "api"} & set(phases)
+    if main_paths and not kernels:
+        ap.error("the serve, sweep and api phases need the kernels phase")
     if "serve" in phases:
         for name in SERVED:
             emit("serve", **phase_serve(name, kernels,
@@ -1420,7 +1711,11 @@ def main(argv=None) -> int:
             torch.cuda.empty_cache()
     if "sweep" in phases:
         emit("sweep", **phase_sweep(kernels, with_profile=args.profile))
-    if "serve" in phases or "sweep" in phases:
+    if "api" in phases:
+        emit("api", **phase_api(kernels))
+    if main_paths:
+        # ``launches`` is the count of each kernel's first main path (the
+        # api phase requires and reports its own two counts)
         ran = {"flash_attention": "serve", "wkv6": "serve",
                "cost_reduce": "sweep"}
         for k in kernels:

@@ -25,17 +25,15 @@ Infeasible factorizations are no longer silently dropped: only
 :class:`~repro_torch.core.matcher.InfeasibleConfigError` is caught, and every
 skipped config is recorded with its reason on ``SweepResult.skipped``.
 
-In the JAX package the preferred entrypoint is ``repro.api.Scenario.sweep``,
-which calls :func:`sweep` with a ``build`` that clones ONE cached symbolic
-assembly per mode.  The port has no ``api`` yet (ROADMAP.md queue 1 item 4),
-so :func:`sweep` is its entry point: pass a ``build`` that clones one
-assembly (``src = build_graph(spec, mode=...)``; ``lambda: src.clone().graph``)
-— a plain ``lambda: build_graph(spec).graph`` re-assembles per point.
+The preferred entrypoint is :meth:`repro_torch.api.Scenario.sweep`, which
+calls :func:`sweep` with a ``build`` that clones ONE cached symbolic
+assembly per mode; the callable-based :func:`sweep` stays public for
+callers that need a custom ``build`` (a plain
+``lambda: build_graph(spec).graph`` re-assembles per point).
 
-Own copy of ``repro.core.dse``.  The options that need modules the port does
-not have yet — ``verify=True`` (``analysis``), ``resilience=`` and
-``rank_by="effective_goodput"`` (``ft``), ``prove=True``
-(``analysis.prover``) — raise :class:`NotImplementedError`.
+Own copy of ``repro.core.dse``.  ``verify=True`` and ``prove=True`` need
+``repro_torch.analysis``, which comes with the port's analysis slice: until
+then they raise :class:`NotImplementedError`.
 """
 from __future__ import annotations
 
@@ -62,8 +60,8 @@ from .topology import normalize_placement
 
 _log = get_logger("core.dse")
 
-_NOT_PORTED = ("{} needs repro_torch.{}, which is not ported yet "
-               "(ROADMAP.md queue 1 item 4)")
+_NOT_PORTED = ("{} needs repro_torch.analysis, which is not ported yet: it "
+               "comes with the port's analysis slice (ROADMAP.md queue 1)")
 
 
 class _Progress:
@@ -146,7 +144,7 @@ class SkippedConfig:
     ``prefiltered`` marks configs rejected by the cheap pre-dispatch
     feasibility check (microbatch divisibility, schedule constraints)
     rather than by the pipeline itself; ``diagnostics`` carries
-    structured :class:`repro.analysis.Diagnostic` records when the sweep
+    structured :class:`repro_torch.analysis.Diagnostic` records when the sweep
     ran with ``verify=True``."""
     cfg: ParallelCfg
     reason: str
@@ -254,6 +252,64 @@ class SweepResult(list):
                         f"{len(sizes)} kernel call(s), batch sizes "
                         f"mean {mean:.1f} / max {max(sizes)}")
         return "; ".join(bits)
+
+
+@dataclass
+class ServingPoint:
+    """One point of a serving DSE (:meth:`repro_torch.api.Job.sweep`): a
+    generation length + pool partition + per-pool parallelization,
+    scored by end-to-end tokens/s (``result`` is the evaluated
+    :class:`~repro_torch.core.serving.JobResult`)."""
+    out_tokens: int
+    split: tuple                     # (world,) colocated | (wp, wd)
+    prefill_cfg: ParallelCfg
+    decode_cfg: ParallelCfg
+    result: object
+    resilience: object = None        # worst-pool ft.ResilienceReport
+
+    @property
+    def tokens_per_s(self) -> float:
+        return self.result.tokens_per_s
+
+    @property
+    def goodput(self) -> float:
+        return self.resilience.goodput if self.resilience else 1.0
+
+    @property
+    def effective_tokens_per_s(self) -> float:
+        """Delivered tokens/s once failure downtime is charged (both
+        pools stall while either recovers — the request pipeline is
+        synchronous across the handoff)."""
+        return self.tokens_per_s * self.goodput
+
+    def row(self) -> dict:
+        split = "colocated" if len(self.split) == 1 \
+            else f"{self.split[0]}+{self.split[1]}"
+        out = {"out_tokens": self.out_tokens, "split": split,
+               "prefill": self.prefill_cfg.describe(),
+               "decode": self.decode_cfg.describe(),
+               **self.result.row()}
+        if self.resilience is not None:
+            out["eff_tokens_per_s"] = round(self.effective_tokens_per_s, 1)
+            out.update(self.resilience.row())
+        return out
+
+
+def enumerate_pool_splits(world: int) -> list[tuple[int, int]]:
+    """Candidate ``(prefill_world, decode_world)`` partitions of a
+    serving cluster: every power-of-two prefill share (decode gets the
+    remainder) — the Table IX observation is that the two phases prefer
+    different cluster sizes, so the split is a genuine DSE dimension."""
+    if world < 2:
+        raise InfeasibleConfigError(
+            f"disaggregated serving needs world >= 2 devices (one per "
+            f"pool), got world={world}; run colocated or grow the cluster")
+    splits = []
+    p = 1
+    while p < world:
+        splits.append((p, world - p))
+        p *= 2
+    return splits
 
 
 def _pow2_divisors(n: int) -> list[int]:
@@ -380,13 +436,12 @@ def evaluate_point_compiled(engine: CompiledBackend, cfg: ParallelCfg,
 def _skip(cfg: ParallelCfg, exc: BaseException, *, prefiltered: bool = False,
           verify: bool = False) -> SkippedConfig:
     """Record one infeasible config; with ``verify`` attach a structured
-    :class:`repro.analysis.Diagnostic` (code ``STG007``) so downstream
+    :class:`repro_torch.analysis.Diagnostic` (code ``STG007``) so downstream
     tooling can filter skips by rule instead of parsing reason strings."""
     sk = SkippedConfig(cfg, f"{type(exc).__name__}: {exc}",
                        prefiltered=prefiltered)
     if verify:
-        raise NotImplementedError(_NOT_PORTED.format("verify=True",
-                                                     "analysis"))
+        raise NotImplementedError(_NOT_PORTED.format("verify=True"))
     return sk
 
 
@@ -590,7 +645,7 @@ def step_lower_bound(cfg: ParallelCfg, floor: tuple) -> float:
     the dependency unit — zb-h1 splits weight-grads off the chain, so
     pipelined zb-h1 points use the busy bound alone.  Module-level (not
     a closure) so the static prover can certify exactly the formula the
-    search applies (``repro.analysis.prover``, rule STG605)."""
+    search applies (``repro_torch.analysis.prover``, rule STG605)."""
     m, path, o = floor
     lb = cfg.microbatches * m
     if cfg.schedule != "zb-h1" or max(1, cfg.pp) <= 1:
@@ -661,7 +716,7 @@ def branch_and_bound(engine: CompiledBackend, cfgs: list,
 
     # Structure classes carrying a memory-monotonicity certificate
     # (peak memory non-increasing in every mesh degree, proved by
-    # repro.analysis.prover) may be pruned from a *lower bound* on
+    # repro_torch.analysis.prover) may be pruned from a *lower bound* on
     # memory — the exact peak of any already-seen config of the same
     # class whose degrees are componentwise >= the candidate's (and,
     # when the space's inflight factors are certified non-decreasing in
@@ -730,12 +785,14 @@ def branch_and_bound(engine: CompiledBackend, cfgs: list,
 
 
 def score_resilience(points: list[DSEPoint], resilience, hw) -> None:
-    """Attach a :class:`repro.ft.ResilienceReport` to every point (in
+    """Attach a :class:`repro_torch.ft.ResilienceReport` to every point (in
     place): failure model from the profile's topology, checkpoint cost
     from each point's own memory report, recovery path from its dp
     replication.  Shared by the thread and process sweep paths so both
     rank identically."""
-    raise NotImplementedError(_NOT_PORTED.format("resilience=", "ft"))
+    from ..ft.goodput import score_point
+    for p in points:
+        p.resilience = score_point(p.cfg, p.sim, p.mem, resilience, hw)
 
 
 def rank_points(points: list[DSEPoint], rank_by: str) -> None:
@@ -781,7 +838,7 @@ def sweep(build: Callable[[], tuple], env: Env, world: int,
     ``workers`` > 1 evaluates config chunks on a thread pool (results
     are identical and identically ordered to the serial run); ``engine``
     lets callers share a pre-warmed :class:`CompiledBackend` across
-    sweeps (what :meth:`repro.api.Scenario.sweep` does).
+    sweeps (what :meth:`repro_torch.api.Scenario.sweep` does).
 
     ``backend="batched"`` evaluates whole structure classes at once on
     the card (:mod:`repro_torch.core.batched`, on ``device``: the CUDA
@@ -802,11 +859,21 @@ def sweep(build: Callable[[], tuple], env: Env, world: int,
     Configs that fail the cheap workload-shape feasibility check are
     pruned *before* dispatch (never hitting the executor) and recorded
     on ``SweepResult.skipped`` with ``prefiltered=True``;
-    ``SweepResult.pruned`` tallies why.
+    ``SweepResult.pruned`` tallies why.  ``verify=True`` (structured
+    diagnostics on every skipped config) needs ``repro_torch.analysis`` and
+    raises :class:`NotImplementedError` until its slice is ported.
 
-    ``verify``, ``resilience``, ``rank_by="effective_goodput"`` and
-    ``prove`` keep the JAX package's signature; each needs a module the
-    port does not have yet and raises :class:`NotImplementedError`.
+    ``resilience`` (a :class:`repro_torch.ft.ResilienceSpec`) scores every
+    feasible point's goodput under failures; ``rank_by=
+    "effective_goodput"`` then ranks by goodput-deflated step time
+    instead of raw step time — dp-replicated configs recover from peers
+    while tp*pp-heavy ones rewind to storage, so the two rankings can
+    disagree.  With the default ``rank_by="step_time"`` and no spec the
+    sweep is bit-identical to before.
+
+    ``prove=True`` (the symbolic invariant prover over every structure
+    class, ``repro_torch.analysis.prover``) raises
+    :class:`NotImplementedError` until the analysis slice is ported.
     """
     if backend not in ("compiled", "sympy", "batched"):
         raise ValueError(
@@ -818,14 +885,12 @@ def sweep(build: Callable[[], tuple], env: Env, world: int,
                          "(backend='compiled' or 'batched')")
     if rank_by not in RANK_MODES:
         raise ValueError(f"rank_by {rank_by!r} not in {RANK_MODES}")
-    for asked, what, module in (
-            (verify, "verify=True", "analysis"),
-            (resilience is not None, "resilience=", "ft"),
-            (rank_by == "effective_goodput",
-             "rank_by='effective_goodput'", "ft"),
-            (prove, "prove=True", "analysis.prover")):
+    if rank_by == "effective_goodput" and resilience is None:
+        raise ValueError(
+            "rank_by='effective_goodput' requires resilience=ResilienceSpec")
+    for asked, what in ((verify, "verify=True"), (prove, "prove=True")):
         if asked:
-            raise NotImplementedError(_NOT_PORTED.format(what, module))
+            raise NotImplementedError(_NOT_PORTED.format(what))
     cfgs = list(enumerate_configs(world, **enum_kw))
     bengine = None
     if backend == "batched":
@@ -840,6 +905,7 @@ def sweep(build: Callable[[], tuple], env: Env, world: int,
         engine = CompiledBackend(build, env, n_layers=n_layers)
 
     certs = None
+
     # cheap pre-dispatch feasibility pass: infeasible factorizations are
     # counted and skipped-with-reason without consuming executor slots
     batch = env.get(sym("B"))

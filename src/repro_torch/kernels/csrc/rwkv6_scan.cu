@@ -29,8 +29,9 @@
 // and this entry launches it or fails.
 //
 // decode (S_len = 1, so C = 1): a streaming kernel for the byte bound.  One
-//   block per (b, n); each thread owns four float4 runs of state columns (a
-//   warp covers two whole 256-byte rows), reads each state element once and
+//   block per (b, n) of D * D / 16 threads; each thread owns four float4
+//   runs of state columns (at head dim 64 a warp covers two whole 256-byte
+//   rows, at 128 one 512-byte row), reads each state element once and
 //   writes it once, in place.  out_e = sum_d r_d S[d,e] + (r.(u*k)) v_e: the
 //   row sum of the four rows a thread holds, then one shared-memory pass over
 //   the D/4 row slots; the bonus scalar is one warp's shuffle reduction.  An
@@ -1023,7 +1024,9 @@ cudaError_t launch_tiled(const Params& p, cudaStream_t stream) {
 // The tile instances.  steps = 0: one tile per chunk (chunks of at most 32
 // steps, head dims 32 and 64, all D columns), the one-accumulator kernel.
 // Otherwise 16 steps x 32 columns at head dim 64 (the fastest of 16 x 16,
-// 16 x 32, 32 x 16 and 32 x 32 on the card) and 16 x 16 at the others.
+// 16 x 32, 32 x 16 and 32 x 32 on the card) and 16 x 16 at the others: at
+// head dim 128 that is 8 column blocks per (b, n), each 64 threads holding a
+// 128 x 16 slab of the three accumulators (96 floats a thread).
 template <typename T>
 cudaError_t dispatch_tiled(const Params& p, int steps, int cols,
                            cudaStream_t st) {
@@ -1039,6 +1042,7 @@ cudaError_t dispatch_tiled(const Params& p, int steps, int cols,
     case 321616: return launch_tiled<32, 16, 16, T>(p, st);
     case 481616: return launch_tiled<48, 16, 16, T>(p, st);
     case 643216: return launch_tiled<64, 32, 16, T>(p, st);
+    case 1281616: return launch_tiled<128, 16, 16, T>(p, st);
     default: return cudaErrorInvalidValue;
   }
 }
@@ -1050,6 +1054,7 @@ cudaError_t dispatch_decode(const Params& p, cudaStream_t st) {
     case 32: return launch_decode<32, T>(p, st);
     case 48: return launch_decode<48, T>(p, st);
     case 64: return launch_decode<64, T>(p, st);
+    case 128: return launch_decode<128, T>(p, st);
     default: return cudaErrorInvalidValue;
   }
 }

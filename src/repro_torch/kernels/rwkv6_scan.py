@@ -17,7 +17,9 @@ Model layout throughout: ``r/k/v/w [B, S, N, D]``, ``u [N, D]``,
 load: the kernels read r, k and v as float32 or bfloat16 (others are cast to
 float32 first), w, u and the state as float32, and write a float32 output.
 On the card the kernels have head dims ``HEAD_DIMS``; a smaller D is
-zero-padded up to the next (``pad_head_dim``, exact), a D above 64 raises.
+zero-padded up to the next (``pad_head_dim``, exact), a D above 128 raises
+(the TPU kernel pads any D to a multiple of 128; this port has no instance
+above 128).
 On the CPU the plain version takes any D.  ``wkv6_bhsd`` takes the
 ``[B, N, S, D]`` layout of the TPU kernel and hands the same memory to the
 same kernels by strides.
@@ -41,7 +43,7 @@ import torch.nn.functional as F
 launches = 0
 launches_by_variant = {"decode": 0, "tiled": 0}
 
-HEAD_DIMS = (16, 32, 48, 64)        # the kernels' instances
+HEAD_DIMS = (16, 32, 48, 64, 128)   # the kernels' instances
 INPUT_DTYPES = (torch.float32, torch.bfloat16)   # of r, k, v
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 _VARIANT_CODE = {"decode": 0, "tiled": 1}
@@ -52,14 +54,18 @@ _local = threading.local()      # the ctypes meta array, one per thread
 def _chunk_plain(r, k, v, w, u, state):
     """One chunk, r/k/v/w [B,C,N,D] -> (out [B,C,N,D], new state): the
     arithmetic of ``_wkv_chunk`` / ``_wkv_kernel``, cumulative sums of the
-    log-decay and [C, C] scores."""
+    log-decay and [C, C] scores.  As there, the cumulative sums are products
+    with a lower-triangular ones matrix: the factors up to e^{+-80} amplify
+    the rounding of those sums, and a sequential ``cumsum`` rounds them
+    elsewhere than the reference does."""
     C = r.shape[1]
+    lt_incl = torch.tril(torch.ones(C, C, dtype=r.dtype, device=r.device))
     lw = torch.log(torch.clamp_min(w, 1e-30))            # true decay
-    cum = torch.cumsum(lw, dim=1)                        # inclusive
+    cum = torch.einsum("cj,bjnd->bcnd", lt_incl, lw)     # inclusive
     cum_excl = cum - lw
     inter = torch.einsum("bcnd,bnde->bcne", r * torch.exp(cum_excl), state)
     lwc = torch.clamp_min(lw, -80.0 / C)                 # floored decay
-    cumc = torch.cumsum(lwc, dim=1)
+    cumc = torch.einsum("cj,bjnd->bcnd", lt_incl, lwc)
     rt = r * torch.exp(cumc - lwc)
     kt = k * torch.exp(-cumc)
     s = torch.einsum("bcnd,bjnd->bncj", rt, kt)
@@ -216,8 +222,9 @@ def head_dim_instance(d: int) -> int:
         if inst >= d:
             return inst
     raise ValueError(f"the wkv6 kernels take head dims up to "
-                     f"{HEAD_DIMS[-1]}, got {d} (the plain version on the "
-                     f"CPU takes any)")
+                     f"{HEAD_DIMS[-1]}, got {d}: no kernel instance holds "
+                     f"a wider [D, D] state (the plain version on the CPU "
+                     f"takes any D)")
 
 
 def pad_head_dim(r, k, v, w, u, state0, d_pad: int) -> tuple:

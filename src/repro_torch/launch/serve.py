@@ -4,17 +4,34 @@
     PYTHONPATH=src python -m repro_torch.launch.serve --arch qwen3-14b \\
         --smoke --device cpu
 
-The symbolic pre-flight line of `repro.launch.serve` comes with the port of the
-generator.
+Before it serves, it prints the symbolic pre-flight line
+(:mod:`repro_torch.launch.preflight`): the decode step's predicted time and
+peak memory on the modelled cluster.
 """
 import argparse
 
 import numpy as np
+import torch
 
 from repro_torch._device import resolve_device
 from repro_torch.configs import get as get_arch
+from repro_torch.launch.preflight import announce, preflight
 from repro_torch.models import init_params
 from repro_torch.serve import Engine, Request
+
+
+def announce_preflight(spec, *, slots: int, kv_len: int, device) -> None:
+    """Print the ``STAGE pre-flight:`` line for a decode engine of ``slots``
+    requests against a ``kv_len`` cache, one data-parallel replica per card
+    (advisory only: a failure prints why and never blocks serving)."""
+    try:
+        announce("serve", preflight(spec, mode="decode", batch=slots,
+                                    seq=1, kv_len=kv_len,
+                                    dp=torch.cuda.device_count()
+                                    if device.type == "cuda" else 1,
+                                    ep=spec.moe is not None))
+    except Exception as e:  # noqa: BLE001 — advisory only, never blocks
+        print(f"[serve] STAGE pre-flight unavailable: {e}")
 
 
 def main(argv=None):
@@ -34,6 +51,8 @@ def main(argv=None):
     arch = get_arch(args.arch)
     spec = arch.smoke if args.smoke else arch.spec
     rt = arch.runtime                  # attention through the CUDA kernel
+    announce_preflight(spec, slots=args.slots, kv_len=args.kv_len,
+                       device=device)
     params = init_params(spec, rt, device=device, seed=0)
     engine = Engine(spec, rt, params, batch_slots=args.slots,
                     kv_len=args.kv_len, device=device)

@@ -8,9 +8,9 @@ unless asked.
 
 :func:`snapshot` is the one-stop telemetry API: it merges the live
 registry with the engine-cache statistics already kept by the fluent
-layer (``repro.api.compiled_cache_stats`` in the JAX package:
-graph/engine/batched-engine caches).  The port has no such layer yet, so
-its snapshot reports ``caches: {}``.
+layer (``repro_torch.api.compiled_cache_stats`` — graph/engine/batched-engine
+caches, including the eviction vs staleness re-wrap split) and, when a
+sweep ran, the batched backend's kernel/batch stats.
 """
 from __future__ import annotations
 
@@ -159,9 +159,11 @@ def snapshot(*, caches: bool = True) -> dict:
     evictions, staleness re-wraps)."""
     snap = REGISTRY.collect()
     if caches:
-        # the fluent layer that keeps those caches is not ported yet
-        # (ROADMAP.md queue 1 item 4); until then there are none to report
-        snap["caches"] = {}
+        try:
+            from ..api import compiled_cache_stats
+            snap["caches"] = compiled_cache_stats()
+        except Exception:       # api layer unavailable (partial install)
+            snap["caches"] = {}
     return snap
 
 

@@ -14,14 +14,16 @@ recording — call :func:`take_events` / :func:`export` to harvest) or
 scoped with::
 
     with repro_torch.obs.profiled() as prof:
-        dse.sweep(build, env, 64, hw, n_layers=40, backend="batched")
+        Scenario(spec).train(batch=64, seq=512).sweep(64, device="cpu")
     prof.summary()          # per-span-name total/self times
+    prof.export("sweep_profile.json")   # Perfetto / chrome://tracing
 
 Span records carry wall-clock ``ts``/``dur`` (perf_counter), thread id,
 nesting depth (from a contextvar, so concurrent sweep workers nest
 correctly), and free-form ``args``; export shares the Chrome-trace JSON
-emitter with the simulated-execution timelines (``obs/timeline.py``, not
-ported yet: until it is, ``Profile.chrome_trace`` and ``export`` raise).
+emitter with the simulated-execution timelines
+(:mod:`repro_torch.obs.timeline`), so one Perfetto session can show where a
+5000-config sweep spends its generator time.
 """
 from __future__ import annotations
 
@@ -191,11 +193,11 @@ class Profile:
         return "\n".join(lines)
 
     def chrome_trace(self) -> dict:
-        """Chrome-trace JSON dict.  Its emitter lives in ``obs/timeline.py``,
-        which the port does not have yet."""
-        raise NotImplementedError(
-            "Profile.chrome_trace needs obs/timeline.py, not ported yet "
-            "(ROADMAP.md queue 1 item 4); totals() and summary() work")
+        """Chrome-trace JSON dict (see :func:`repro_torch.obs.timeline.
+        chrome_trace_events` for the schema conventions shared with the
+        simulated-execution timelines)."""
+        from .timeline import profile_chrome_trace
+        return profile_chrome_trace(self.events)
 
     def export(self, path: str) -> str:
         import json

@@ -2,9 +2,10 @@
 ``branch_and_bound`` and ``sweep(search=...)``) against the JAX package's,
 mirroring tests/test_dse_search.py on the CPU.
 
-The port has no ``Scenario`` yet, so its sweeps are built through
-``build_graph`` / ``bind_env`` (``torch_port_helpers.port_engine``) for the
-same spec and workload the reference's ``Scenario`` binds.  The headline
+The port's sweeps here are built through ``build_graph`` / ``bind_env``
+(``torch_port_helpers.port_engine``) for the same spec and workload the
+reference's ``Scenario`` binds (the port's ``Scenario.sweep`` is held
+against the reference's in tests/test_torch_api.py).  The headline
 guarantee, as there: ``search="bnb"`` returns exactly the front that the
 exhaustive sweep and ``pareto_front`` give, while fully evaluating under a
 quarter of the space; here also exactly the reference's front on the same
@@ -185,7 +186,17 @@ def test_bnb_respects_mem_limit(port, scenario):
     assert sorted(p.label for p in res) == sorted(p.label for p in ref)
 
 
-def test_bnb_resilience_not_ported(port):
-    """Resilience scoring needs the ``ft`` slice: asked for, it raises."""
-    with pytest.raises(NotImplementedError):
-        _sweep(port, 16, search="bnb", resilience=object(), **SPACE)
+def test_bnb_resilience_not_ported(port, scenario):
+    """Resilience scoring survives the bnb path (the ``ft`` slice is
+    ported): every point scored, the same front and scores as the
+    reference's."""
+    from repro.ft import ResilienceSpec as JaxResilienceSpec
+    from repro_torch.ft import ResilienceSpec
+    res = _sweep(port, 16, search="bnb", mem_limit_gb=16.0,
+                 resilience=ResilienceSpec(mtbf=30e3), **SPACE)
+    assert res and all(p.resilience is not None for p in res)
+    ref = scenario.sweep(16, search="bnb", mem_limit_gb=16.0,
+                         resilience=JaxResilienceSpec(mtbf=30e3), **SPACE)
+    assert [p.label for p in res] == [p.label for p in ref]
+    assert [(p.step_ms, p.peak_gb, p.effective_step_ms) for p in res] \
+        == [(p.step_ms, p.peak_gb, p.effective_step_ms) for p in ref]

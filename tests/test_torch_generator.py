@@ -103,27 +103,48 @@ def test_compiled_sweep_equals_reference():
         == [(s.reason, s.prefiltered) for s in want.skipped]
 
 
-@pytest.mark.parametrize("option", [dict(verify=True),
-                                    dict(resilience=object()),
-                                    dict(rank_by="effective_goodput"),
-                                    dict(prove=True)],
+@pytest.mark.parametrize("option", ["verify", "resilience", "rank_by",
+                                    "prove"],
                          ids=["verify", "resilience", "rank_by", "prove"])
 def test_unported_options_raise(option):
-    """Options that need analysis/ft say so instead of running half-way."""
+    """``verify=`` and ``prove=`` need the analysis slice and say so instead
+    of running half-way; ``resilience=`` and ``rank_by="effective_goodput"``
+    came with the ``ft`` slice and give the reference's ranking and scores."""
+    from repro.ft import ResilienceSpec as JaxResilienceSpec
+    from repro_torch.ft import ResilienceSpec
     spec = get("qwen3-14b").smoke
     engine, build, env, n_layers = port_engine(spec, "train", batch=8,
                                                seq=64)
-    with pytest.raises(NotImplementedError, match="not ported yet"):
-        dse.sweep(build, env, 8, PORT_TPU_V5E, n_layers=n_layers,
-                  engine=engine, **option)
+    if option in ("verify", "prove"):
+        with pytest.raises(NotImplementedError, match="analysis slice"):
+            dse.sweep(build, env, 8, PORT_TPU_V5E, n_layers=n_layers,
+                      engine=engine, **{option: True})
+        return
+    kw = dict(rank_by="effective_goodput") if option == "rank_by" else {}
+    got = dse.sweep(build, env, 8, PORT_TPU_V5E, n_layers=n_layers,
+                    name=spec.name, engine=engine,
+                    resilience=ResilienceSpec(mtbf=2e4, ckpt="parallel_fs"),
+                    **kw)
+    want = Scenario(spec).train(batch=8, seq=64).sweep(
+        8, resilience=JaxResilienceSpec(mtbf=2e4, ckpt="parallel_fs"), **kw)
+    assert len(got) > 0 and [p.label for p in got] == [p.label for p in want]
+    for p, q in zip(got, want):
+        _assert_equal_points(p, q, p.label)
+        assert dataclasses.asdict(p.resilience) \
+            == dataclasses.asdict(q.resilience), p.label
+        assert p.effective_step_time == q.effective_step_time
 
 
 def test_chrome_trace_is_not_ported_yet():
+    """``Profile.chrome_trace`` (obs/timeline.py, now ported) gives what
+    the reference's emitter makes of the same spans; the metrics snapshot
+    carries the front door's cache stats, as the reference's does."""
+    from repro import compiled_cache_stats
+    from repro.obs.timeline import profile_chrome_trace
     from repro_torch.obs import metrics, spans
     with spans.profiled() as prof:
         with spans.span("x"):
             pass
     assert prof.totals()["x"]["count"] == 1
-    with pytest.raises(NotImplementedError, match="timeline"):
-        prof.chrome_trace()
-    assert metrics.snapshot()["caches"] == {}
+    assert prof.chrome_trace() == profile_chrome_trace(prof.events)
+    assert set(metrics.snapshot()["caches"]) == set(compiled_cache_stats())

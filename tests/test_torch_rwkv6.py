@@ -185,6 +185,20 @@ def test_wkv6_property(b, h, s, d, seed):
     """Random small shapes, strong decays and a non-zero state: the port's
     wrapper against the Pallas kernel in interpret mode, with the JAX
     layer's chunk rule (one chunk when 32 does not divide S)."""
+    _check_property_case(b, h, s, d, seed)
+
+
+@pytest.mark.parametrize("b,h,s,d,seed", [(2, 3, 40, 48, 21111)])
+def test_wkv6_property_found_case(b, h, s, d, seed):
+    """A case the property test found, held at its limit: strong decays in
+    one chunk of 40.  The plain version's prefix sums of the log-decays are
+    products with a lower-triangular ones matrix, as the Pallas kernel's
+    are; a sequential ``cumsum`` rounded them elsewhere, and the factors up
+    to e^{+-80} put one output 1.09e-4 from the kernel's (limit 1.08e-4)."""
+    _check_property_case(b, h, s, d, seed)
+
+
+def _check_property_case(b, h, s, d, seed):
     chunk = 32 if s % 32 == 0 else s
     args = _wkv_inputs(seed % 10000, b, h, s, d, "strong", state=True)
     want_o, want_s = jax_wkv6_bhsd(*(to_jax(a) for a in args), chunk=chunk,

@@ -86,7 +86,9 @@ def test_serve_launcher_on_cpu(capsys):
                               "--slots", "2", "--kv-len", "64"])
     out = capsys.readouterr().out.strip().splitlines()
     assert out[-1] == "served 3/3" and len(done) == 3
-    assert [l.split(":")[0] for l in out[:-1]] == ["req 0", "req 1", "req 2"]
+    # the symbolic pre-flight line first, as the JAX package's launcher
+    assert out[0].startswith("[serve] STAGE pre-flight: qwen3-smoke/decode")
+    assert [l.split(":")[0] for l in out[1:-1]] == ["req 0", "req 1", "req 2"]
 
 
 def test_serve_launcher_needs_device_request(monkeypatch):

@@ -203,13 +203,14 @@ def test_variant_of_the_served_calls():
 def test_tile_config():
     """Chunks of at most 32 at head dims 32 and 64: one tile per chunk over
     all columns (the one-accumulator kernel); else 16 steps x 32 columns at
-    head dim 64 and 16 x 16 at the others."""
+    head dim 64 and 16 x 16 at the others (head dim 128 included)."""
     for d in (32, 64):
         for chunk in (1, 8, 32):
             assert W.tile_config(d, chunk) == (0, d)
     assert W.tile_config(64, 40) == (16, 32)
     assert W.tile_config(64, 1000) == (16, 32)
-    for d, chunk in ((16, 32), (48, 32), (32, 57), (16, 1000)):
+    for d, chunk in ((16, 32), (48, 32), (32, 57), (16, 1000), (128, 32),
+                     (128, 1)):
         assert W.tile_config(d, chunk) == (16, 16)
 
 
@@ -332,7 +333,7 @@ def test_any_dtype_and_head_dim_vs_pallas_interpret(dtype, d):
     """Every input in float16 or float64 and head dims that are no kernel
     instance: the wrapper (the plain version here) against the Pallas kernel
     in interpret mode, which pads D to 128, on the same values (1e-4).
-    D = 96 runs only on the CPU; on the card it raises (see
+    On the card D = 96 runs at the head-dim-128 instance, zero-padded (see
     ``test_zero_pad_rule``)."""
     args = [t.to(dtype) for t in _inputs(16, 2, 64, 2, d)]
     out, state = ops.wkv6(*args, chunk=32)
@@ -343,12 +344,13 @@ def test_any_dtype_and_head_dim_vs_pallas_interpret(dtype, d):
     np.testing.assert_allclose(as_f32(state), want_s, atol=TOL, rtol=TOL)
 
 
-@pytest.mark.parametrize("d", [8, 24, 40, 63])
+@pytest.mark.parametrize("d", [8, 24, 40, 63, 65, 96, 100])
 def test_zero_pad_rule(d):
     """The card runs a head dim that is no instance at the next one, the
     inputs zero-padded and w padded with 1: the plain version at the padded
     width gives the unpadded result in the first D rows and columns, and
-    zeros in the padded ones.  Above 64 the card has no instance."""
+    zeros in the padded ones.  65-127 pad to the head-dim-128 instance;
+    above 128 the card has no instance."""
     args = _inputs(17, 2, 40, 2, d)
     d_pad = W.head_dim_instance(d)
     assert d_pad == min(h for h in W.HEAD_DIMS if h >= d) > d
@@ -365,8 +367,11 @@ def test_zero_pad_rule(d):
         and not got_s[..., :, d:].any()
     for inst in W.HEAD_DIMS:
         assert W.head_dim_instance(inst) == inst
-    for big in (65, 96, 128):
-        with pytest.raises(ValueError, match="head dims up to 64"):
+    assert W.HEAD_DIMS[-1] == 128
+    for mid in (65, 96, 127):
+        assert W.head_dim_instance(mid) == 128
+    for big in (129, 256):
+        with pytest.raises(ValueError, match="head dims up to 128"):
             W.head_dim_instance(big)
 
 

@@ -80,3 +80,25 @@ def port_engine(jspec, mode, *, batch, seq, kv_len=None):
         return src.clone().graph
     n_layers = total_layers(spec)
     return CompiledBackend(build, env, n_layers=n_layers), build, env, n_layers
+
+
+def dir_bytes(path) -> dict:
+    """Every file of an export directory: {name: bytes}."""
+    import os
+    return {fn: open(os.path.join(path, fn), "rb").read()
+            for fn in sorted(os.listdir(path))}
+
+
+def both_packages(jspec):
+    """(package, spec) for the JAX package and the port: the same model in
+    each package's own ModelSpec, so one test body runs against both."""
+    import repro
+    import repro_torch
+    return ((repro, jspec), (repro_torch, port_spec(jspec)))
+
+
+def run_both(jspec, fn) -> tuple:
+    """``fn(package, spec)`` in the JAX package and in the port:
+    (reference's result, port's result)."""
+    ref, port = (fn(pkg, spec) for pkg, spec in both_packages(jspec))
+    return ref, port
