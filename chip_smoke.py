@@ -54,16 +54,33 @@ Phases, one JSON line each on standard output:
            kernel against the naive core; rwkv6 through the wkv6 kernel
            against the same parameters on the CPU (the plain version).  Same
            greedy tokens and logits within 1e-4 (fp32) / 5e-2 (float16)
+  analysis STAGE's verifier and prover on the card's sweeps (run before the
+           kernels line, after api): the sweep phase's qwen3-14b space with
+           prove=True, verify=True on the card (the space certified, one
+           STG007 diagnostic per skipped config, one cost_reduce launch per
+           class call; counts set to 0 just before and read just after), its
+           points against the same sweep without prove / verify on the card
+           and on the CPU (rel 1e-10); bnb with and without the certificates
+           (the same front and visits, candidates pruned by a certificate);
+           Trace.verify of the best point, its 64 Chakra files through
+           check_trace_dir and ``python -m repro_torch.analysis --sarif``,
+           its timeline through check_timeline_file, Job.verify of the api
+           phase's serving job, a dropped recv in a pipelined point's files
+           reported as STG101; deepseek-v2-236b at published widths swept
+           with verify=True on the card (a main path of its own, counted),
+           against the CPU (rel 1e-10) and the compiled backend (rel 1e-6)
 
 Each phase line carries the seconds since the script started.  After serve,
-sweep and api, the ``kernels`` line: every kernel with its launches on the
-main paths (cost_reduce's by path: the sweep and the api phase).  Then the line nvidia-smi gives for the card, and as the last line
-``{"ok": true, "device": {...}}``.  Any failure is an exception and a non-zero
+sweep, api and analysis, the ``kernels`` line: every kernel with its
+launches on the main paths (cost_reduce's of the sweep phase; the api and
+analysis phases report their own counts).  Then the line nvidia-smi gives
+for the card, and as the last line ``{"ok": true, "device": {...}}``.  Any failure is an exception and a non-zero
 exit code; without a CUDA device the script exits non-zero before any phase.
 """
 import argparse
 import gc
 import json
+import os
 import subprocess
 import sys
 import time
@@ -105,7 +122,7 @@ PEAK_FLOPS = {torch.bfloat16: 989e12,     # tensor cores
 TOL = {torch.float32: dict(absolute=2e-5, rms_share=0.0, relative=2e-5),
        torch.bfloat16: dict(absolute=0.0, rms_share=1e-2, relative=2.0 ** -7)}
 
-PHASES = ("build", "kernels", "serve", "sweep", "api", "parity")
+PHASES = ("build", "kernels", "serve", "sweep", "api", "parity", "analysis")
 # the kernels' wrapper modules, each with its launch count, and their sources
 COUNTERS = {"flash_attention": fa, "wkv6": wkv, "cost_reduce": cr}
 SOURCES = {"flash_attention": "src/repro_torch/kernels/csrc/flash_attention.cu",
@@ -498,6 +515,16 @@ WKV_CASES = [
     dict(name="d96", B=1, S=96, N=4, D=96, chunk=32),
     dict(name="decode-d128-bf16", B=4, S=1, N=8, D=128, chunk=1, state=True,
          in_place=True, dtype=torch.bfloat16),
+    # head dims above 128: padded to a multiple of 128, the m x m blocks of
+    # D = 128 as heads of one launch of the D = 128 instance
+    dict(name="d192", B=1, S=128, N=4, D=192, chunk=32, state=True),
+    dict(name="d192-bf16", B=1, S=128, N=4, D=192, chunk=32, state=True,
+         dtype=torch.bfloat16),
+    dict(name="d256", B=2, S=256, N=4, D=256, chunk=32, state=True),
+    dict(name="d256-bf16", B=2, S=256, N=4, D=256, chunk=32, state=True,
+         dtype=torch.bfloat16),
+    dict(name="decode-d256-bf16", B=4, S=1, N=4, D=256, chunk=1, state=True,
+         in_place=True, dtype=torch.bfloat16),
     # the state carried across two calls
     dict(name="carry-two-calls", B=2, S=256, N=8, D=64, chunk=32, state=True,
          split=128),
@@ -615,7 +642,10 @@ def check_wkv_case(case, seed: int) -> dict:
     row = {
         "shape": name, "main_path": bool(case.get("main")),
         "variant": variant,
-        "tile": list(wkv.tile_config(D, C)) if variant == "tiled" else None,
+        "tile": list(wkv.tile_config(wkv.head_dim_instance(D), C))
+        if variant == "tiled" else None,
+        "instance": wkv.head_dim_instance(D),
+        "blocks": wkv.head_dim_blocks(D) ** 2 if D > wkv.BLOCK else 1,
         "B": B, "S": S, "N": N, "D": D, "chunk": C, "calls": calls,
         "dtype": str(r.dtype)[6:],
         "max_abs_err": max(err.max().item(), err_s.max().item()),
@@ -650,7 +680,9 @@ def check_wkv_case(case, seed: int) -> dict:
 # 4; 3 configs at pp = 2, 2G = 12).  The api phase's two main paths make the
 # same kind of call at other sizes: its train sweep's largest batch and
 # longest table, and its serving sweep's prefill tables (one config, K of
-# 765-1371 slots, 2G up to 24).  Then the compute rows alone at B = 64
+# 765-1371 slots, 2G up to 24).  The analysis phase's deepseek-v2-236b sweep
+# makes longer ones (K of 9 339-16 002, B up to 6, 2G up to 48): its largest
+# batch at each 2G.  Then the compute rows alone at B = 64
 # (half the slots in no row), a large batch, fp32, a strided view, a half x,
 # more than one e-tile, the reference's four shapes (tests/test_kernels.py)
 # in fp32 and fp64, and integer counts.
@@ -663,7 +695,9 @@ COST_CASES = [
                             ("api", 9, 4, 4952), ("api", 1, 4, 6157),
                             ("api", 3, 12, 5839), ("serving", 1, 4, 765),
                             ("serving", 1, 12, 1209),
-                            ("serving", 1, 24, 768))],
+                            ("serving", 1, 24, 768), ("dsv2", 6, 4, 15870),
+                            ("dsv2", 4, 12, 13711), ("dsv2", 2, 24, 15994),
+                            ("dsv2", 1, 48, 16002))],
     dict(name="path-pp1", B=64, E=2, T=4189, dtype=F64, rows="membership"),
     dict(name="path-pp2", B=64, E=6, T=4191, dtype=F64, rows="membership"),
     dict(name="large-1024x12x4191", B=1024, E=12, T=4191, dtype=F64,
@@ -1561,6 +1595,284 @@ def phase_api(kernels: list) -> dict:
 
 
 # ---------------------------------------------------------------------------
+# analysis: STAGE's verifier and prover on the card's sweeps
+# ---------------------------------------------------------------------------
+
+# the sweep phase's space (so its cost_reduce shapes are rows of the kernels
+# phase), proved and verified; then a demanding arch the port names since
+# the analysis slice: deepseek-v2-236b (MoE + MLA; arXiv:2405.04434) at its
+# published widths, 8 microbatches, pp <= 8
+ANALYSIS = dict(arch="qwen3-14b", batch=256, seq=4096, world=64,
+                enum=SWEEP["enum"],
+                demanding=dict(arch="deepseek-v2-236b",
+                               widths=(60, 5120, 12288, 102400),
+                               enum=dict(microbatches=(8,), max_pp=8)))
+
+
+def _same_ranking(points, reference, rel: float) -> float:
+    """The largest error of ``points`` against ``reference`` (by label, as
+    ``_worst``), after requiring the same labels and the same order up to
+    ties: at each rank the two step times agree within ``rel``."""
+    by_label = {p.label: p for p in reference}
+    require(len(points) == len(reference) > 0
+            and sorted(by_label) == sorted(p.label for p in points),
+            "the two sweeps differ in points")
+    for p, q in zip(points, reference):
+        require(p.label == q.label or abs(p.sim.step_time - q.sim.step_time)
+                <= rel * q.sim.step_time,
+                f"the two sweeps rank otherwise: {p.label} / {q.label}")
+    return _worst(points, by_label)
+
+
+def _timed(module, name: str, seconds: dict, key: str):
+    """Replace ``module.name`` by a wrapper that adds its host seconds to
+    ``seconds[key]``; returns the original."""
+    fn = getattr(module, name)
+
+    def wrapper(*args, **kw):
+        t0 = time.perf_counter()
+        out = fn(*args, **kw)
+        seconds[key] = seconds.get(key, 0.0) + time.perf_counter() - t0
+        return out
+    setattr(module, name, wrapper)
+    return fn
+
+
+def _drop_recv(src: Path, dst: Path) -> tuple:
+    """Copy the rank files of ``src`` to ``dst`` with the first
+    COMM_RECV_NODE of the first rank file that has one deleted."""
+    dst.mkdir()
+    victim = None
+    for f in sorted(src.iterdir()):
+        data = f.read_bytes()
+        if victim is None and f.name.startswith("rank"):
+            t = json.loads(data)
+            recvs = [i for i, n in enumerate(t["nodes"])
+                     if n["type"] == "COMM_RECV_NODE"]
+            if recvs:
+                victim = (f.name, t["nodes"][recvs[0]]["name"])
+                del t["nodes"][recvs[0]]
+                data = json.dumps(t).encode()
+        (dst / f.name).write_bytes(data)
+    require(victim is not None, f"no COMM_RECV_NODE in {src}")
+    return victim
+
+
+def _batched_stats(scenario) -> dict:
+    """The process-wide batched engine of ``scenario`` on the card: its
+    cumulative points and class calls (an earlier phase may have used it)."""
+    from repro_torch.api import _batched_engines
+    st = _batched_engines.engine(scenario.spec, scenario.mode, scenario.env(),
+                                 DEV).stats()
+    return {"points": st["points"], "calls": len(st["batch_sizes"])}
+
+
+def phase_analysis(kernels: list) -> dict:
+    import tempfile
+    from repro_torch import H100_HGX, Job, Scenario
+    from repro_torch.analysis import check_timeline_file, check_trace_dir
+    from repro_torch.analysis import prover
+    from repro_torch.obs import metrics
+    spec = get_arch(ANALYSIS["arch"]).spec
+    require((spec.n_layers, spec.d_model, spec.d_ff, spec.vocab)
+            == SERVED[ANALYSIS["arch"]]["widths"],
+            "not the published qwen3-14b")
+    world, enum = ANALYSIS["world"], ANALYSIS["enum"]
+    base = Scenario(spec).train(batch=ANALYSIS["batch"], seq=ANALYSIS["seq"])
+    sc = base.with_backend("batched")
+    seconds: dict = {}
+
+    # ---- 1. the sweep, proved and verified on the card: the main path,
+    # every launch count at 0 just before and read just after ----
+    prove_space = _timed(prover, "prove_space", seconds, "prove")
+    before = _batched_stats(sc)
+    reset_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    res = sc.sweep(world, H100_HGX, prove=True, verify=True, device="cuda",
+                   **enum)
+    torch.cuda.synchronize()
+    seconds["sweep_prove_verify"] = time.perf_counter() - t0
+    prover.prove_space = prove_space
+    counts = {k: module.launches for k, module in COUNTERS.items()}
+    after = _batched_stats(sc)
+    calls = after["calls"] - before["calls"]
+    cert = res.certificates
+    require(cert is not None and cert.ok
+            and "all invariants certified" in cert.summary(),
+            f"the space did not certify: {cert and cert.report.render()}")
+    require(res.backend == "batched"
+            and after["points"] - before["points"] == len(res),
+            "a point went to the compiled path")
+    require(counts["cost_reduce"] == calls > 0,
+            f"cost_reduce launched {counts['cost_reduce']} times for {calls} "
+            f"class calls (want 1 each)")
+    require(all(n == 0 for k, n in counts.items() if k != "cost_reduce"),
+            f"the sweep launched a model's kernel: {counts}")
+    require(res.skipped and all(
+        len(sk.diagnostics) == 1 and sk.diagnostics[0].code == "STG007"
+        for sk in res.skipped),
+        "a skipped config does not carry exactly one STG007 diagnostic")
+    entry = next(k for k in kernels if k["name"] == "cost_reduce")
+    if entry["launches"] == 0:                # the sweep phase did not run
+        entry["launches"] = counts["cost_reduce"]
+
+    # the same points without prove / verify on the card, and on the CPU
+    t0 = time.perf_counter()
+    plain = sc.sweep(world, H100_HGX, device="cuda", **enum)
+    seconds["card_check"] = time.perf_counter() - t0
+    worst_card = _same_ranking(res, plain, CARD_VS_CPU_REL)
+    t0 = time.perf_counter()
+    cpu = sc.sweep(world, H100_HGX, device="cpu", **enum)
+    seconds["cpu_check"] = time.perf_counter() - t0
+    worst_cpu = _same_ranking(res, cpu, CARD_VS_CPU_REL)
+    require(worst_card <= CARD_VS_CPU_REL and worst_cpu <= CARD_VS_CPU_REL,
+            f"proved sweep vs unproved {worst_card:.3e}, vs cpu "
+            f"{worst_cpu:.3e} > {CARD_VS_CPU_REL}")
+
+    # ---- 2. branch and bound with and without the certificates ----
+    pruned = metrics.counter("dse.bnb_cert_pruned")
+    t0 = time.perf_counter()
+    bnb = sc.sweep(world, H100_HGX, search="bnb", device="cuda", **enum)
+    before = pruned.value
+    bnb_proved = sc.sweep(world, H100_HGX, search="bnb", prove=True,
+                          device="cuda", **enum)
+    cert_pruned = pruned.value - before
+    seconds["bnb"] = time.perf_counter() - t0
+    require(bnb_proved.certificates.ok and bnb_proved.visited == bnb.visited
+            and [p.label for p in bnb_proved] == [p.label for p in bnb]
+            and [p.sim.step_time for p in bnb_proved]
+            == [p.sim.step_time for p in bnb],
+            "bnb with certificates: another front or another visit count")
+    require(cert_pruned > 0, "no candidate was pruned by a certificate")
+
+    # ---- 3. the verifier on files the card's best points produced ----
+    t0 = time.perf_counter()
+    best = res[0]
+    tr = base.with_cfg(best.cfg).trace()
+    rep = tr.verify(include_graph=True, chakra=True)
+    require(rep.ok and not rep.diagnostics, rep.render())
+    piped = next(p for p in res if p.cfg.pp > 1)
+    job = Job.request(prefill=Scenario(spec).prefill(
+        batch=API["serve"]["batch"], seq=API["serve"]["seq"]),
+        decode_steps=API["serve"]["decode_steps"])
+    job_rep = job.verify(deep=True)
+    require(job_rep.ok and not job_rep.diagnostics, job_rep.render())
+    with tempfile.TemporaryDirectory() as tmp:
+        tmp = Path(tmp)
+        n_files = tr.export_chakra(str(tmp / "best"))
+        dir_rep = check_trace_dir(str(tmp / "best"))
+        require(n_files == world and dir_rep.ok and not dir_rep.diagnostics,
+                dir_rep.render())
+        tr.timeline(str(tmp / "timeline.json"), H100_HGX)
+        tl_rep = check_timeline_file(str(tmp / "timeline.json"))
+        require(tl_rep.ok and not tl_rep.diagnostics, tl_rep.render())
+        cli = subprocess.run(
+            [sys.executable, "-m", "repro_torch.analysis", str(tmp / "best"),
+             "--sarif", str(tmp / "out.sarif")],
+            cwd=ROOT, env={**os.environ, "PYTHONPATH": str(ROOT / "src")},
+            capture_output=True, text=True, timeout=300)
+        require(cli.returncode == 0, f"python -m repro_torch.analysis exited "
+                f"{cli.returncode}: {cli.stdout[-500:]} {cli.stderr[-500:]}")
+        sarif = json.loads((tmp / "out.sarif").read_text())
+        run = sarif["runs"][0]
+        require(run["tool"]["driver"]["name"] == "repro_torch.analysis"
+                and not [r for r in run["results"] if r["level"] == "error"],
+                "the SARIF log holds error-level results")
+        # a seeded fault in the files of a pipelined point
+        base.with_cfg(piped.cfg).trace().export_chakra(str(tmp / "piped"))
+        clean = check_trace_dir(str(tmp / "piped"))
+        require(clean.ok and not clean.diagnostics, clean.render())
+        victim = _drop_recv(tmp / "piped", tmp / "fault")
+        fault = check_trace_dir(str(tmp / "fault"))
+        require("STG101" in fault.codes() and not fault.ok,
+                f"a dropped recv ({victim}) was not reported: "
+                f"{fault.render()}")
+    seconds["verify"] = time.perf_counter() - t0
+
+    # ---- 4. deepseek-v2-236b at published widths, verified on the card:
+    # a main path of its own ----
+    dem = ANALYSIS["demanding"]
+    dspec = get_arch(dem["arch"]).spec
+    require((dspec.n_layers, dspec.d_model, dspec.d_ff, dspec.vocab)
+            == dem["widths"] and dspec.mla is not None
+            and dspec.moe is not None, "not the published deepseek-v2-236b")
+    dbase = Scenario(dspec).train(batch=ANALYSIS["batch"],
+                                  seq=ANALYSIS["seq"])
+    dsc = dbase.with_backend("batched")
+    before = _batched_stats(dsc)
+    reset_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    dres = dsc.sweep(world, H100_HGX, verify=True, device="cuda",
+                     **dem["enum"])
+    torch.cuda.synchronize()
+    seconds["deepseek_sweep"] = time.perf_counter() - t0
+    dcounts = {k: module.launches for k, module in COUNTERS.items()}
+    after = _batched_stats(dsc)
+    dcalls = after["calls"] - before["calls"]
+    require(after["points"] - before["points"] == len(dres) > 0,
+            "deepseek-v2: a point went to the compiled path")
+    require(dcounts["cost_reduce"] == dcalls > 0
+            and all(n == 0 for k, n in dcounts.items() if k != "cost_reduce"),
+            f"deepseek-v2: launches {dcounts} for {dcalls} class calls")
+    require(all(len(sk.diagnostics) == 1
+                and sk.diagnostics[0].code == "STG007"
+                for sk in dres.skipped),
+            "deepseek-v2: a skipped config without its STG007 diagnostic")
+    t0 = time.perf_counter()
+    dcpu = dsc.sweep(world, H100_HGX, device="cpu", **dem["enum"])
+    seconds["deepseek_cpu_check"] = time.perf_counter() - t0
+    dworst_cpu = _same_ranking(dres, dcpu, CARD_VS_CPU_REL)
+    t0 = time.perf_counter()
+    dcomp = dbase.sweep(world, H100_HGX, **dem["enum"])
+    seconds["deepseek_compiled_check"] = time.perf_counter() - t0
+    dworst_comp = _same_ranking(dres, dcomp, SWEEP_REL)
+    require(dworst_cpu <= CARD_VS_CPU_REL and dworst_comp <= SWEEP_REL,
+            f"deepseek-v2: card vs cpu {dworst_cpu:.3e}, vs compiled "
+            f"{dworst_comp:.3e}")
+    for p in dres:
+        require(np.isfinite([p.sim.step_time, p.mem.peak_bytes]).all()
+                and p.sim.step_time > 0, f"{p.label}: not a finite step")
+
+    return {
+        "model": spec.name, "layers": spec.n_layers,
+        "batch": ANALYSIS["batch"],
+        "seq": ANALYSIS["seq"], "world": world, "hw": H100_HGX.name,
+        "enumerate": {k: list(v) if isinstance(v, tuple) else v
+                      for k, v in enum.items()},
+        "seconds": seconds,
+        "points": len(res), "skipped": len(res.skipped),
+        "skipped_with_stg007": len(res.skipped),
+        "structure_classes": res.engine_stats["classes"],
+        "class_calls": calls, "launches": counts,
+        "certificate": cert.summary(),
+        "certified_classes": len(cert.classes),
+        "lattice_points": cert.lattice_points,
+        "vs_unproved_card_worst": worst_card, "card_vs_cpu_worst": worst_cpu,
+        "card_vs_cpu_rel": CARD_VS_CPU_REL,
+        "bnb": {"points": len(bnb), "visited": bnb.visited,
+                "total": bnb.total, "cert_pruned": cert_pruned},
+        "verify": {"best": best.label, "trace_checked": dict(rep.checked),
+                   "job": job.describe(), "job_checked": dict(job_rep.checked),
+                   "chakra_files": n_files, "sarif_results":
+                   len(run["results"]), "seeded_fault": {
+                       "point": piped.label, "dropped_recv": list(victim),
+                       "codes": sorted(fault.codes())}},
+        "deepseek_v2": {
+            "model": dspec.name, "layers": dspec.n_layers,
+            "enumerate": {k: list(v) if isinstance(v, tuple) else v
+                          for k, v in dem["enum"].items()},
+            "points": len(dres), "skipped": len(dres.skipped),
+            "structure_classes": dres.engine_stats["classes"],
+            "class_calls": dcalls, "launches": dcounts,
+            "card_vs_cpu_worst": dworst_cpu,
+            "vs_compiled_worst": dworst_comp, "vs_compiled_rel": SWEEP_REL,
+            "best": {"label": dres[0].label, "step_ms": dres[0].step_ms}},
+    }
+
+
+# ---------------------------------------------------------------------------
 # parity: the kernel inside the model against the naive core
 # ---------------------------------------------------------------------------
 
@@ -1698,11 +2010,12 @@ def main(argv=None) -> int:
                 sys.stderr.write(f"---- ptxas: {name} ----\n{log}\n")
     if "kernels" in phases:
         kernels = phase_kernels()
-        if not {"serve", "sweep", "api"} & set(phases):
+        if not {"serve", "sweep", "api", "analysis"} & set(phases):
             print(json.dumps({"kernels": kernels}), flush=True)
-    main_paths = {"serve", "sweep", "api"} & set(phases)
+    main_paths = {"serve", "sweep", "api", "analysis"} & set(phases)
     if main_paths and not kernels:
-        ap.error("the serve, sweep and api phases need the kernels phase")
+        ap.error("the serve, sweep, api and analysis phases need the kernels "
+                 "phase")
     if "serve" in phases:
         for name in SERVED:
             emit("serve", **phase_serve(name, kernels,
@@ -1713,11 +2026,13 @@ def main(argv=None) -> int:
         emit("sweep", **phase_sweep(kernels, with_profile=args.profile))
     if "api" in phases:
         emit("api", **phase_api(kernels))
+    if "analysis" in phases:
+        emit("analysis", **phase_analysis(kernels))
     if main_paths:
         # ``launches`` is the count of each kernel's first main path (the
-        # api phase requires and reports its own two counts)
+        # api and analysis phases require and report their own counts)
         ran = {"flash_attention": "serve", "wkv6": "serve",
-               "cost_reduce": "sweep"}
+               "cost_reduce": "sweep" if "sweep" in phases else "analysis"}
         for k in kernels:
             if ran[k["name"]] in phases:
                 require(k["launches"] > 0,

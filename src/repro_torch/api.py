@@ -39,10 +39,7 @@ one symbolic assembly per mode for the whole sweep (Fig 8/13 hot path).
 
 Own copy of ``repro.api``.  ``backend="batched"`` sweeps run on the card
 (``device``: the CUDA device unless the caller passes ``"cpu"``) through the
-``cost_reduce`` kernel.  :meth:`Scenario.prove`, :meth:`Trace.verify`,
-:meth:`Job.verify` and the sweeps' ``verify=`` / ``prove=`` need
-``repro_torch.analysis``, which comes with the port's analysis slice: until
-then they raise :class:`NotImplementedError`.
+``cost_reduce`` kernel.
 """
 from __future__ import annotations
 
@@ -57,7 +54,7 @@ from .core.chakra import export_ranks, export_stage
 from .core.compiled import CompiledBackend
 from .core.costmodel import HardwareProfile, TPU_V5E
 from .core.distribute import DistReport, ParallelCfg, distribute
-from .core.dse import _NOT_PORTED, DSEPoint, SweepResult
+from .core.dse import DSEPoint, SweepResult
 from .core.dse import sweep as dse_sweep
 from .core.graphdist import PipelinePlan, apply_pipeline
 from .core.instantiate import Workload, instantiate
@@ -657,9 +654,11 @@ class Scenario:
         same exact front by branch-and-bound over the config lattice,
         visiting a small fraction of it (``SweepResult.visited``).
 
-        ``prove=True`` (certify the whole swept space first, see
-        :meth:`prove`) raises :class:`NotImplementedError` until the
-        analysis slice is ported."""
+        ``prove=True`` statically certifies the whole swept space first
+        (see :meth:`prove`), attaches the
+        :class:`~repro_torch.analysis.prover.SpaceCertificate` to
+        ``SweepResult.certificates``, and lets ``search="bnb"`` prune
+        memory-certified classes without evaluating the memory model."""
         env = self.env()
         hw = self._effective_hw(hw)
         if resilience is None:
@@ -717,9 +716,15 @@ class Scenario:
         and placement dimensions are stripped — guards never see them,
         so the certificate covers every choice of those for free.
         Returns a :class:`~repro_torch.analysis.prover.SpaceCertificate`
-        (``.ok``, ``.summary()``, ``.report``) once the analysis slice is
-        ported; until then it raises :class:`NotImplementedError`."""
-        raise NotImplementedError(_NOT_PORTED.format("Scenario.prove"))
+        (``.ok``, ``.summary()``, ``.report``)."""
+        from .analysis.prover import prove_space
+        env = self.env()
+        hw = self._effective_hw(hw or TPU_V5E)
+        engine = _engines.engine(self.spec, self.mode, env)
+        with _span("scenario.prove", spec=self.spec.name, world=world):
+            return prove_space(engine, world=world, hw=hw,
+                               recompute=recompute, name=self.spec.name,
+                               retrace=retrace, **enum_kw)
 
     def _sweep_processes(self, world: int, hw: HardwareProfile, env: Env,
                          workers: int, *, mem_limit_gb, recompute,
@@ -1173,9 +1178,22 @@ class Trace:
         when it is already materialized — forcing ``.graph`` on a
         compiled-backend trace would run the sympy distribute pass this
         backend exists to avoid; pass ``include_graph=True`` to force
-        it.  Raises :class:`NotImplementedError` until the analysis slice
-        is ported."""
-        raise NotImplementedError(_NOT_PORTED.format("Trace.verify"))
+        it.  The pass suite is pure traversal, far below export cost."""
+        from .analysis import (check_comm, check_trace,
+                               check_workload_schedule, lint_graph)
+        from .analysis.diagnostics import Report
+        w = self.workload
+        rep = Report(name=self.scenario.describe())
+        if include_graph or (include_graph is None
+                             and self._graph is not None):
+            rep.extend(lint_graph(self.graph, self.env))
+        rep.extend(check_comm(w))
+        rep.extend(check_workload_schedule(w))
+        if chakra:
+            for s in range(w.stages):
+                rep.extend(check_trace(self.chakra_stage(s), rank=None,
+                                       name=f"stage{s}"))
+        return rep
 
     # ---- one-line report (launch pre-flight) ----------------------------
     def summary(self, hw: HardwareProfile = TPU_V5E, *,
@@ -1684,10 +1702,26 @@ class Job:
         + schedule checks, and with ``deep=True`` (default) the job is
         additionally exported to a temporary directory and its per-rank
         Chakra traces validated — including kv-transfer send/recv
-        matching across disaggregated pools and SPMD rank agreement.
-        Raises :class:`NotImplementedError` until the analysis slice is
-        ported."""
-        raise NotImplementedError(_NOT_PORTED.format("Job.verify"))
+        matching across disaggregated pools and SPMD rank agreement."""
+        import tempfile
+
+        from .analysis import check_trace_dir, verify_workload
+        from .analysis.diagnostics import Report
+        rep = Report(name=self.describe())
+        for ph in self.phases:
+            sc = ph.scenario
+            if ph.kv_growth:
+                series = _series_for(sc, ph.steps)
+                w = series.step_workload(
+                    0, name=f"{sc.spec.name}/{ph.name or sc.mode}")
+                rep.extend(verify_workload(w))
+            else:
+                rep.extend(sc.trace().verify())
+        if deep:
+            with tempfile.TemporaryDirectory() as d:
+                self.export_chakra(d)
+                rep.extend(check_trace_dir(d, name="export"))
+        return rep
 
 
 def _series_for(sc: Scenario, steps: int) -> DecodeSeries:

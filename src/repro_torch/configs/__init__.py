@@ -1,3 +1,4 @@
-from .base import ARCHS, PORTED, Arch, get
+from .base import (ARCHS, PORTED, SHAPES, Arch, ShapeSpec, all_archs, get)
 
-__all__ = ["ARCHS", "PORTED", "Arch", "get"]
+__all__ = ["ARCHS", "PORTED", "SHAPES", "Arch", "ShapeSpec", "all_archs",
+           "get"]

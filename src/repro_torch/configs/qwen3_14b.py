@@ -8,4 +8,7 @@ SPEC = ModelSpec(name="qwen3-14b", n_layers=40, d_model=5120, n_heads=40,
                  qk_norm=True)
 SMOKE = ModelSpec(name="qwen3-smoke", n_layers=3, d_model=128, n_heads=8,
                   n_kv_heads=2, d_ff=256, vocab=512, d_head=16, qk_norm=True)
+# kv=8 / groups=5 don't divide the 16-way model axis: attention weights
+# fall back to data(FSDP) sharding; MLP/vocab shard over model (DESIGN.md).
 RUNTIME = RuntimeCfg()
+SKIP = {}

@@ -10,3 +10,4 @@ SMOKE = ModelSpec(name="rwkv6-smoke", n_layers=3, d_model=128, n_heads=4,
                   n_kv_heads=4, d_ff=448, vocab=512, d_head=32,
                   block="rwkv6", rwkv_decay_rank=16)
 RUNTIME = RuntimeCfg()
+SKIP = {}   # long_500k: O(1) recurrent state, no KV cache at all

@@ -31,9 +31,7 @@ assembly per mode; the callable-based :func:`sweep` stays public for
 callers that need a custom ``build`` (a plain
 ``lambda: build_graph(spec).graph`` re-assembles per point).
 
-Own copy of ``repro.core.dse``.  ``verify=True`` and ``prove=True`` need
-``repro_torch.analysis``, which comes with the port's analysis slice: until
-then they raise :class:`NotImplementedError`.
+Own copy of ``repro.core.dse``; ``backend="batched"`` runs on ``device``.
 """
 from __future__ import annotations
 
@@ -59,9 +57,6 @@ from .symbolic import Env, sym
 from .topology import normalize_placement
 
 _log = get_logger("core.dse")
-
-_NOT_PORTED = ("{} needs repro_torch.analysis, which is not ported yet: it "
-               "comes with the port's analysis slice (ROADMAP.md queue 1)")
 
 
 class _Progress:
@@ -441,7 +436,11 @@ def _skip(cfg: ParallelCfg, exc: BaseException, *, prefiltered: bool = False,
     sk = SkippedConfig(cfg, f"{type(exc).__name__}: {exc}",
                        prefiltered=prefiltered)
     if verify:
-        raise NotImplementedError(_NOT_PORTED.format("verify=True"))
+        from ..analysis.diagnostics import INFEASIBLE_CONFIG, Report
+        rep = Report()
+        rep.add(INFEASIBLE_CONFIG, str(exc), node=cfg.describe(),
+                fixit="adjust microbatches / schedule to fit the workload")
+        sk.diagnostics = rep.diagnostics
     return sk
 
 
@@ -859,9 +858,9 @@ def sweep(build: Callable[[], tuple], env: Env, world: int,
     Configs that fail the cheap workload-shape feasibility check are
     pruned *before* dispatch (never hitting the executor) and recorded
     on ``SweepResult.skipped`` with ``prefiltered=True``;
-    ``SweepResult.pruned`` tallies why.  ``verify=True`` (structured
-    diagnostics on every skipped config) needs ``repro_torch.analysis`` and
-    raises :class:`NotImplementedError` until its slice is ported.
+    ``SweepResult.pruned`` tallies why.  ``verify=True`` additionally
+    attaches structured :class:`repro_torch.analysis.Diagnostic` records to
+    every skipped config.
 
     ``resilience`` (a :class:`repro_torch.ft.ResilienceSpec`) scores every
     feasible point's goodput under failures; ``rank_by=
@@ -871,9 +870,13 @@ def sweep(build: Callable[[], tuple], env: Env, world: int,
     disagree.  With the default ``rank_by="step_time"`` and no spec the
     sweep is bit-identical to before.
 
-    ``prove=True`` (the symbolic invariant prover over every structure
-    class, ``repro_torch.analysis.prover``) raises
-    :class:`NotImplementedError` until the analysis slice is ported.
+    ``prove=True`` runs the symbolic invariant prover
+    (:func:`repro_torch.analysis.prover.prove_space`) over every structure
+    class the enumeration touches *before* evaluating anything, attaches
+    the resulting :class:`~repro_torch.analysis.prover.SpaceCertificate` to
+    ``SweepResult.certificates``, and — under ``search="bnb"`` — feeds
+    the memory-monotonicity certificates to the search so provably
+    dominated candidates are pruned without consulting the memory model.
     """
     if backend not in ("compiled", "sympy", "batched"):
         raise ValueError(
@@ -888,9 +891,6 @@ def sweep(build: Callable[[], tuple], env: Env, world: int,
     if rank_by == "effective_goodput" and resilience is None:
         raise ValueError(
             "rank_by='effective_goodput' requires resilience=ResilienceSpec")
-    for asked, what in ((verify, "verify=True"), (prove, "prove=True")):
-        if asked:
-            raise NotImplementedError(_NOT_PORTED.format(what))
     cfgs = list(enumerate_configs(world, **enum_kw))
     bengine = None
     if backend == "batched":
@@ -905,6 +905,14 @@ def sweep(build: Callable[[], tuple], env: Env, world: int,
         engine = CompiledBackend(build, env, n_layers=n_layers)
 
     certs = None
+    if prove:
+        # The prover reads lowered tables, so proving a sympy sweep
+        # still compiles each structure class once (evaluation itself
+        # stays on the sympy path — `engine` is left None there).
+        pengine = engine or CompiledBackend(build, env, n_layers=n_layers)
+        from ..analysis.prover import prove_space
+        certs = prove_space(pengine, cfgs=cfgs, hw=hw, recompute=recompute,
+                            name=name)
 
     # cheap pre-dispatch feasibility pass: infeasible factorizations are
     # counted and skipped-with-reason without consuming executor slots

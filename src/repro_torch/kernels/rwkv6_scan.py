@@ -17,9 +17,15 @@ Model layout throughout: ``r/k/v/w [B, S, N, D]``, ``u [N, D]``,
 load: the kernels read r, k and v as float32 or bfloat16 (others are cast to
 float32 first), w, u and the state as float32, and write a float32 output.
 On the card the kernels have head dims ``HEAD_DIMS``; a smaller D is
-zero-padded up to the next (``pad_head_dim``, exact), a D above 128 raises
-(the TPU kernel pads any D to a multiple of 128; this port has no instance
-above 128).
+zero-padded up to the next (``pad_head_dim``, exact).  A D above 128 is
+zero-padded to a multiple of 128, as the TPU kernel pads it, and runs on the
+D = 128 instances: the recurrence separates by key row (a row of the state
+sees only its own k and w, and every output term is a sum over key rows), so
+each of the m x m (row block, column block) pairs of the padded D is a D =
+128 problem of its own.  ``fold_head_blocks`` makes the pairs heads of one
+launch; ``unfold_head_blocks`` adds the partial outputs over the row blocks
+in a fixed order and puts the state blocks back (``wkv6_blocked_plain`` is
+the same decomposition around the plain version).
 On the CPU the plain version takes any D.  ``wkv6_bhsd`` takes the
 ``[B, N, S, D]`` layout of the TPU kernel and hands the same memory to the
 same kernels by strides.
@@ -44,6 +50,7 @@ launches = 0
 launches_by_variant = {"decode": 0, "tiled": 0}
 
 HEAD_DIMS = (16, 32, 48, 64, 128)   # the kernels' instances
+BLOCK = HEAD_DIMS[-1]               # a wider D runs in blocks of this
 INPUT_DTYPES = (torch.float32, torch.bfloat16)   # of r, k, v
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 _VARIANT_CODE = {"decode": 0, "tiled": 1}
@@ -217,14 +224,82 @@ def _kernel_dtypes(r, k, v, w, u, state0) -> tuple:
 def head_dim_instance(d: int) -> int:
     """The head dim of the kernel instance a CUDA call of head dim ``d``
     runs at: the smallest of ``HEAD_DIMS`` that holds it (the inputs are
-    zero-padded up to it by ``pad_head_dim``)."""
-    for inst in HEAD_DIMS:
-        if inst >= d:
-            return inst
-    raise ValueError(f"the wkv6 kernels take head dims up to "
-                     f"{HEAD_DIMS[-1]}, got {d}: no kernel instance holds "
-                     f"a wider [D, D] state (the plain version on the CPU "
-                     f"takes any D)")
+    zero-padded up to it by ``pad_head_dim``); for a D above 128 the D = 128
+    instance, run on the ``head_dim_blocks(d)`` x ``head_dim_blocks(d)``
+    blocks of D zero-padded to a multiple of 128."""
+    return next((inst for inst in HEAD_DIMS if inst >= d), BLOCK)
+
+
+def head_dim_blocks(d: int) -> int:
+    """m: the row (and column) blocks of 128 a head dim ``d`` runs in on the
+    card, 1 up to 128."""
+    return -(-d // BLOCK)
+
+
+def fold_head_blocks(r, k, v, w, u, state0, m: int) -> tuple:
+    """r/k/v/w [B,S,N,m·128], u [N,m·128], state0 [B,N,m·128,m·128] -> the
+    same problem as N·m·m heads of D = 128, head (n, i, j) in that order:
+    r, k, w and u of key-row block i, v of value-column block j, and the
+    state block (i, j).  Contiguous copies (r, k, w, u m times over, v and
+    the state once)."""
+    b, s, n, _ = r.shape
+    blk = BLOCK
+
+    def rows(t):                    # [B,S,N,m·blk] -> [B,S,N·m·m,blk], by i
+        t = t.reshape(b, s, n, m, 1, blk).expand(b, s, n, m, m, blk)
+        return t.reshape(b, s, n * m * m, blk)
+
+    def cols(t):                    # [B,S,N,m·blk] -> [B,S,N·m·m,blk], by j
+        t = t.reshape(b, s, n, 1, m, blk).expand(b, s, n, m, m, blk)
+        return t.reshape(b, s, n * m * m, blk)
+    u_f = u.reshape(n, m, 1, blk).expand(n, m, m, blk).reshape(n * m * m, blk)
+    state_f = state0.reshape(b, n, m, blk, m, blk).permute(0, 1, 2, 4, 3, 5)
+    state_f = state_f.reshape(b, n * m * m, blk, blk)
+    return rows(r), rows(k), cols(v), rows(w), u_f, state_f
+
+
+def unfold_head_blocks(out_f: torch.Tensor, state_f: torch.Tensor,
+                       m: int) -> tuple:
+    """The inverse of ``fold_head_blocks`` for the results: out_f
+    [B,S,N·m·m,128] -> out [B,S,N,m·128], the partial outputs of the row
+    blocks i added in the order i = 0, 1, ..., m-1 for every column block;
+    state_f [B,N·m·m,128,128] -> state [B,N,m·128,m·128]."""
+    b, s = out_f.shape[:2]
+    n = out_f.shape[2] // (m * m)
+    blk = BLOCK
+    parts = out_f.reshape(b, s, n, m, m, blk)
+    out = parts[:, :, :, 0]
+    for i in range(1, m):
+        out = out + parts[:, :, :, i]
+    state = state_f.reshape(b, n, m, m, blk, blk).permute(0, 1, 2, 4, 3, 5)
+    state = state.reshape(b, n, m * blk, m * blk)
+    return out.reshape(b, s, n, m * blk), state
+
+
+def wkv6_blocked_plain(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                       w: torch.Tensor, u: torch.Tensor,
+                       state0: torch.Tensor, *, chunk: int,
+                       dtype: torch.dtype = torch.float32) -> tuple:
+    """What a CUDA call of head dim D > 128 computes, around the plain
+    version in place of the kernel: D zero-padded to m·128, the m x m blocks
+    folded into heads, ``wkv6_plain`` (``_chunk_plain`` chunk by chunk) on
+    them, the partial outputs added over the row blocks in a fixed order and
+    the state blocks put back, cut to D.  The same function as
+    ``wkv6_plain``; any D."""
+    return _blocked(*(t.to(dtype) for t in (r, k, v, w, u, state0)),
+                    lambda *heads: wkv6_plain(*heads, chunk=chunk,
+                                              dtype=dtype))
+
+
+def _blocked(r, k, v, w, u, state0, run) -> tuple:
+    """D padded to m·128, folded into heads of D = 128, ``run(r, k, v, w, u,
+    state0)`` on them, unfolded and cut to D: (out, state)."""
+    d = r.shape[-1]
+    m = head_dim_blocks(d)
+    out_f, state_f = run(*fold_head_blocks(
+        *pad_head_dim(r, k, v, w, u, state0, m * BLOCK), m))
+    out, state = unfold_head_blocks(out_f, state_f, m)
+    return out[..., :d], state[..., :d, :d]
 
 
 def pad_head_dim(r, k, v, w, u, state0, d_pad: int) -> tuple:
@@ -333,6 +408,22 @@ def _launch(r, k, v, w, u, state0, out, state_out, chunk):
     launches_by_variant[variant] += 1
 
 
+def _launch_blocked(r, k, v, w, u, state0, out, state_out, chunk):
+    """A head dim D above 128: the m x m blocks of D = 128 as heads of one
+    launch of the D = 128 kernel, its results copied back into ``out`` and
+    ``state_out`` (``state0`` itself for an in-place call)."""
+    def run(*heads):
+        out_f = torch.empty(heads[0].shape, dtype=torch.float32,
+                            device=r.device)
+        state_f = torch.empty(heads[5].shape, dtype=torch.float32,
+                              device=r.device)
+        _launch(*heads, out_f, state_f, chunk)
+        return out_f, state_f
+    got, state = _blocked(r, k, v, w, u, state0, run)
+    out.copy_(got)
+    state_out.copy_(state)
+
+
 def _scan(r, k, v, w, u, state0, out, state_out, chunk):
     """Fills ``out`` (a [B,S,N,D] view with any strides) and ``state_out``
     (which may be ``state0`` itself) and returns them."""
@@ -352,7 +443,9 @@ def _scan(r, k, v, w, u, state0, out, state_out, chunk):
         state_out.copy_(state)
     elif r.device.type == "cuda":
         d_pad = head_dim_instance(d)
-        if d_pad == d:
+        if d > BLOCK:
+            _launch_blocked(*args, out, state_out, chunk)
+        elif d_pad == d:
             _launch(*args, out, state_out, chunk)
         else:
             b, s, n, _ = r.shape
@@ -376,8 +469,9 @@ def wkv6(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor, w: torch.Tensor,
     D), u [N,D], state0 [B,N,D,D] -> (out [B,S,N,D] fp32, final state).
 
     ``state_out`` receives the final state and is returned; it may be
-    ``state0`` itself, which then is **updated in place**.  Without it a new
-    tensor is allocated."""
+    ``state0`` itself, which then is **updated in place** (at a head dim
+    above 128 the kernel writes a folded copy, which is copied back into
+    it).  Without it a new tensor is allocated."""
     out = torch.empty(r.shape, dtype=torch.float32, device=r.device)
     if state_out is None:
         state_out = torch.empty(state0.shape, dtype=torch.float32,

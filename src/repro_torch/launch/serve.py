@@ -14,7 +14,7 @@ import numpy as np
 import torch
 
 from repro_torch._device import resolve_device
-from repro_torch.configs import get as get_arch
+from repro_torch.configs import PORTED, get as get_arch
 from repro_torch.launch.preflight import announce, preflight
 from repro_torch.models import init_params
 from repro_torch.serve import Engine, Request
@@ -47,8 +47,14 @@ def main(argv=None):
                          "raises rather than running on the CPU")
     args = ap.parse_args(argv)
 
-    device = resolve_device(args.device)
     arch = get_arch(args.arch)
+    if arch.name not in PORTED:
+        raise NotImplementedError(
+            f"arch {arch.name!r}: its model family is not ported to "
+            f"repro_torch's serving path yet (served: {PORTED}); see "
+            "ROADMAP.md queue 1.  The generator (Scenario, sweeps, prover) "
+            "runs it; the JAX package `repro` serves it")
+    device = resolve_device(args.device)
     spec = arch.smoke if args.smoke else arch.spec
     rt = arch.runtime                  # attention through the CUDA kernel
     announce_preflight(spec, slots=args.slots, kv_len=args.kv_len,

@@ -11,8 +11,7 @@ Three coupled pieces (see each module's docstring):
 * :mod:`repro_torch.obs.spans` — self-profiling tracer for the generator
   itself (``REPRO_TRACE=1`` or :func:`profiled`), same export format.
 * :mod:`repro_torch.obs.metrics` — counters/gauges/histograms +
-  :func:`snapshot`/:func:`diff` (the ``python -m repro_torch.obs`` CLI
-  comes with the port's analysis slice).
+  :func:`snapshot`/:func:`diff`, surfaced by ``python -m repro_torch.obs``.
 
 ``spans``/``metrics``/``log`` are stdlib-only and import eagerly;
 ``timeline`` depends on the core simulation layer and loads lazily so

@@ -20,7 +20,7 @@ import repro_torch.api as api
 from repro import ModelSpec
 from repro.configs import get
 from repro.core import MoESpec
-from torch_port_helpers import both_packages, port_spec
+from torch_port_helpers import both_packages, port_spec, report_rows
 
 GPT = ModelSpec(name="gptish", n_layers=4, d_model=256, n_heads=8,
                 n_kv_heads=4, d_ff=512, vocab=4096)
@@ -301,16 +301,65 @@ def test_generate_shim_warns_and_matches():
     assert plan.pp == 1 and env is not None and g.ops
 
 
-# ---- what comes with the analysis slice -----------------------------------
+# ---- the verifier and the prover through the front door -------------------
 
-def test_verify_and_prove_name_the_analysis_slice():
-    sc = repro_torch.Scenario(PGPT).train(batch=8, seq=64)
-    for call in (lambda: sc.trace().verify(),
-                 lambda: sc.prove(8),
-                 lambda: sc.sweep(8, verify=True),
-                 lambda: sc.sweep(8, prove=True)):
-        with pytest.raises(NotImplementedError, match="analysis slice"):
-            call()
+@pytest.mark.parametrize("case", list(PAR))
+def test_trace_verify_equals_reference(case):
+    """``Trace.verify(include_graph=True, chakra=True)``: graph lint, comm
+    and schedule checks and every stage's Chakra trace, the reference's
+    report."""
+    jspec, par = PAR[case]
+
+    def run(pkg, spec):
+        tr = pkg.Scenario(spec).train(batch=8, seq=64).parallel(**par) \
+            .trace()
+        return report_rows(tr.verify(include_graph=True, chakra=True)), \
+            report_rows(tr.verify())
+    (want, want_plain), (got, got_plain) = (
+        run(pkg, spec) for pkg, spec in both_packages(jspec))
+    assert got == want and got_plain == want_plain
+    assert not got[0] and got[1]["trace_nodes"] > 0
+    assert "graph_lint" in got[1] and "trace_nodes" not in got_plain[1]
+
+
+def test_scenario_prove_equals_reference():
+    """``Scenario.prove``: the reference's certificate (classes, lattice,
+    verdicts, summary)."""
+    def run(pkg, spec):
+        cert = pkg.Scenario(spec).train(batch=8, seq=64).prove(
+            8, pkg.H100_HGX)
+        return (cert.summary(), cert.ok, cert.lattice_points, cert.configs,
+                [(c.label, c.degrees, c.ok) for c in cert.classes],
+                report_rows(cert.report))
+    (want, got) = (run(pkg, spec) for pkg, spec in both_packages(GPT))
+    assert got == want and got[1]
+    assert "all invariants certified" in got[0]
+
+
+@pytest.mark.parametrize("backend", ["compiled", "batched"])
+def test_sweep_verify_and_prove_equal_reference(backend):
+    """``sweep(verify=True, prove=True)``: the reference's points, skipped
+    configs with their STG007 diagnostics, and certificate (the batched
+    backend on ``device="cpu"``, within rel 1e-6)."""
+    kw = dict(device="cpu") if backend == "batched" else {}
+    res = repro_torch.Scenario(PGPT).train(batch=8, seq=64).with_backend(
+        backend).sweep(8, verify=True, prove=True, microbatches=(1, 8), **kw)
+    want = repro.Scenario(GPT).train(batch=8, seq=64).sweep(
+        8, verify=True, prove=True, microbatches=(1, 8))
+    assert [p.label for p in res] == [p.label for p in want]
+    for p, q in zip(res, want):
+        assert abs(p.sim.step_time - q.sim.step_time) \
+            <= 1e-6 * q.sim.step_time, p.label
+    assert res.skipped and [
+        (s.cfg.describe(), s.reason, [(d.code, d.severity, d.node, d.message)
+                                      for d in s.diagnostics])
+        for s in res.skipped] == [
+        (s.cfg.describe(), s.reason, [(d.code, d.severity, d.node, d.message)
+                                      for d in s.diagnostics])
+        for s in want.skipped]
+    assert all(len(s.diagnostics) == 1 for s in res.skipped)
+    assert res.certificates.summary() == want.certificates.summary()
+    assert "proved:" in res.summary()
 
 
 # ---- the launchers' pre-flight line ----------------------------------------

@@ -6,8 +6,9 @@ Both are the same sympy + numpy code, so the per-rank files must be **byte
 for byte** the reference's: dp / tp / pp meshes, microbatch-expanded
 schedules, decomposed all-to-alls, a cluster topology's fabric attributes
 and stamped failure/restore epochs.  The reference's own trace checks
-(``repro.analysis.check_trace_dir``) run on the files the port wrote; the
-port's ``analysis`` comes with its next slice."""
+(``repro.analysis.check_trace_dir``) and the port's
+(``repro_torch.analysis``) run on the files the port wrote and give equal
+reports."""
 import json
 
 import pytest
@@ -15,11 +16,10 @@ import pytest
 import repro
 import repro_torch
 from repro import ModelSpec
-from repro.analysis import check_trace, check_trace_dir
 from repro.configs import get
 from repro.core import MoESpec
 from repro_torch.core import chakra as port_chakra
-from torch_port_helpers import both_packages, dir_bytes, port_cfg
+from torch_port_helpers import both_packages, check_both, dir_bytes, port_cfg
 
 GPT = ModelSpec(name="gptish", n_layers=4, d_model=256, n_heads=8,
                 n_kv_heads=4, d_ff=512, vocab=4096)
@@ -65,7 +65,7 @@ def test_export_chakra_byte_equal(case, tmp_path):
         files[pkg.__name__] = dir_bytes(out)
     assert len(files["repro_torch"]) == n + 1
     assert files["repro_torch"] == files["repro"]
-    rep = check_trace_dir(str(tmp_path / "repro_torch"))
+    rep = check_both("check_trace_dir", str(tmp_path / "repro_torch"))
     assert rep.ok, rep.render()
 
 
@@ -106,7 +106,7 @@ def test_export_resilience_stamps_byte_equal(tmp_path):
     man = json.loads(files["repro_torch"]["manifest.json"])
     assert man["resilience"]["events"] > 0
     assert files["repro_torch"] == files["repro"]
-    assert check_trace_dir(str(tmp_path / "repro_torch")).ok
+    assert check_both("check_trace_dir", str(tmp_path / "repro_torch")).ok
 
 
 def test_export_rank_subset_and_stale_files(tmp_path):
@@ -135,7 +135,8 @@ def test_chakra_stage_equal(stage):
                                 tr.chakra_stage(stage,
                                                 expand_microbatches=True))
     assert bodies["repro_torch"] == bodies["repro"]
-    assert check_trace(bodies["repro_torch"][0], rank=None).ok
+    assert check_both("check_trace", bodies["repro_torch"][0],
+                      rank=None).ok
 
 
 def test_rank_coords_equal():

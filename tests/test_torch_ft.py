@@ -18,7 +18,6 @@ import repro
 import repro.configs as configs
 import repro_torch
 from repro import Scenario, TPU_V5E
-from repro.analysis import check_trace_dir
 from repro.core.dse import DSEPoint, rank_points, score_resilience
 from repro.ft import ResilienceSpec
 from repro.ft import StragglerModel as JaxStragglerModel
@@ -28,7 +27,8 @@ from repro.ft import elastic_mesh_shape as jax_elastic_mesh_shape
 from repro_torch import ft as pft
 from repro_torch.core import dse as pdse
 from repro_torch.core import topology as ptopo
-from torch_port_helpers import both_packages, dir_bytes, port_cfg, run_both
+from torch_port_helpers import (both_packages, check_both, dir_bytes, port_cfg,
+                                run_both)
 
 SMOKE = configs.get("granite-34b").smoke
 MTBF = {"chip": 20e3, "nvlink": 40e3}
@@ -348,7 +348,7 @@ def test_chakra_stamping_checked_by_reference(tmp_path):
                 dir_bytes(out))
     ref, port = run_both(SMOKE, export)
     assert port[1] and port == ref
-    out = check_trace_dir(str(tmp_path / "repro_torch"))
+    out = check_both("check_trace_dir", str(tmp_path / "repro_torch"))
     assert out.ok, out.render()
 
 

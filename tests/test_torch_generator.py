@@ -107,18 +107,36 @@ def test_compiled_sweep_equals_reference():
                                     "prove"],
                          ids=["verify", "resilience", "rank_by", "prove"])
 def test_unported_options_raise(option):
-    """``verify=`` and ``prove=`` need the analysis slice and say so instead
-    of running half-way; ``resilience=`` and ``rank_by="effective_goodput"``
-    came with the ``ft`` slice and give the reference's ranking and scores."""
+    """Every option of the reference's ``dse.sweep`` runs in the port:
+    ``verify=`` attaches the reference's STG007 diagnostics to the skipped
+    configs, ``prove=`` the reference's certificate (the analysis slice);
+    ``resilience=`` and ``rank_by="effective_goodput"`` (the ``ft`` slice)
+    give the reference's ranking and scores."""
     from repro.ft import ResilienceSpec as JaxResilienceSpec
     from repro_torch.ft import ResilienceSpec
     spec = get("qwen3-14b").smoke
     engine, build, env, n_layers = port_engine(spec, "train", batch=8,
                                                seq=64)
     if option in ("verify", "prove"):
-        with pytest.raises(NotImplementedError, match="analysis slice"):
-            dse.sweep(build, env, 8, PORT_TPU_V5E, n_layers=n_layers,
-                      engine=engine, **{option: True})
+        got = dse.sweep(build, env, 8, PORT_TPU_V5E, n_layers=n_layers,
+                        name=spec.name, engine=engine, microbatches=(1, 8),
+                        **{option: True})
+        want = Scenario(spec).train(batch=8, seq=64).sweep(
+            8, microbatches=(1, 8), **{option: True})
+        assert len(got) > 0 and [p.label for p in got] \
+            == [p.label for p in want]
+        for p, q in zip(got, want):
+            _assert_equal_points(p, q, p.label)
+        diags = [[(s.cfg.describe(), d.code, d.severity, d.message)
+                  for d in s.diagnostics] for s in got.skipped]
+        assert got.skipped and diags == [
+            [(s.cfg.describe(), d.code, d.severity, d.message)
+             for d in s.diagnostics] for s in want.skipped]
+        if option == "verify":
+            assert all(len(d) == 1 and d[0][1] == "STG007" for d in diags)
+        else:
+            assert got.certificates.ok and got.certificates.summary() \
+                == want.certificates.summary()
         return
     kw = dict(rank_by="effective_goodput") if option == "rank_by" else {}
     got = dse.sweep(build, env, 8, PORT_TPU_V5E, n_layers=n_layers,

@@ -50,9 +50,25 @@ def test_configs_agree_with_reference():
 
 
 @pytest.mark.parametrize("name", [a for a in ARCHS if a not in PORTED])
-def test_unported_arch_raises(name):
+def test_unserved_arch_resolves_to_reference(name):
+    """Every arch resolves (the generator and the prover run them all) to
+    the reference's specs.  The serve launcher refuses the families the port
+    does not serve, and ``init_params`` the layer kinds it has no code for
+    (MoE, MLA, Mamba, an encoder, a vision prefix); the dense GQA stacks
+    (granite, gemma2, minitron) are layers it runs."""
+    from repro_torch.launch import serve as serve_launcher
+    ref = jax_get(name)
+    arch = get(name)
+    for mine, theirs in ((arch.spec, ref.spec), (arch.smoke, ref.smoke)):
+        assert mine.params() == theirs.params()
+        assert mine.name == theirs.name
+    assert arch.skip == ref.skip
     with pytest.raises(NotImplementedError, match="not ported"):
-        get(name)
+        serve_launcher.main(["--arch", name, "--smoke", "--device", "cpu"])
+    sm = arch.smoke
+    if sm.moe or sm.mla or sm.ssm or sm.encoder_layers or sm.vision_seq:
+        with pytest.raises(NotImplementedError, match="ROADMAP"):
+            init_params(sm, RuntimeCfg(), device="cpu")
 
 
 @pytest.mark.parametrize("kw", [

@@ -14,13 +14,13 @@ import pytest
 import repro
 import repro_torch
 from repro import ModelSpec
-from repro.analysis import check_trace_dir
 from repro.core import MoESpec
 from repro.core.simulate import simulate as jax_simulate
 from repro.core.simulate import sum_convex_series as jax_sum_convex
 from repro_torch.core import serving as pserving
 from repro_torch.core.simulate import simulate, sum_convex_series
-from torch_port_helpers import both_packages, dir_bytes, run_both
+from torch_port_helpers import (both_packages, check_both, dir_bytes,
+                                report_rows, run_both)
 
 TINY = ModelSpec(name="srv", n_layers=2, d_model=128, n_heads=4,
                  n_kv_heads=2, d_ff=256, vocab=1024)
@@ -111,7 +111,7 @@ def test_disaggregated_evaluate_and_export_equal(tmp_path):
     assert man["pools"]["decode"]["offset"] == 2
     assert port[1][0]["disaggregated"] and port[1][0]["kv_transfer_time"] > 0
     assert port == ref
-    rep = check_trace_dir(str(tmp_path / "repro_torch"))
+    rep = check_both("check_trace_dir", str(tmp_path / "repro_torch"))
     assert rep.ok, rep.render()
 
 
@@ -242,9 +242,21 @@ def test_job_timeline_equal():
     assert "pool kv-transfer" in port and port == ref
 
 
-def test_job_verify_names_the_analysis_slice():
-    spec = both_packages(TINY)[1][1]
-    job = repro_torch.Scenario(spec).prefill(batch=4, seq=64) \
-        .generation(out_tokens=4)
-    with pytest.raises(NotImplementedError, match="analysis slice"):
-        job.verify()
+@pytest.mark.parametrize("deep", [True, False])
+@pytest.mark.parametrize("disaggregated", [False, True],
+                         ids=["colocated", "disaggregated"])
+def test_job_verify_equals_reference(disaggregated, deep):
+    """``Job.verify``: every phase's workload through the comm and schedule
+    checks (the decode series at its first step), and with ``deep`` the
+    job's Chakra export through ``check_trace_dir``: the reference's
+    report, clean."""
+    def run(pkg, spec):
+        job = pkg.Scenario(spec).prefill(batch=4, seq=64) \
+            .generation(out_tokens=4)
+        if disaggregated:
+            job = job.disaggregate(prefill_pool=dict(tp=2),
+                                   decode_pool=dict(dp=2), kv_transfer=True)
+        return report_rows(job.verify(deep=deep))
+    want, got = run_both(TINY, run)
+    assert got == want and not got[0]
+    assert ("trace_files" in got[1]) is deep

@@ -7,20 +7,20 @@ tests/test_obs.py on the CPU.
 The Chrome-trace JSON must come out **byte for byte** as the reference
 writes it (field order, float formatting, the ``"repro generator"``
 process name), reconcile exactly with the simulated step time, and pass
-the reference's own audit (``repro.analysis.check_timeline_file``) on the
-files the port wrote."""
+the reference's own audit (``repro.analysis.check_timeline_file``) and the
+port's (``repro_torch.analysis``) with equal reports on the files the port
+wrote."""
 import json
 
 import pytest
 
 import repro
 import repro_torch
-from repro.analysis import check_timeline, check_timeline_file
 from repro.configs import ARCHS, get
 from repro.obs.timeline import validate_chrome_trace as jax_validate
 from repro_torch.obs import metrics, spans
 from repro_torch.obs.timeline import validate_chrome_trace
-from torch_port_helpers import both_packages
+from torch_port_helpers import both_packages, check_both
 
 SCHEDULES = ("gpipe", "1f1b", "zb-h1", "interleaved")
 
@@ -81,7 +81,8 @@ def test_saved_file_byte_equal_and_audited(options, tmp_path):
     assert got == (tmp_path / "repro.json").read_bytes()
     obj = json.loads(got)
     assert validate_chrome_trace(obj) == [] == jax_validate(obj)
-    rep = check_timeline_file(str(tmp_path / "repro_torch.json"))
+    rep = check_both("check_timeline_file",
+                     str(tmp_path / "repro_torch.json"))
     assert rep.ok, rep.render()
 
 
@@ -107,7 +108,7 @@ def test_resilience_track_equal():
     obj = out["repro_torch"]
     assert any(e.get("cat") == "resilience" for e in obj["traceEvents"])
     assert json.dumps(obj) == json.dumps(out["repro"])
-    assert check_timeline(obj).ok
+    assert check_both("check_timeline", obj).ok
 
 
 def test_job_timeline_pool_lanes_equal(tmp_path):
@@ -123,7 +124,8 @@ def test_job_timeline_pool_lanes_equal(tmp_path):
     lanes = {e["args"]["name"] for e in obj["traceEvents"]
              if e["ph"] == "M" and e["name"] == "process_name"}
     assert {"pool prefill", "pool decode", "pool kv-transfer"} <= lanes
-    assert check_timeline_file(str(tmp_path / "repro_torch.json")).ok
+    assert check_both("check_timeline_file",
+                      str(tmp_path / "repro_torch.json")).ok
 
 
 # ---- the self-profiling spans' Chrome trace (tests/test_obs.py) -------------
@@ -164,3 +166,42 @@ def test_snapshot_reports_cache_stats():
     snap = metrics.snapshot()
     assert "batched_stale_rewraps" in snap["caches"]
     assert set(snap["caches"]) == set(repro.compiled_cache_stats())
+
+
+# ---- the observability CLI (tests/test_obs.py) -------------------------------
+
+def test_obs_cli_summarize_diff_validate(tmp_path, capsys):
+    """``python -m repro_torch.obs summarize | diff | validate`` on the
+    port's snapshots and timeline: the exit codes and the output of the
+    reference's CLI on the same files."""
+    from repro.obs.__main__ import main as jax_main
+    from repro_torch.obs.__main__ import main
+
+    def both(argv, rc):
+        assert main(argv) == rc
+        got = capsys.readouterr().out
+        assert jax_main(argv) == rc
+        assert got == capsys.readouterr().out
+        return got
+
+    metrics.counter("cli.evt").inc(2)
+    a, b = tmp_path / "a.json", tmp_path / "b.json"
+    a.write_text(json.dumps(metrics.snapshot(caches=False)))
+    metrics.counter("cli.evt").inc(5)
+    b.write_text(json.dumps(metrics.snapshot(caches=False)))
+    assert "counter.cli.evt" in both(["summarize", str(a)], 0)
+    assert "+5" in both(["diff", str(a), str(b)], 0)
+
+    tl = tmp_path / "tl.json"
+    spec = both_packages(get(ARCHS[2]).smoke)[1][1]
+    (repro_torch.Scenario(spec).train(batch=32, seq=2048)
+     .parallel(pp=2, tp=2, microbatches=4).trace().timeline(str(tl)))
+    assert "OK" in both(["validate", str(tl)], 0)
+    bad = tmp_path / "bad.json"
+    obj = json.loads(tl.read_text())
+    for ev in obj["traceEvents"]:
+        if ev["ph"] == "X":
+            ev["dur"] = -1.0          # invalid duration
+            break
+    bad.write_text(json.dumps(obj))
+    assert "STG501" in both(["validate", str(bad)], 1)

@@ -350,7 +350,8 @@ def test_zero_pad_rule(d):
     inputs zero-padded and w padded with 1: the plain version at the padded
     width gives the unpadded result in the first D rows and columns, and
     zeros in the padded ones.  65-127 pad to the head-dim-128 instance;
-    above 128 the card has no instance."""
+    above 128 the card runs the head-dim-128 instance on 128 x 128 blocks
+    of D zero-padded to a multiple of 128 (``test_blocked_*``)."""
     args = _inputs(17, 2, 40, 2, d)
     d_pad = W.head_dim_instance(d)
     assert d_pad == min(h for h in W.HEAD_DIMS if h >= d) > d
@@ -370,9 +371,65 @@ def test_zero_pad_rule(d):
     assert W.HEAD_DIMS[-1] == 128
     for mid in (65, 96, 127):
         assert W.head_dim_instance(mid) == 128
-    for big in (129, 256):
-        with pytest.raises(ValueError, match="head dims up to 128"):
-            W.head_dim_instance(big)
+    for big, blocks in ((129, 2), (192, 2), (256, 2), (257, 3)):
+        assert W.head_dim_instance(big) == 128
+        assert W.head_dim_blocks(big) == blocks
+    assert W.head_dim_blocks(128) == 1
+
+
+# ---------------------------------------------------------------------------
+# head dims above 128: blocks of the D = 128 instance
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize("d", [192, 256])
+def test_blocked_plain_vs_plain_and_pallas(d):
+    """The block decomposition the card runs above head dim 128 (D padded
+    to m·128, the m x m (key-row block, value-column block) pairs as heads
+    of D = 128, the partial outputs added over the row blocks), around the
+    plain version: against ``wkv6_plain`` at D and against the Pallas kernel
+    in interpret mode, with strong decays (dec ~ 2·N(0, 1): a fifth below
+    the C = 16 floor), at the port's 1e-4."""
+    args = _inputs(18, 2, 32, 2, d, dec_scale=2.0)
+    got_o, got_s = W.wkv6_blocked_plain(*args, chunk=16)
+    assert got_o.shape == args[0].shape and got_s.shape == args[5].shape
+    assert (args[3] < np.exp(-80.0 / 16)).float().mean() > 0.15
+    want_o, want_s = W.wkv6_plain(*args, chunk=16)
+    np.testing.assert_allclose(got_o.numpy(), want_o.numpy(), atol=TOL,
+                               rtol=TOL)
+    np.testing.assert_allclose(got_s.numpy(), want_s.numpy(), atol=TOL,
+                               rtol=TOL)
+    pal_o, pal_s = _pallas(*args, chunk=16)
+    np.testing.assert_allclose(got_o.numpy(), pal_o, atol=TOL, rtol=TOL)
+    np.testing.assert_allclose(got_s.numpy(), pal_s, atol=TOL, rtol=TOL)
+
+
+@pytest.mark.parametrize("d,s,chunk", [(192, 32, 16), (256, 1, 1)],
+                         ids=["tiled-d192", "decode-d256-in-place"])
+def test_blocked_launch_path(monkeypatch, d, s, chunk):
+    """The card's path above head dim 128 (``_launch_blocked``), with the
+    launch replaced by the plain version at D = 128: one launch of N·m·m
+    heads of head dim 128, whose results the wrapper puts back into ``out``
+    and, for an in-place call, into ``state0`` itself; against
+    ``wkv6_plain`` in float64 under the chip limit."""
+    calls = []
+
+    def launch(r, k, v, w, u, state0, out, state_out, chunk):
+        calls.append(tuple(r.shape))
+        assert r.shape[-1] == 128 and state0.shape[-2:] == (128, 128)
+        assert all(t.is_contiguous() for t in (r, k, v, w, u, state0))
+        got_o, got_s = W.wkv6_plain(r, k, v, w, u, state0, chunk=chunk)
+        out.copy_(got_o)
+        state_out.copy_(got_s)
+    monkeypatch.setattr(W, "_launch", launch)
+    args = _inputs(19, 2, s, 3, d, dec_scale=2.0)
+    cache = args[5].clone()
+    out = torch.empty(args[0].shape)
+    W._launch_blocked(*args[:5], cache, out, cache, chunk)
+    m = W.head_dim_blocks(d)
+    assert calls == [(2, s, 3 * m * m, 128)]
+    want_o, want_s = W.wkv6_plain(*args, chunk=chunk, dtype=torch.float64)
+    assert max(_share_of_limit(out, want_o),
+               _share_of_limit(cache, want_s)) <= 1.0
 
 
 # ---------------------------------------------------------------------------

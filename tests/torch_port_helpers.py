@@ -102,3 +102,27 @@ def run_both(jspec, fn) -> tuple:
     (reference's result, port's result)."""
     ref, port = (fn(pkg, spec) for pkg, spec in both_packages(jspec))
     return ref, port
+
+
+def report_rows(rep) -> tuple:
+    """An analysis report as plain data: every diagnostic (code, severity,
+    locus, message, fixit), the per-pass tallies and the name, with
+    ``repro_torch.`` read as ``repro.``."""
+    def m(x):
+        return x.replace("repro_torch.", "repro.") if isinstance(x, str) \
+            else x
+    return ([(d.code, d.severity, d.rank, d.stage, d.phase, m(d.node),
+              m(d.message), m(d.fixit)) for d in rep.diagnostics],
+            dict(rep.checked), m(rep.name))
+
+
+def check_both(check: str, *args, **kw):
+    """The port's ``repro_torch.analysis.<check>`` and the reference's on
+    the same input (files the port wrote): their reports must be equal.
+    Returns the port's."""
+    import repro.analysis as janalysis
+    import repro_torch.analysis as analysis
+    got = getattr(analysis, check)(*args, **kw)
+    want = getattr(janalysis, check)(*args, **kw)
+    assert report_rows(got) == report_rows(want), check
+    return got
