@@ -16,19 +16,25 @@ Phases, one JSON line each on standard output:
            kernel / plain / library time and the card's bound for the same work.
            Attention shapes also print the kernel the wrapper chose (tc, fma
            or decode), the decode split, and the device time per launch
-           beside the library's; wkv6 shapes the kernel its wrapper chose
+           beside the library's (the MLA rows, v's head dim 128 under q/k's
+           192, also the library's backend, read with torch.profiler once
+           the main paths have run); wkv6 shapes the kernel its wrapper chose
            (decode or tiled), the tile, and the device time per launch;
            cost_reduce rows (the sweep's merged calls first) the split its
            wrapper's rule chose, and its and torch.matmul's device times
-  serve    two served models, one after the other, each at published width
-           and depth, bf16, random weights from a seed: qwen3-14b (attention
-           through flash_attention), then rwkv6-7b (every WKV recurrence
-           through wkv6: decode steps on its decode kernel, the prefill on
-           its tiled kernel, counted apart).  For each, an Engine with 8
-           slots answers 16 requests, then one [2, 2048] prefill.  Every
-           launch count is set to 0 just before each model's run and read
-           just after.  Three warm prefills follow: every reading, their
-           median as prefill_ms
+  serve    seven served models, one after the other, each at published
+           width, bf16, random weights from a seed: qwen3-14b (attention
+           through flash_attention), rwkv6-7b (every WKV recurrence through
+           wkv6: decode steps on its decode kernel, the prefill on its tiled
+           kernel, counted apart), minitron-8b and deepseek-moe-16b at
+           published depth, deepseek-v2-236b (MLA + MoE; 4 of 60 layers),
+           gemma2-27b and granite-34b (8 layers each; depth cuts listed as
+           reduced).  For each, an Engine with 8 slots answers 16 requests,
+           then one [2, 2048] prefill (gemma2 also one [1, 8192], so that
+           its 4096-key window masks keys).  Every launch count is set to 0
+           just before each model's run and read just after; each model's
+           flash launches must be (steps + prefills) x layers.  Three warm
+           prefills follow: every reading, their median as prefill_ms
   sweep    the generator's design-space sweep on the batched backend:
            dse.sweep over every (dp, tp, cp, pp) factorisation of 64 devices
            for qwen3-14b's published spec, train, batch 256 x seq 4096, on
@@ -50,10 +56,12 @@ Phases, one JSON line each on standard output:
            32 768 GPUs (dp 512, tp 8, pp 8); the serve launcher's
            pre-flight line.  Counts set to 0 just before and read just after
   parity   the smoke specs on the card in fp32, then in float16 (which the
-           attention kernel reads as fp32): qwen3 attention through the
-           kernel against the naive core; rwkv6 through the wkv6 kernel
-           against the same parameters on the CPU (the plain version).  Same
-           greedy tokens and logits within 1e-4 (fp32) / 5e-2 (float16)
+           attention kernel reads as fp32): qwen3, granite, minitron,
+           gemma2, deepseek-moe and deepseek-v2 (MLA: q/k 24, v 16 on the
+           fma and fp32 decode kernels) attention through the kernel
+           against the naive core; rwkv6 through the wkv6 kernel against the
+           same parameters on the CPU (the plain version).  Same greedy
+           tokens and logits within 1e-4 (fp32) / 5e-2 (float16)
   analysis STAGE's verifier and prover on the card's sweeps (run before the
            kernels line, after api): the sweep phase's qwen3-14b space with
            prove=True, verify=True on the card (the space certified, one
@@ -72,12 +80,14 @@ Phases, one JSON line each on standard output:
 
 Each phase line carries the seconds since the script started.  After serve,
 sweep, api and analysis, the ``kernels`` line: every kernel with its
-launches on the main paths (cost_reduce's of the sweep phase; the api and
-analysis phases report their own counts).  Then the line nvidia-smi gives
+launches on the main paths (flash_attention's summed over the served
+models, each model's count under ``launches_by_path``; cost_reduce's of the
+sweep phase; the api and analysis phases report their own counts).  Then the line nvidia-smi gives
 for the card, and as the last line ``{"ok": true, "device": {...}}``.  Any failure is an exception and a non-zero
 exit code; without a CUDA device the script exits non-zero before any phase.
 """
 import argparse
+import dataclasses
 import gc
 import json
 import os
@@ -280,23 +290,59 @@ ATTENTION_CASES = [
          dtype=BF16, causal=True, q_offset=511),
     dict(name="decode-split-window", B=1, N=2, G=4, Sq=1, Sk=4096, D=128,
          dtype=BF16, causal=True, q_offset=4000, window=1024),
+    # deepseek-v2's MLA: q/k of head dim nope 128 + rope 64 = 192, v of 128,
+    # 128 heads each its own kv head (G = 1); the prefill and decode step its
+    # serve path gives the kernel, then the smoke spec's 24 / 16 in fp32
+    # (the parity phase's float16 runtime reads fp32) and the fp32 instances
+    # at 192 / 128
+    dict(name="mla-prefill", main=True, B=2, N=128, G=1, Sq=2048, Sk=2048,
+         D=192, Dv=128, dtype=BF16, causal=True, probe_library=True),
+    dict(name="mla-decode", main=True, B=8, N=128, G=1, Sq=1, Sk=2048, D=192,
+         Dv=128, dtype=BF16, causal=True, q_offset=2047, probe_library=True),
+    dict(name="mla-smoke-fp32", B=2, N=8, G=1, Sq=24, Sk=24, D=24, Dv=16,
+         dtype=F32, causal=True),
+    dict(name="mla-smoke-decode-fp32", B=2, N=8, G=1, Sq=1, Sk=64, D=24,
+         Dv=16, dtype=F32, causal=True, q_offset=40),
+    dict(name="mla-fma-fp32", B=1, N=4, G=1, Sq=130, Sk=130, D=192, Dv=128,
+         dtype=F32, causal=True),
+    dict(name="mla-decode-fp32-split", B=1, N=4, G=1, Sq=1, Sk=1500, D=192,
+         Dv=128, dtype=F32, causal=True, q_offset=1400),
+    dict(name="mla-tc-ragged", B=1, N=2, G=2, Sq=200, Sk=200, D=168, Dv=96,
+         dtype=BF16, causal=True),
+    dict(name="mla-decode-split-bf16", B=1, N=2, G=3, Sq=1, Sk=3000, D=192,
+         Dv=128, dtype=BF16, causal=True, q_offset=2900),
+    dict(name="dv-lt-d-bf16-d64", B=2, N=2, G=2, Sq=150, Sk=150, D=64, Dv=32,
+         dtype=BF16, causal=True),
+    dict(name="dv-lt-d-decode-d128", B=2, N=2, G=4, Sq=1, Sk=400, D=128,
+         Dv=64, dtype=BF16, causal=True, q_offset=399),
+    # granite-34b's MQA decode step (one kv head, 48 query heads: three
+    # chunks of 16) and gemma2-27b's local-layer prefill at its published
+    # window and softcap over 8192 tokens, so the window masks keys
+    dict(name="granite-mqa-decode", main=True, B=8, N=1, G=48, Sq=1, Sk=2048,
+         D=128, dtype=BF16, causal=True, q_offset=2047),
+    dict(name="gemma2-window-softcap-prefill", main=True, B=1, N=16, G=2,
+         Sq=8192, Sk=8192, D=128, dtype=BF16, causal=True, window=4096,
+         softcap=50.0),
 ]
 
 
 def attention_bound(case, mask: torch.Tensor) -> tuple:
     """(bound_ms, bound_by): the larger of bytes over the memory rate (q and
     out once, each K and V row some query can see once) and operations over
-    the peak rate of the input type (two products over the visible pairs).
-    A row that sees no key reads every V row and sums it."""
+    the peak rate of the input type (two products over the visible pairs:
+    2 (D + Dv) each).  A row that sees no key reads every V row and sums
+    it."""
     B, N, G, D = case["B"], case["N"], case["G"], case["D"]
+    Dv = case.get("Dv", D)
     size = torch.empty((), dtype=case["dtype"]).element_size()
     pairs = int(mask.sum())
     visible_keys = int(mask.any(0).sum())
     blind_rows = int((~mask.any(1)).sum())
     v_rows = case["Sk"] if blind_rows else visible_keys
-    nbytes = size * (2 * B * case["Sq"] * N * G * D
-                     + B * (visible_keys + v_rows) * N * D)
-    ops = 4 * B * N * G * D * pairs + B * N * G * D * case["Sk"] * blind_rows
+    nbytes = size * (B * case["Sq"] * N * G * (D + Dv)
+                     + B * (visible_keys * D + v_rows * Dv) * N)
+    ops = 2 * B * N * G * (D + Dv) * pairs \
+        + B * N * G * Dv * case["Sk"] * blind_rows
     t_bytes = nbytes / PEAK_BYTES_PER_S
     t_ops = ops / PEAK_FLOPS[case["dtype"]]
     return (max(t_bytes, t_ops) * 1e3,
@@ -322,6 +368,7 @@ def library_attention(case, q, k, v, mask: torch.Tensor):
     if case.get("softcap") or not bool(mask.any(1).all()):
         return None
     B, Sq, N, G, D = q.shape
+    Dv = v.shape[-1]
     kw = {}
     if Sq == 1:
         seen = mask[0].nonzero().flatten()
@@ -339,21 +386,74 @@ def library_attention(case, q, k, v, mask: torch.Tensor):
             kw["enable_gqa"] = True
         else:
             kh, vh = (t.repeat_interleave(G, dim=1) for t in (kh, vh))
+    require(Dv == vh.shape[-1], "v keeps its head dim")
     return lambda: F.scaled_dot_product_attention(qh, kh, vh, **kw)
 
 
-def check_attention_case(case, seed: int) -> dict:
+def library_backend(lib) -> str:
+    """Which of PyTorch's attention kernels one library call ran: the names
+    of the device kernels torch.profiler records for it (flash, the memory-
+    efficient cutlass kernel, cuDNN), else the math path's plain products,
+    or "not measured" where the profiler records no device kernel."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    lib()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        lib()
+        torch.cuda.synchronize()
+    names = [e.key for e in prof.key_averages()
+             if e.device_type == DeviceType.CUDA]
+    if not names:
+        return "not measured"
+    for tag, backend in (("flash", "flash"), ("fmha", "efficient"),
+                         ("efficient", "efficient"), ("cudnn", "cudnn")):
+        if any(tag in n.lower() for n in names):
+            return backend
+    return "math: " + ", ".join(sorted({n[:40] for n in names})[:4])
+
+
+def attention_inputs(case, seed: int) -> tuple:
+    """q, k, v of a case drawn on the card from ``seed``, and the call's
+    keywords."""
     gen = torch.Generator(device=DEV).manual_seed(seed)
     B, N, G, D = case["B"], case["N"], case["G"], case["D"]
+    Dv = case.get("Dv", D)
     Sq, Sk, dtype = case["Sq"], case["Sk"], case["dtype"]
 
     def rand(*shape):
         return torch.randn(shape, generator=gen, device=DEV,
                            dtype=torch.float32).to(dtype)
 
-    q, k, v = rand(B, Sq, N, G, D), rand(B, Sk, N, D), rand(B, Sk, N, D)
+    q, k, v = rand(B, Sq, N, G, D), rand(B, Sk, N, D), rand(B, Sk, N, Dv)
     kw = dict(causal=case["causal"], window=case.get("window"),
               softcap=case.get("softcap"), q_offset=case.get("q_offset", 0))
+    return q, k, v, kw
+
+
+# rows whose library call's backend is read once the main paths have run
+# (torch.profiler, once started, slows every later launch of the process)
+BACKEND_PROBES: list = []
+
+
+def probe_library_backends() -> None:
+    """Fill ``library_backend`` of the rows that asked for it, on inputs
+    drawn again from their seeds."""
+    while BACKEND_PROBES:
+        case, seed, row = BACKEND_PROBES.pop(0)
+        q, k, v, kw = attention_inputs(case, seed)
+        mask = fa._visible(case["Sq"], case["Sk"], kw["causal"], kw["window"],
+                           kw["q_offset"], DEV)
+        row["library_backend"] = library_backend(
+            library_attention(case, q, k, v, mask))
+
+
+def check_attention_case(case, seed: int) -> dict:
+    q, k, v, kw = attention_inputs(case, seed)
+    B, N, G, D = case["B"], case["N"], case["G"], case["D"]
+    Dv = v.shape[-1]
+    Sq, Sk, dtype = case["Sq"], case["Sk"], case["dtype"]
     before = fa.launches
     got = fa.flash_attention(q, k, v, **kw)
     torch.cuda.synchronize()
@@ -384,7 +484,8 @@ def check_attention_case(case, seed: int) -> dict:
         lo, hi = fa._decode_range(Sk, kw["causal"], kw["window"],
                                   kw["q_offset"])
         g_chunks = -(-G // fa.DECODE_MAX_HEADS[dtype])
-        splits = fa.decode_splits(B, N * g_chunks, max(0, hi - lo))
+        splits = fa.decode_splits(B, N * g_chunks, max(0, hi - lo),
+                                  fa.decode_target_blocks(dtype, D))
         split_len = -(-(hi - lo) // splits)
         # a kernel that loses the first key of a split is refused
         boundary_keys = sorted({lo + split_len, lo + (splits - 1) * split_len}
@@ -407,7 +508,7 @@ def check_attention_case(case, seed: int) -> dict:
     if blind_rows:
         # the oracle of the JAX package's tests, in [B, H, S, D]
         def bhsd(t):
-            return t.reshape(B, t.shape[1], -1, D).transpose(1, 2)
+            return t.reshape(B, t.shape[1], -1, t.shape[-1]).transpose(1, 2)
         oracle = ref.ref_attention(
             bhsd(q), bhsd(k).repeat_interleave(G, dim=1),
             bhsd(v).repeat_interleave(G, dim=1), **kw)
@@ -430,7 +531,7 @@ def check_attention_case(case, seed: int) -> dict:
         "shape": case["name"], "main_path": bool(case.get("main")),
         "variant": variant, "splits": splits,
         "split_boundary_keys_checked": boundary_keys,
-        "B": B, "N": N, "G": G, "Sq": Sq, "Sk": Sk, "D": D,
+        "B": B, "N": N, "G": G, "Sq": Sq, "Sk": Sk, "D": D, "Dv": Dv,
         "dtype": str(dtype)[6:], **{k_: v_ for k_, v_ in kw.items() if v_},
         "max_abs_err": err.max().item(),
         "max_err_over_allowed": (err / allowed).max().item(),
@@ -444,6 +545,8 @@ def check_attention_case(case, seed: int) -> dict:
         "bound_ms": bound_ms, "bound_by": bound_by,
     }
     row["bound_share_device"] = bound_ms / dev_ms
+    if lib and case.get("probe_library"):
+        BACKEND_PROBES.append((case, seed, row))
     if lib:
         row["over_library"] = row["ms"] / row["library_ms"]
         row["over_library_device"] = dev_ms / lib_dev_ms
@@ -856,10 +959,24 @@ def phase_kernels() -> list:
     strided_err = check_strided_cache_view()
     scans = [check_wkv_case(c, seed=100 + i) for i, c in enumerate(WKV_CASES)]
     costs = [check_cost_case(c, seed=200 + i) for i, c in enumerate(COST_CASES)]
+    # the D_v < D instance (MLA) with the numbers of its own main rows;
+    # its launches are the deepseek-v2 path's, filled in by the serve phase
+    mla = {r["shape"]: r for r in attention}
+    mla_instance = {
+        "launches": 0, "path": "serve deepseek-v2-236b",
+        **{k: mla["mla-prefill"][k]
+           for k in ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
+                     "library_ms", "device_ms", "library_device_ms")},
+        "shape": "mla-prefill", "decode_shape": "mla-decode",
+        "decode": {k: mla["mla-decode"][k]
+                   for k in ("max_abs_err", "ms", "device_ms", "plain_ms",
+                             "bound_ms", "bound_by", "library_ms")},
+    }
     return [
         kernel_entry("flash_attention",
                      "src/repro/kernels/flash_attention.py:80", attention,
-                     strided_view_max_abs_err=strided_err),
+                     strided_view_max_abs_err=strided_err,
+                     instances={"dv<d (mla, d 192, dv 128)": mla_instance}),
         kernel_entry("wkv6", "src/repro/kernels/rwkv6_scan.py:80", scans,
                      library="none: no single PyTorch call computes wkv6"),
         kernel_entry("cost_reduce", "src/repro/kernels/cost_reduce.py:49",
@@ -984,31 +1101,63 @@ def profile_prefill(prefill, params, tokens, kernel: str) -> dict:
     }
 
 
-# each served model: its published widths, and the kernel its path runs once
-# per layer in every decode step and in the prefill
+# each served model: its published (layers, d_model, d_ff, vocab), and the
+# kernel its path runs once per layer in every decode step and in every
+# prefill.  ``layers``: the depth served where the published one is cut
+# (reduced): deepseek-v2-236b's 60 layers are 471 GB in bf16, granite-34b's
+# 88 are 94.5 GB, neither fits one 80 GB card; gemma2-27b's 46 would hold
+# the phase as long as two more full-depth models.  ``long_prefill``: one
+# more [1, S] prefill, so that gemma2's 4096-key window masks keys.
 SERVED = {
     "qwen3-14b": dict(widths=(40, 5120, 17408, 151936), kernel="flash_attention"),
     "rwkv6-7b": dict(widths=(32, 4096, 14336, 65536), kernel="wkv6"),
+    "minitron-8b": dict(widths=(32, 4096, 16384, 256000),
+                        kernel="flash_attention"),
+    "deepseek-moe-16b": dict(widths=(28, 2048, 10944, 102400),
+                             kernel="flash_attention"),
+    "deepseek-v2-236b": dict(widths=(60, 5120, 12288, 102400), layers=4,
+                             kernel="flash_attention"),
+    "gemma2-27b": dict(widths=(46, 4608, 36864, 256000), layers=8,
+                       kernel="flash_attention", long_prefill=8192),
+    "granite-34b": dict(widths=(88, 6144, 24576, 49152), layers=8,
+                        kernel="flash_attention"),
 }
 
 
+def _named_leaves(tree, key=None):
+    """(dict key, tensor) of every leaf of a parameter tree."""
+    if isinstance(tree, dict):
+        for k, v in tree.items():
+            yield from _named_leaves(v, k)
+    elif isinstance(tree, (list, tuple)):
+        for v in tree:
+            yield from _named_leaves(v, key)
+    else:
+        yield key, tree
+
+
 def phase_serve(name: str, kernels: list, with_profile: bool = False) -> dict:
+    from repro_torch.models.convert import FP32_LEAVES
     spec = get_arch(name).spec
     rt = RuntimeCfg()                    # bf16 params and compute, the kernels
     served = SERVED[name]
     require((spec.n_layers, spec.d_model, spec.d_ff, spec.vocab)
             == served["widths"], f"not the published {name}")
+    published_layers = spec.n_layers
+    if "layers" in served:
+        spec = dataclasses.replace(spec, n_layers=served["layers"])
     torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
     gen = torch.Generator(device=DEV).manual_seed(0)
     params = init_params(spec, rt, gen, device=DEV)
     torch.cuda.synchronize()
     init_s = time.perf_counter() - t0
-    leaves = []
-    lm._tree_map(leaves.append, params)
-    n_params = sum(t.numel() for t in leaves)
-    require(all(t.is_cuda and t.dtype == torch.bfloat16 for t in leaves),
-            "a parameter is not bf16 on the card")
+    named = list(_named_leaves(params))
+    n_params = sum(t.numel() for _, t in named)
+    require(all(t.is_cuda and t.dtype == (torch.float32 if k in FP32_LEAVES
+                                          else torch.bfloat16)
+                for k, t in named),
+            "a parameter is not bf16 on the card (the MoE router fp32)")
     require(abs(n_params - spec.params()) / spec.params() < 0.01,
             f"{n_params} parameters, the spec counts {spec.params():.0f}")
 
@@ -1023,6 +1172,9 @@ def phase_serve(name: str, kernels: list, with_profile: bool = False) -> dict:
         engine.submit(Request(rid=rid, prompt=prompt, max_new=max_new))
     prefill_tokens = torch.from_numpy(
         rng.randint(0, spec.vocab, size=(2, 2048))).to(DEV)
+    long_tokens = torch.from_numpy(rng.randint(
+        0, spec.vocab, size=(1, served["long_prefill"]))).to(DEV) \
+        if "long_prefill" in served else None
     prefill = make_prefill(spec, rt)
 
     # ---- the main path, with every launch count at 0 just before ----
@@ -1033,6 +1185,9 @@ def phase_serve(name: str, kernels: list, with_profile: bool = False) -> dict:
     torch.cuda.synchronize()
     decode_s = time.perf_counter() - t0
     last_logits, first = timed_prefill(prefill, params, prefill_tokens)
+    long_logits = long_info = None
+    if long_tokens is not None:
+        long_logits, long_info = timed_prefill(prefill, params, long_tokens)
     counts = {k: module.launches for k, module in COUNTERS.items()}
     wkv_variants = dict(wkv.launches_by_variant)
     # ---- read just after ----
@@ -1048,11 +1203,18 @@ def phase_serve(name: str, kernels: list, with_profile: bool = False) -> dict:
             f"prefill logits have shape {tuple(last_logits.shape)}")
     require(torch.isfinite(last_logits).all(),
             "prefill logits not finite")
+    prefills = 1
+    if long_logits is not None:
+        require(long_logits.shape == (1, 1, spec.vocab)
+                and bool(torch.isfinite(long_logits).all()),
+                "the long prefill's logits are not finite of shape [1,1,V]")
+        prefills = 2
     kernel = served["kernel"]
-    expected = engine.steps * spec.n_layers + spec.n_layers
+    expected = (engine.steps + prefills) * spec.n_layers
     require(counts[kernel] == expected,
             f"{kernel} launched {counts[kernel]} times, expected "
-            f"{engine.steps} steps x {spec.n_layers} + {spec.n_layers} = {expected}")
+            f"({engine.steps} steps + {prefills} prefills) x {spec.n_layers}"
+            f" = {expected}")
     require(all(n == 0 for k, n in counts.items() if k != kernel),
             f"{name} launched another model's kernel: {counts}")
     if kernel == "wkv6":
@@ -1066,8 +1228,14 @@ def phase_serve(name: str, kernels: list, with_profile: bool = False) -> dict:
         extra_counts = {"wkv6_launches_by_variant": wkv_variants}
     else:
         extra_counts = {}
+    # ``launches``: the sum over the served models that run the kernel,
+    # each model's own run beside it
     entry = next(k for k in kernels if k["name"] == kernel)
-    entry["launches"] = counts[kernel]
+    entry.setdefault("launches_by_path", {})[f"serve {name}"] = counts[kernel]
+    entry["launches"] = sum(entry["launches_by_path"].values())
+    for instance in entry.get("instances", {}).values():
+        if instance["path"] == f"serve {name}":
+            instance["launches"] = counts[kernel]
 
     # three more prefills, now warm: every reading, and their median as the
     # time that is reported
@@ -1083,6 +1251,9 @@ def phase_serve(name: str, kernels: list, with_profile: bool = False) -> dict:
     return {
         **extra,
         "model": spec.name, "layers": spec.n_layers, "d_model": spec.d_model,
+        "published_layers": published_layers,
+        "reduced": ([f"depth {spec.n_layers} of {published_layers} layers"]
+                    if spec.n_layers != published_layers else []),
         "params": n_params, "dtype": "bfloat16", "init_s": init_s,
         "slots": slots, "kv_len": kv_len, "requests": n_req,
         "served": len(done), "max_new": max_new,
@@ -1091,13 +1262,16 @@ def phase_serve(name: str, kernels: list, with_profile: bool = False) -> dict:
         "decode_ms_per_step": decode_s * 1e3 / engine.steps,
         "tokens_per_s": (prompt_tokens + generated) / decode_s,
         "generated_tokens_per_s": generated / decode_s,
+        **({"long_prefill_shape": [1, served["long_prefill"]],
+            "long_prefill_ms": long_info.pop("ms"),
+            "long_prefill_host_events": long_info} if long_info else {}),
         "prefill_shape": [2, 2048], "prefill_first_ms": first.pop("ms"),
         "prefill_ms": float(np.median(warm_ms)),
         "prefill_warm_ms_readings": warm_ms,
         "prefill_host_events": [first, *warm],
         "kernel": kernel, "launches": counts,
         "launches_per_decode_step": spec.n_layers,
-        "launches_per_prefill": spec.n_layers,
+        "launches_per_prefill": spec.n_layers, "prefills_counted": prefills,
         "peak_memory_gb": torch.cuda.max_memory_allocated() / 1e9,
         "first_request_tokens": done[0].out[:8],
     }
@@ -1884,11 +2058,19 @@ def phase_analysis(kernels: list) -> dict:
 PARITY_TOL = {"float32": 1e-4, "float16": 5e-2}
 
 
-def phase_parity(dtype: str = "float32") -> dict:
-    """The qwen3 smoke spec at ``dtype``: attention through the kernel
+# the smoke specs whose attention the parity phase holds against the naive
+# core: qwen3, then this slice's five families (granite's MQA, minitron's
+# gelu FFN, gemma2's windows and softcaps, deepseek-moe's MoE, deepseek-v2's
+# MLA with q/k of 24 and v of 16 through the fma and fp32 decode kernels)
+PARITY_SPECS = ("qwen3-14b", "granite-34b", "minitron-8b", "gemma2-27b",
+                "deepseek-moe-16b", "deepseek-v2-236b")
+
+
+def phase_parity(dtype: str = "float32", name: str = "qwen3-14b") -> dict:
+    """The smoke spec of ``name`` at ``dtype``: attention through the kernel
     (``"cuda"``; a float16 runtime hands it fp32 q/k/v) against the naive
     core, same greedy tokens and logits within ``PARITY_TOL``."""
-    spec = get_arch("qwen3-14b").smoke
+    spec = get_arch(name).smoke
     kw = dict(param_dtype=dtype, compute_dtype=dtype)
     rt_cuda = RuntimeCfg(attention_impl="cuda", **kw)
     rt_naive = RuntimeCfg(attention_impl="naive", **kw)
@@ -1907,22 +2089,31 @@ def phase_parity(dtype: str = "float32") -> dict:
     reset_counts()
     got = serve(rt_cuda)
     kernel_launches = fa.launches
+    reset_counts()
     want = serve(rt_naive)
+    require(fa.launches == 0, "the naive core launched the kernel")
     require(kernel_launches > 0, "the cuda path did not run the kernel")
     require(sorted(got) == [0, 1, 2] and got == want,
             f"greedy tokens differ ({dtype}): cuda {got}, naive {want}")
     tokens = torch.from_numpy(rng.randint(0, spec.vocab, size=(2, 40))).to(DEV)
+    reset_counts()
     l_cuda = lm.forward(params, tokens, spec, rt_cuda)
+    prefill_launches = fa.launches
     l_naive = lm.forward(params, tokens, spec, rt_naive)
+    require(prefill_launches == spec.n_layers,
+            f"the prefill launched the kernel {prefill_launches} times")
     torch.cuda.synchronize()
-    require(l_cuda.dtype == getattr(torch, dtype),
-            f"smoke logits in {l_cuda.dtype}, not {dtype}")
+    # a final softcap (gemma2) returns fp32 logits, as in the JAX package
+    want_dtype = torch.float32 if spec.final_softcap else getattr(torch, dtype)
+    require(l_cuda.dtype == want_dtype,
+            f"smoke logits in {l_cuda.dtype}, not {want_dtype}")
     require(torch.isfinite(l_cuda).all(), "smoke logits not finite")
     err = (l_cuda.float() - l_naive.float()).abs().max().item()
     require(err <= PARITY_TOL[dtype],
             f"smoke logits ({dtype}): cuda vs naive max abs err {err}")
     return {"spec": spec.name, "dtype": dtype, "requests": 3,
             "tokens_equal": True, "engine_flash_launches": kernel_launches,
+            "prefill_flash_launches": prefill_launches,
             "logits_max_abs": l_naive.float().abs().max().item(),
             "logits_max_abs_err": err, "tolerance": PARITY_TOL[dtype]}
 
@@ -2011,6 +2202,7 @@ def main(argv=None) -> int:
     if "kernels" in phases:
         kernels = phase_kernels()
         if not {"serve", "sweep", "api", "analysis"} & set(phases):
+            probe_library_backends()
             print(json.dumps({"kernels": kernels}), flush=True)
     main_paths = {"serve", "sweep", "api", "analysis"} & set(phases)
     if main_paths and not kernels:
@@ -2037,6 +2229,10 @@ def main(argv=None) -> int:
             if ran[k["name"]] in phases:
                 require(k["launches"] > 0,
                         f"kernel {k['name']} never ran on the main path")
+                for iname, inst in k.get("instances", {}).items():
+                    require(inst["launches"] > 0,
+                            f"{k['name']} {iname} never ran on its path")
+        probe_library_backends()
         print(json.dumps({"kernels": kernels}), flush=True)
     if "parity" in phases:
         # fp32 products in full fp32 on the card, as on the CPU (the
@@ -2046,7 +2242,8 @@ def main(argv=None) -> int:
         torch.backends.cuda.matmul.allow_fp16_reduced_precision_reduction = \
             False
         for dtype in PARITY_TOL:
-            emit("parity", **phase_parity(dtype))
+            for name in PARITY_SPECS:
+                emit("parity", **phase_parity(dtype, name))
             emit("parity", **phase_parity_rwkv(dtype))
 
     if set(phases) != set(PHASES):

@@ -28,7 +28,8 @@ ARCHS = (
     "rwkv6-7b",
 )
 # the families the port serves (models/, launch/serve.py)
-PORTED = ("qwen3-14b", "rwkv6-7b")
+PORTED = ("qwen3-14b", "rwkv6-7b", "granite-34b", "minitron-8b",
+          "gemma2-27b", "deepseek-moe-16b", "deepseek-v2-236b")
 
 
 @dataclass(frozen=True)

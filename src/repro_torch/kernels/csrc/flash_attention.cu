@@ -22,8 +22,16 @@
 // as the oracle `ref_attention` does (every score -1e30, softmax uniform), on
 // a slow path that reads V once more.  It does not occur in prefill or decode.
 //
-// All three kernels take the model layout by strides: q/out [B,S,N,G,D],
-// k/v [B,Sk,N,D], any strides as long as D is contiguous.  The kv head of
+// All three kernels take the model layout by strides: q [B,S,N,G,D], k
+// [B,Sk,N,D], v [B,Sk,N,Dv], out [B,S,N,G,Dv], any strides as long as the
+// head dims are contiguous.  D (of q and k) is at most 192 and Dv (of v and
+// out) at most min(D, 128): Dv = D <= 128 are the GQA instances; Dv < D the
+// MLA one (deepseek-v2: D = nope 128 + rope 64 = 192, Dv = 128), where each
+// kernel takes tiles of Q and K D wide and of V Dv wide (or V as wide as K,
+// zero past Dv, up to D = 128) and writes Dv columns.  Its bounds are those
+// below with D + Dv in place of 2 D: 2*B*H*(D + Dv)*(visible pairs) FLOPs
+// for the prefill, the bytes of the visible K (D) and V (Dv) rows for the
+// decode step.  The kv head of
 // query head h is h / G, so k and v are never repeated G times and a decode
 // step reads the cache in place.  q_offset, window, softcap and all lengths
 // are runtime arguments; ragged Sq, Sk and D are masked or zero-filled where
@@ -36,7 +44,10 @@
 //  * tc (`flash_attention_wg_kernel`): bf16, Sq > 1, D a multiple of 8, every
 //    stride and base 16-byte aligned.  The prefill of the served models.
 //    Bound: the two products, 4*B*H*D*(visible pairs) FLOPs at the bf16
-//    tensor-core rate.  Design: one block per (batch, query head, 128-row
+//    tensor-core rate.  At D = 192, Dv = 128 a stage of K (48 KB) and V (32
+//    KB) beside Q (48 KB) fits twice in the 227 KB a block may use, not three
+//    times, so that instance runs a two-stage ring; S = QK^T takes 12 k-steps
+//    of 16 over three 64-column boxes, O and the registers are as at 128.  Design: one block per (batch, query head, 128-row
 //    q-tile), q-tiles launched last-first so the longest causal rows start
 //    first; two warpgroups of 64 query rows each.  Thread 0 loads the Q
 //    tile once and streams 128-key K and V tiles into a three-stage ring in
@@ -75,9 +86,13 @@
 //    output directly.  bf16 (`flash_decode_tc_kernel`): the chunk's <= 16
 //    heads are the rows of mma.sync m16n8k16 tiles; K and V tiles of 64 keys
 //    stream through a two-stage cp.async ring and each of 4 warps takes 16
-//    keys of a tile, so a key costs a few tensor-core instructions.  fp32
+//    keys of a tile, so a key costs a few tensor-core instructions.  At D =
+//    192, Dv = 128 (MLA, G = 1: one of the 16 rows of each tile holds a
+//    head) the 88 KB of shared memory leave two resident blocks per SM, not
+//    three; the wrapper sizes its split target by instance.  fp32
 //    (`flash_decode_kernel`): IEEE fp32 dot products; a warp owns one key at
-//    a time, each lane a 16-byte piece of the row, several keys in flight.
+//    a time, each lane a 16-byte piece of the row (two of a K row past D =
+//    128), several keys in flight.
 
 #include <cuda.h>
 #include <cuda_runtime.h>
@@ -103,7 +118,8 @@ struct Params {
   void* o;
   float* part;        // decode, splits > 1: partial (m, l, acc) of every split
   unsigned* ticket;   // decode, splits > 1: arrivals per (b, kv head, chunk)
-  int B, N, G, Sq, Sk, D;
+  int B, N, G, Sq, Sk, D;             // D: head dim of q and k
+  int Dv;                             // head dim of v and out (<= D)
   long long q_sb, q_ss, q_sn, q_sg;   // element strides; D has stride 1
   long long k_sb, k_ss, k_sn;
   long long v_sb, v_ss, v_sn;
@@ -170,7 +186,9 @@ __device__ __forceinline__ void load_tile(float* dst, const T* src,
   }
 }
 
-// T: element type of q/k/v/out.  DP: head dim rounded up to 16/32/64/128.
+// T: element type of q/k/v/out.  DP: head dim of q and k rounded up to
+// 16/32/64/128/192; V tiles are as wide, zero past Dv, and only the Dv
+// columns of the output are written.
 // The block's q-tile has BM = 16*TM = 64 rows, a kv tile BN = 16*TN keys.
 // Thread (ty, tx) owns query rows ty*TM + i, score columns tx + 16*j and
 // output columns tx + 16*c.  The 16 threads that share a ty are one half of
@@ -234,7 +252,7 @@ flash_attention_kernel(const Params p) {
   for (int kv0 = kv_lo; kv0 < kv_hi; kv0 += BN) {
     __syncthreads();   // the previous tile's readers are done (first pass: sQ is written)
     load_tile<T, BN, DP, KS>(sK, kp, p.k_ss, kv0, p.Sk, p.D, tid);
-    load_tile<T, BN, DP, DP>(sV, vp, p.v_ss, kv0, p.Sk, p.D, tid);
+    load_tile<T, BN, DP, DP>(sV, vp, p.v_ss, kv0, p.Sk, p.Dv, tid);
     __syncthreads();
     if (!active) continue;
 
@@ -339,7 +357,7 @@ flash_attention_kernel(const Params p) {
 #pragma unroll
     for (int c = 0; c < DC; ++c) {
       const int col = tx + kTX * c;
-      if (col >= p.D) continue;
+      if (col >= p.Dv) continue;
       store1(orow + col, l[i] > 0.f ? acc[i][c] / l[i]
                                     : mean_v(vp, p.v_ss, p.Sk, col));
     }
@@ -518,7 +536,6 @@ __device__ __forceinline__ void rescale_o(float (&o)[NO][4], const float (&corr)
 constexpr int kWgThreads = 256;   // 2 warpgroups, 64 query rows each
 constexpr int kWgBM = 128;        // query rows per block, 64 per consumer
 constexpr int kWgBN = 128;        // keys per kv tile
-constexpr int kWgStages = 3;      // K/V ring depth
 
 struct TcMaps {
   CUtensorMap q, k, v;            // bf16, 128-byte swizzle, 64-column boxes
@@ -643,9 +660,9 @@ __device__ __forceinline__ void wgmma_rs_tb(float (&d)[8][4],
 
 
 // O += P V for a 128-key tile: P (hi and lo bf16 parts) as the register A
-// operand, V [128 keys][DP] from the stage at sV, MN-major: keys
+// operand, V [128 keys][DV] from the stage at sV, MN-major: keys
 // [16 kk, 16 kk + 16) are two 8-key groups of 1024 bytes; the two 64-column
-// boxes of a DP = 128 row are kKVBox apart.
+// boxes of a DV = 128 row are kKVBox apart.
 template <int NO>
 __device__ __forceinline__ void pv_products(float (&o)[NO][4],
                                             const uint32_t (&ph)[kWgBN / 16][4],
@@ -659,7 +676,11 @@ __device__ __forceinline__ void pv_products(float (&o)[NO][4],
   }
 }
 
-// DP: head dim rounded up to 64 or 128 (one or two 64-column boxes).
+// DQ: head dim of q and k rounded up to 64, 128 or 192 (one, two or three
+// 64-column boxes); DV: that of v and out, 64 or 128 (DV = DQ up to 128,
+// V columns past Dv zero-filled by TMA; DV = 128 under DQ = 192, the MLA
+// instance).  S: K/V ring depth (3; 2 at DQ = 192, whose 80 KB stages would
+// not fit three times beside Q's 48 KB).
 // Warpgroups 0 and 1 each own 64 query rows: S = Q K^T as wgmma m64n128k16
 // from shared memory, the online softmax on the accumulator registers, O =
 // O * corr + P V as wgmma with P (hi and lo bf16 parts) as the register A
@@ -673,22 +694,22 @@ __device__ __forceinline__ void pv_products(float (&o)[NO][4],
 // accumulators a thread holds rows lane/4 and lane/4 + 8 of its warp's 16
 // and columns 2*(lane%4), +1 of every 8-wide tile, as in an mma.sync m16n8
 // fragment.
-template <int DP>
+template <int DQ, int DV, int S>
 __global__ void __launch_bounds__(kWgThreads, 1)
 flash_attention_wg_kernel(const Params p, const __grid_constant__ TcMaps maps) {
   constexpr int BN = kWgBN;
-  constexpr int H = DP / 64;                     // 64-column boxes per row
+  constexpr int H = DQ / 64;                     // 64-column boxes of a Q/K row
+  constexpr int HV = DV / 64;                    // of a V row
   constexpr int NS = BN / 8;                     // 8-key column tiles of S
-  constexpr int NO = DP / 8;                     // 8-wide column tiles of O
+  constexpr int NO = DV / 8;                     // 8-wide column tiles of O
   constexpr uint32_t kQBox = 64 * 128;           // 64 rows x 128 bytes
   constexpr uint32_t kKVBox = BN * 128;          // 128 rows x 128 bytes
   constexpr uint32_t kQBytes = 2 * H * kQBox;
-  constexpr uint32_t kStage = 2 * H * kKVBox;    // K boxes, then V boxes
+  constexpr uint32_t kStage = (H + HV) * kKVBox; // K boxes, then V boxes
 
   extern __shared__ unsigned char wg_smem[];
   const uint32_t sQ = (smem_addr(wg_smem) + 1023u) & ~1023u;
   const uint32_t sKV = sQ + kQBytes;
-  constexpr int S = kWgStages;
   const uint32_t full0 = sKV + S * kStage;       // full[S], empty[S], q
   const uint32_t empty0 = full0 + 8 * S;
   const uint32_t q_bar = empty0 + 8 * S;
@@ -734,6 +755,9 @@ flash_attention_wg_kernel(const Params p, const __grid_constant__ TcMaps maps) {
       c[p.k_ord[1]] = n;
       c[p.k_ord[2]] = b;
       tma_load_4d(dst + hh * kKVBox, &maps.k, full, c);
+    }
+    for (int hh = 0; hh < HV; ++hh) {
+      c[0] = 64 * hh;
       c[p.v_ord[0]] = kv_lo + t * BN;
       c[p.v_ord[1]] = n;
       c[p.v_ord[2]] = b;
@@ -790,7 +814,7 @@ flash_attention_wg_kernel(const Params p, const __grid_constant__ TcMaps maps) {
     fence_regs(s);
     wgmma_fence();
 #pragma unroll
-    for (int kk = 0; kk < DP / 16; ++kk) {
+    for (int kk = 0; kk < DQ / 16; ++kk) {
       const uint32_t col = (kk & 3) * 32;      // 16 bf16 inside a 128-byte row
       wgmma_ss_n128(s,
                     gmma_desc(sQ + (cw * H + kk / 4) * kQBox + col, 16, 1024),
@@ -846,7 +870,7 @@ flash_attention_wg_kernel(const Params p, const __grid_constant__ TcMaps maps) {
 #pragma unroll
     for (int j = 0; j < NO; ++j) {
       const int col = j * 8 + c_in;
-      if (col >= p.D) continue;
+      if (col >= p.Dv) continue;
       float x0 = o[j][2 * i] * inv;
       float x1 = o[j][2 * i + 1] * inv;
       if (!seen) {
@@ -885,7 +909,7 @@ __device__ __forceinline__ DecodeRange decode_range(const Params& p, int split) 
 
 // The end of both decode kernels.  NG partial softmaxes per head sit in
 // shared memory (group grp, head g: m at sM[grp * gs + g], l at sL[...], acc
-// at sA[(grp * gs + g) * as + d]), m in the base-2 domain; the block has
+// at sA[(grp * gs + g) * as + d], d < Dv), m in the base-2 domain; the block has
 // synchronised after writing them.  One split: out = sum w acc / sum w l,
 // w = 2^(m - M).  Several: the block's merged (m, l, acc[D]) go to its slot
 // of p.part, and the last split of this (batch, kv head, chunk) to arrive
@@ -899,11 +923,11 @@ __device__ __forceinline__ void finish_decode(const Params& p, const float* sM,
   const int tid = threadIdx.x;
   const bool single = p.splits == 1;
   const size_t ub = (size_t)blockIdx.z * gridDim.y + blockIdx.y;
-  const int row_len = p.D + 2;                 // m, l, acc[D] of one head
+  const int row_len = p.Dv + 2;                // m, l, acc[Dv] of one head
   float* mine = single ? nullptr : p.part + (ub * p.splits + split) * gc * row_len;
-  for (int i = tid; i < gn * p.D; i += blockDim.x) {
-    const int g = i / p.D;
-    const int d = i % p.D;
+  for (int i = tid; i < gn * p.Dv; i += blockDim.x) {
+    const int g = i / p.Dv;
+    const int d = i % p.Dv;
     float mx = -INFINITY;
 #pragma unroll
     for (int grp = 0; grp < NG; ++grp) mx = fmaxf(mx, sM[grp * gs + g]);
@@ -937,9 +961,9 @@ __device__ __forceinline__ void finish_decode(const Params& p, const float* sM,
   if (!*sLast) return;
   __threadfence();
   const float* all = p.part + ub * p.splits * gc * row_len;
-  for (int i = tid; i < gn * p.D; i += blockDim.x) {
-    const int g = i / p.D;
-    const int d = i % p.D;
+  for (int i = tid; i < gn * p.Dv; i += blockDim.x) {
+    const int g = i / p.Dv;
+    const int d = i % p.Dv;
     float mx = -INFINITY;
     for (int sp = 0; sp < p.splits; ++sp)
       mx = fmaxf(mx, __ldcg(all + ((size_t)sp * gc + g) * row_len));
@@ -964,17 +988,21 @@ __device__ __forceinline__ void finish_decode(const Params& p, const float* sM,
 // ring, and warp w takes keys [16w, 16w + 16) of each tile: S = Q K^T and
 // O += P V (P as bf16 hi + lo parts) are mma.sync m16n8k16, so a key costs a
 // few instructions instead of a lane group's dot products and shuffles.  The
-// four warps' softmaxes are merged once at the end.
-template <int DP>
-__global__ void __launch_bounds__(kDecThreads, 3)
+// four warps' softmaxes are merged once at the end.  DQ: head dim of q and
+// k rounded up to 64, 128 or 192; DV: that of v (DV = DQ up to 128, V
+// columns past Dv zero; DV = 128 under DQ = 192, the MLA instance, whose
+// 88 KB of shared memory leave room for two resident blocks, not three).
+template <int DQ, int DV>
+__global__ void __launch_bounds__(kDecThreads, DQ > 128 ? 2 : 3)
 flash_decode_tc_kernel(const Params p) {
-  constexpr int KS = DP / 16;
-  constexpr int NO = DP / 8;
-  constexpr uint32_t kTile = kDtBN * DP * 2;
+  constexpr int KS = DQ / 16;
+  constexpr int NO = DV / 8;
+  constexpr uint32_t kKTile = kDtBN * DQ * 2;
+  constexpr uint32_t kStage = kKTile + kDtBN * DV * 2;
   extern __shared__ __align__(128) unsigned char dt_smem[];
   __shared__ int sLast;
-  const uint32_t sQ = smem_addr(dt_smem);            // [16][DP]
-  const uint32_t sKV = sQ + kDtRows * DP * 2;        // 2 stages of K, V [64][DP]
+  const uint32_t sQ = smem_addr(dt_smem);            // [16][DQ]
+  const uint32_t sKV = sQ + kDtRows * DQ * 2;        // 2 stages of K [64][DQ], V [64][DV]
 
   const int tid = threadIdx.x;
   const int warp = tid >> 5;
@@ -993,10 +1021,10 @@ flash_decode_tc_kernel(const Params p) {
   const DecodeRange r = decode_range(p, split);
   const int n_tiles = r.s_hi > r.s_lo ? (r.s_hi - r.s_lo + kDtBN - 1) / kDtBN : 0;
 
-  load_tile_async<kDtRows, DP, kDecThreads>(sQ, qp, p.q_sg, 0, gn, p.D, tid);
+  load_tile_async<kDtRows, DQ, kDecThreads>(sQ, qp, p.q_sg, 0, gn, p.D, tid);
   if (n_tiles > 0) {
-    load_tile_async<kDtBN, DP, kDecThreads>(sKV, kp, p.k_ss, r.s_lo, r.s_hi, p.D, tid);
-    load_tile_async<kDtBN, DP, kDecThreads>(sKV + kTile, vp, p.v_ss, r.s_lo, r.s_hi, p.D, tid);
+    load_tile_async<kDtBN, DQ, kDecThreads>(sKV, kp, p.k_ss, r.s_lo, r.s_hi, p.D, tid);
+    load_tile_async<kDtBN, DV, kDecThreads>(sKV + kKTile, vp, p.v_ss, r.s_lo, r.s_hi, p.Dv, tid);
   }
   cp_async_commit();
 
@@ -1013,9 +1041,9 @@ flash_decode_tc_kernel(const Params p) {
   for (int t = 0; t < n_tiles; ++t) {
     const int kv0 = r.s_lo + t * kDtBN;
     if (t + 1 < n_tiles) {
-      const uint32_t nxt = sKV + ((t + 1) & 1) * 2 * kTile;
-      load_tile_async<kDtBN, DP, kDecThreads>(nxt, kp, p.k_ss, kv0 + kDtBN, r.s_hi, p.D, tid);
-      load_tile_async<kDtBN, DP, kDecThreads>(nxt + kTile, vp, p.v_ss, kv0 + kDtBN, r.s_hi, p.D, tid);
+      const uint32_t nxt = sKV + ((t + 1) & 1) * kStage;
+      load_tile_async<kDtBN, DQ, kDecThreads>(nxt, kp, p.k_ss, kv0 + kDtBN, r.s_hi, p.D, tid);
+      load_tile_async<kDtBN, DV, kDecThreads>(nxt + kKTile, vp, p.v_ss, kv0 + kDtBN, r.s_hi, p.Dv, tid);
     }
     cp_async_commit();
     cp_async_wait<1>();
@@ -1023,11 +1051,11 @@ flash_decode_tc_kernel(const Params p) {
     if (t == 0) {
 #pragma unroll
       for (int kk = 0; kk < KS; ++kk)
-        ldsm_x4(qf[kk], sQ + swz<DP>((lane & 7) + ((lane >> 3) & 1) * 8,
+        ldsm_x4(qf[kk], sQ + swz<DQ>((lane & 7) + ((lane >> 3) & 1) * 8,
                                      kk * 2 + (lane >> 4)));
     }
-    const uint32_t sK = sKV + (t & 1) * 2 * kTile;
-    const uint32_t sV = sK + kTile;
+    const uint32_t sK = sKV + (t & 1) * kStage;
+    const uint32_t sV = sK + kKTile;
 
     // S = Q K^T: 16 heads x this warp's 16 keys
     float s[2][4];
@@ -1038,7 +1066,7 @@ flash_decode_tc_kernel(const Params p) {
 #pragma unroll
     for (int kk = 0; kk < KS; ++kk) {
       uint32_t bk[4];
-      ldsm_x4(bk, sK + swz<DP>(warp * 16 + (lane & 7) + (lane >> 4) * 8,
+      ldsm_x4(bk, sK + swz<DQ>(warp * 16 + (lane & 7) + (lane >> 4) * 8,
                                kk * 2 + ((lane >> 3) & 1)));
       mma_16816(s[0], qf[kk], bk[0], bk[1]);
       mma_16816(s[1], qf[kk], bk[2], bk[3]);
@@ -1065,7 +1093,7 @@ flash_decode_tc_kernel(const Params p) {
 #pragma unroll
     for (int j = 0; j < NO / 2; ++j) {
       uint32_t bv[4];
-      ldsm_x4_t(bv, sV + swz<DP>(warp * 16 + (lane & 7) + ((lane >> 3) & 1) * 8,
+      ldsm_x4_t(bv, sV + swz<DV>(warp * 16 + (lane & 7) + ((lane >> 3) & 1) * 8,
                                  j * 2 + (lane >> 4)));
       mma_16816(o[2 * j], ah, bv[0], bv[1]);
       mma_16816(o[2 * j + 1], ah, bv[2], bv[3]);
@@ -1078,8 +1106,8 @@ flash_decode_tc_kernel(const Params p) {
   // the four warps' (m, l, acc) per head, into the (now free) K/V stages
   cp_async_wait<0>();
   __syncthreads();
-  float* sA = reinterpret_cast<float*>(dt_smem + kDtRows * DP * 2);  // [4][16][DP]
-  float* sM = sA + 4 * kDtRows * DP;                                  // [4][16]
+  float* sA = reinterpret_cast<float*>(dt_smem + kDtRows * DQ * 2);  // [4][16][DV]
+  float* sM = sA + 4 * kDtRows * DV;                                  // [4][16]
   float* sL = sM + 4 * kDtRows;
 #pragma unroll
   for (int i = 0; i < 2; ++i) {
@@ -1092,12 +1120,12 @@ flash_decode_tc_kernel(const Params p) {
     }
 #pragma unroll
     for (int j = 0; j < NO; ++j) {
-      sA[(warp * kDtRows + row) * DP + 8 * j + c_in] = o[j][2 * i];
-      sA[(warp * kDtRows + row) * DP + 8 * j + c_in + 1] = o[j][2 * i + 1];
+      sA[(warp * kDtRows + row) * DV + 8 * j + c_in] = o[j][2 * i];
+      sA[(warp * kDtRows + row) * DV + 8 * j + c_in + 1] = o[j][2 * i + 1];
     }
   }
   __syncthreads();
-  finish_decode<bf16, 4>(p, sM, sL, sA, kDtRows, DP, gn, gc, split, op, vp, &sLast);
+  finish_decode<bf16, 4>(p, sM, sL, sA, kDtRows, DV, gn, gc, split, op, vp, &sLast);
 }
 
 // --- fp32: lane groups with IEEE fp32 dot products -------------------------
@@ -1115,16 +1143,17 @@ __device__ __forceinline__ void unpack16(const uint4& r, float (&f)[4]) {
 
 // GC: query heads per block (a chunk of the G heads of one kv head).  A
 // group of 32 lanes (a warp) owns one key at a time, lane j the 16-byte
-// piece [4j, 4j + 4) of its row (D <= 128), so the warp reads a K or V row as
-// one contiguous run; the block's 4 warps take U consecutive keys each per
-// step.  Every warp runs its own online softmax for the GC heads; the warps
-// are merged once at the end.
-template <int GC>
+// pieces [4j + 128 i, 4j + 128 i + 4), i < KP, of its K row (D <= 128 KP)
+// and the piece [4j, 4j + 4) of its V row (Dv <= 128), so the warp reads a
+// row as contiguous runs; the block's 4 warps take U consecutive keys each
+// per step.  Every warp runs its own online softmax for the GC heads; the
+// warps are merged once at the end.
+template <int GC, int KP>
 __global__ void __launch_bounds__(kDecThreads)
 flash_decode_kernel(const Params p) {
-  constexpr int EPL = 4;                       // elements per lane
+  constexpr int EPL = 4;                       // elements per lane and piece
   constexpr int NG = kDecThreads / 32;         // key groups (warps)
-  constexpr int U = GC > 5 ? 2 : 4;            // keys per group and step
+  constexpr int U = GC * KP > 5 ? 2 : 4;       // keys per group and step
   __shared__ __align__(16) float sAcc[NG][GC][128];
   __shared__ float sM[NG][GC], sL[NG][GC];
   __shared__ int sLast;
@@ -1132,7 +1161,10 @@ flash_decode_kernel(const Params p) {
   const int tid = threadIdx.x;
   const int group = tid / 32;
   const int d0 = (tid % 32) * EPL;
-  const bool has_d = d0 < p.D;                 // D is a multiple of EPL
+  bool has_k[KP];                              // D, Dv are multiples of EPL
+#pragma unroll
+  for (int i = 0; i < KP; ++i) has_k[i] = d0 + 128 * i < p.D;
+  const bool has_v = d0 < p.Dv;
 
   const int split = blockIdx.x;
   const int unit = blockIdx.y;                 // (kv head, chunk of heads)
@@ -1150,14 +1182,17 @@ flash_decode_kernel(const Params p) {
   // the argument of its tanh)
   const float qs = p.softcap > 0.f ? p.cap_in : p.scale_log2;
   const uint4 zero16 = make_uint4(0u, 0u, 0u, 0u);
-  float q[GC][EPL];
+  float q[GC][KP][EPL];
 #pragma unroll
-  for (int g = 0; g < GC; ++g) {
-    float f[EPL];
-    unpack16(g < gn && has_d ? load16(qp + g * p.q_sg + d0) : zero16, f);
+  for (int g = 0; g < GC; ++g)
 #pragma unroll
-    for (int e = 0; e < EPL; ++e) q[g][e] = f[e] * qs;
-  }
+    for (int i = 0; i < KP; ++i) {
+      float f[EPL];
+      unpack16(g < gn && has_k[i] ? load16(qp + g * p.q_sg + d0 + 128 * i)
+                                  : zero16, f);
+#pragma unroll
+      for (int e = 0; e < EPL; ++e) q[g][i][e] = f[e] * qs;
+    }
 
   float m[GC], l[GC], acc[GC][EPL];
 #pragma unroll
@@ -1170,28 +1205,32 @@ flash_decode_kernel(const Params p) {
 
   for (int k0 = r.s_lo + group * U; k0 < r.s_hi; k0 += NG * U) {
     // a key past s_hi reads row s_hi - 1 again and is masked below
-    uint4 kr[U], vr[U];
+    uint4 kr[U][KP], vr[U];
 #pragma unroll
     for (int u = 0; u < U; ++u) {
       const long long row = min(k0 + u, r.s_hi - 1);
-      kr[u] = has_d ? load16(kp + row * p.k_ss + d0) : zero16;
+#pragma unroll
+      for (int i = 0; i < KP; ++i)
+        kr[u][i] = has_k[i] ? load16(kp + row * p.k_ss + d0 + 128 * i) : zero16;
     }
 #pragma unroll
     for (int u = 0; u < U; ++u) {
       const long long row = min(k0 + u, r.s_hi - 1);
-      vr[u] = has_d ? load16(vp + row * p.v_ss + d0) : zero16;
+      vr[u] = has_v ? load16(vp + row * p.v_ss + d0) : zero16;
     }
     float s[U][GC];
 #pragma unroll
     for (int u = 0; u < U; ++u) {
-      float kf[EPL];
-      unpack16(kr[u], kf);
 #pragma unroll
-      for (int g = 0; g < GC; ++g) {
-        float dot = 0.f;
+      for (int g = 0; g < GC; ++g) s[u][g] = 0.f;
 #pragma unroll
-        for (int e = 0; e < EPL; ++e) dot = fmaf(q[g][e], kf[e], dot);
-        s[u][g] = dot;
+      for (int i = 0; i < KP; ++i) {
+        float kf[EPL];
+        unpack16(kr[u][i], kf);
+#pragma unroll
+        for (int g = 0; g < GC; ++g)
+#pragma unroll
+          for (int e = 0; e < EPL; ++e) s[u][g] = fmaf(q[g][i][e], kf[e], s[u][g]);
       }
     }
 #pragma unroll
@@ -1243,7 +1282,7 @@ flash_decode_kernel(const Params p) {
       sL[group][g] = l[g];
     }
   }
-  if (has_d) {
+  if (has_v) {
 #pragma unroll
     for (int g = 0; g < GC; ++g)
       *reinterpret_cast<float4*>(&sAcc[group][g][d0]) =
@@ -1260,7 +1299,7 @@ flash_decode_kernel(const Params p) {
 
 template <typename T, int DP>
 cudaError_t launch_fma(const Params& p, cudaStream_t stream) {
-  constexpr int TN = (DP == 128) ? 2 : 4;
+  constexpr int TN = (DP >= 128) ? 2 : 4;
   constexpr int BM = kTY * kTM;
   constexpr int BN = kTX * TN;
   constexpr size_t kSmem =
@@ -1279,7 +1318,8 @@ cudaError_t launch_fma_dtype(const Params& p, cudaStream_t stream) {
   if (p.D <= 16) return launch_fma<T, 16>(p, stream);
   if (p.D <= 32) return launch_fma<T, 32>(p, stream);
   if (p.D <= 64) return launch_fma<T, 64>(p, stream);
-  return launch_fma<T, 128>(p, stream);
+  if (p.D <= 128) return launch_fma<T, 128>(p, stream);
+  return launch_fma<T, 192>(p, stream);
 }
 
 // cuTensorMapEncodeTiled through the runtime, so the library needs no -lcuda.
@@ -1341,7 +1381,7 @@ bool tensor_map(CUtensorMap* map, const void* base, int D, int n,
             CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
 }
 
-template <int DP>
+template <int DQ, int DV, int S>
 cudaError_t launch_wg(const Params& p0, cudaStream_t stream) {
   Params p = p0;
   TcMaps maps;
@@ -1352,13 +1392,15 @@ cudaError_t launch_wg(const Params& p0, cudaStream_t stream) {
   const long long v_stride[3] = {p.v_ss, p.v_sn, p.v_sb};
   if (!tensor_map(&maps.q, p.q, p.D, 4, q_size, q_stride, 64, p.q_ord) ||
       !tensor_map(&maps.k, p.k, p.D, 3, kv_size, k_stride, kWgBN, p.k_ord) ||
-      !tensor_map(&maps.v, p.v, p.D, 3, kv_size, v_stride, kWgBN, p.v_ord))
+      !tensor_map(&maps.v, p.v, p.Dv, 3, kv_size, v_stride, kWgBN, p.v_ord))
     return cudaErrorInvalidValue;
-  constexpr int H = DP / 64;
+  constexpr int H = DQ / 64;
+  constexpr int HV = DV / 64;
   // 1024 for alignment, Q, the stages of K and V, their mbarriers and Q's
-  constexpr int kSmem = 1024 + 2 * H * 64 * 128 + kWgStages * 2 * H * kWgBN * 128 +
-                        8 * (2 * kWgStages + 1);
-  auto kernel = flash_attention_wg_kernel<DP>;
+  constexpr int kSmem = 1024 + 2 * H * 64 * 128 + S * (H + HV) * kWgBN * 128 +
+                        8 * (2 * S + 1);
+  static_assert(kSmem <= 232448, "over the 227 KB a block may use");
+  auto kernel = flash_attention_wg_kernel<DQ, DV, S>;
   cudaError_t err = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, kSmem);
   if (err != cudaSuccess) return err;
@@ -1367,31 +1409,34 @@ cudaError_t launch_wg(const Params& p0, cudaStream_t stream) {
   return cudaGetLastError();
 }
 
-template <int GC>
+template <int GC, int KP>
 cudaError_t launch_decode(const Params& p, cudaStream_t stream) {
   const dim3 grid(p.splits, p.N * p.g_chunks, p.B);
-  flash_decode_kernel<GC><<<grid, kDecThreads, 0, stream>>>(p);
+  flash_decode_kernel<GC, KP><<<grid, kDecThreads, 0, stream>>>(p);
   return cudaGetLastError();
 }
 
+// KP: 16-byte pieces of a q/k row per lane (D <= 128 KP)
+template <int KP>
 cudaError_t launch_decode_fp32(const Params& p, cudaStream_t stream) {
   switch ((p.G + p.g_chunks - 1) / p.g_chunks) {
-    case 1: return launch_decode<1>(p, stream);
-    case 2: return launch_decode<2>(p, stream);
-    case 3: return launch_decode<3>(p, stream);
-    case 4: return launch_decode<4>(p, stream);
-    case 5: return launch_decode<5>(p, stream);
-    case 6: return launch_decode<6>(p, stream);
-    case 7: return launch_decode<7>(p, stream);
-    case 8: return launch_decode<8>(p, stream);
+    case 1: return launch_decode<1, KP>(p, stream);
+    case 2: return launch_decode<2, KP>(p, stream);
+    case 3: return launch_decode<3, KP>(p, stream);
+    case 4: return launch_decode<4, KP>(p, stream);
+    case 5: return launch_decode<5, KP>(p, stream);
+    case 6: return launch_decode<6, KP>(p, stream);
+    case 7: return launch_decode<7, KP>(p, stream);
+    case 8: return launch_decode<8, KP>(p, stream);
     default: return cudaErrorInvalidValue;
   }
 }
 
-template <int DP>
+template <int DQ, int DV>
 cudaError_t launch_decode_tc(const Params& p, cudaStream_t stream) {
-  constexpr int kSmem = kDtRows * DP * 2 + 4 * kDtBN * DP * 2;   // Q + 2 x (K, V)
-  auto kernel = flash_decode_tc_kernel<DP>;
+  // Q + 2 x (K, V)
+  constexpr int kSmem = kDtRows * DQ * 2 + 2 * kDtBN * (DQ + DV) * 2;
+  auto kernel = flash_decode_tc_kernel<DQ, DV>;
   cudaError_t err = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, kSmem);
   if (err != cudaSuccess) return err;
@@ -1402,13 +1447,14 @@ cudaError_t launch_decode_tc(const Params& p, cudaStream_t stream) {
 
 }  // namespace
 
-// meta, 26 integers: B N G Sq Sk D | q strides b s n g | k strides b s n |
+// meta, 27 integers: B N G Sq Sk D | q strides b s n g | k strides b s n |
 // v strides b s n | out strides b s n g | causal window q_offset |
-// splits split_len g_chunks (decode).
+// splits split_len g_chunks (decode) | Dv.  D is the head dim of q and k (at
+// most 192), Dv that of v and out (at most min(D, 128)), both multiples of 4.
 // dtype: 0 = float32, 1 = bfloat16.  variant: 0 = fma, 1 = tc, 2 = decode;
 // the chosen kernel is launched or the call fails, never another one.
 // part / ticket: decode scratch, needed when splits > 1 (part: B * N *
-// g_chunks * splits * ceil(G / g_chunks) * (D + 2) floats; ticket:
+// g_chunks * splits * ceil(G / g_chunks) * (Dv + 2) floats; ticket:
 // B * N * g_chunks zeroed unsigned ints, left zeroed by the kernel).
 // Returns the cudaError_t of the launch (0 on success), or
 // cudaErrorInvalidValue for arguments the chosen kernel does not take.
@@ -1429,12 +1475,14 @@ extern "C" int flash_attention_launch(const void* q, const void* k,
   p.o_sb = meta[16]; p.o_ss = meta[17]; p.o_sn = meta[18]; p.o_sg = meta[19];
   p.causal = (int)meta[20]; p.window = (int)meta[21]; p.q_offset = (int)meta[22];
   p.splits = (int)meta[23]; p.split_len = (int)meta[24]; p.g_chunks = (int)meta[25];
+  p.Dv = (int)meta[26];
   p.scale = scale; p.softcap = softcap;
   p.scale_log2 = scale * kLog2e;
   p.cap_in = softcap > 0.f ? scale / softcap : 0.f;
   p.cap_out = softcap * kLog2e;
   if (p.B <= 0 || p.N <= 0 || p.G <= 0 || p.Sq <= 0 || p.Sk < 0 ||
-      p.D <= 0 || p.D > 128 || p.D % 4 != 0 || p.B > 65535 ||
+      p.D <= 0 || p.D > 192 || p.D % 4 != 0 || p.Dv <= 0 ||
+      p.Dv > (p.D < 128 ? p.D : 128) || p.Dv % 4 != 0 || p.B > 65535 ||
       p.N * p.G > 65535 || (dtype != 0 && dtype != 1))
     return (int)cudaErrorInvalidValue;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
@@ -1442,19 +1490,26 @@ extern "C" int flash_attention_launch(const void* q, const void* k,
     return (int)(dtype == 0 ? launch_fma_dtype<float>(p, st)
                             : launch_fma_dtype<bf16>(p, st));
   if (variant == 1) {
-    if (dtype != 1 || p.D % 8 != 0) return (int)cudaErrorInvalidValue;
-    return (int)(p.D <= 64 ? launch_wg<64>(p, st) : launch_wg<128>(p, st));
+    if (dtype != 1 || p.D % 8 != 0 || p.Dv % 8 != 0)
+      return (int)cudaErrorInvalidValue;
+    if (p.D <= 64) return (int)launch_wg<64, 64, 3>(p, st);
+    if (p.D <= 128) return (int)launch_wg<128, 128, 3>(p, st);
+    return (int)launch_wg<192, 128, 2>(p, st);
   }
   if (variant == 2) {
     const int gc = p.g_chunks > 0 ? (p.G + p.g_chunks - 1) / p.g_chunks : 0;
-    if (p.Sq != 1 || p.D % (dtype == 0 ? 4 : 8) != 0 || p.splits < 1 ||
+    if (p.Sq != 1 || p.D % (dtype == 0 ? 4 : 8) != 0 ||
+        p.Dv % (dtype == 0 ? 4 : 8) != 0 || p.splits < 1 ||
         p.split_len < 1 || p.g_chunks < 1 || gc > (dtype == 0 ? 8 : kDtRows) ||
         p.N * p.g_chunks > 65535 ||
         (p.splits > 1 && (part == nullptr || ticket == nullptr)))
       return (int)cudaErrorInvalidValue;
-    if (dtype == 0) return (int)launch_decode_fp32(p, st);
-    return (int)(p.D <= 64 ? launch_decode_tc<64>(p, st)
-                           : launch_decode_tc<128>(p, st));
+    if (dtype == 0)
+      return (int)(p.D <= 128 ? launch_decode_fp32<1>(p, st)
+                              : launch_decode_fp32<2>(p, st));
+    if (p.D <= 64) return (int)launch_decode_tc<64, 64>(p, st);
+    if (p.D <= 128) return (int)launch_decode_tc<128, 128>(p, st);
+    return (int)launch_decode_tc<192, 128>(p, st);
   }
   return (int)cudaErrorInvalidValue;
 }

@@ -2,10 +2,14 @@
 its launch count, and the same function in plain PyTorch.
 
 Model layout throughout: ``q [B, Sq, N, G, D]`` (N kv heads, G query heads
-per kv head), ``k/v [B, Sk, N, D]`` -> ``[B, Sq, N, G, D]`` in q's dtype.
+per kv head), ``k [B, Sk, N, D]``, ``v [B, Sk, N, Dv]`` -> ``[B, Sq, N, G,
+Dv]`` in q's dtype; the scale is ``1/sqrt(D)``.  Dv = D is GQA attention;
+Dv < D is MLA's (deepseek-v2: q/k of nope + rope = 192, v of 128).
 ``flash_attention_bhsd`` takes the ``[B, H, S, D]`` layout of the TPU kernel
 it replaces (``repro/kernels/flash_attention.py``) and hands the same memory
-to the same kernel by strides.
+to the same kernel by strides.  That TPU kernel pads v by q's head dim and
+slices the output to it, so it does not compute Dv != D; the port's kernel
+does.
 
 For a tensor on the CPU the wrapper computes ``flash_attention_plain``.  For
 a CUDA tensor it launches the kernel or raises; there is no fallback.
@@ -24,20 +28,31 @@ from ._scratch import split_scratch
 # Number of kernel launches made by this module (CUDA tensors only).
 launches = 0
 
-MAX_HEAD_DIM = 128
+# on the card: D (q, k) up to 192, Dv (v, out) up to min(D, 128)
+MAX_HEAD_DIM = 192
+MAX_V_HEAD_DIM = 128
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 INPUT_DTYPES = tuple(_DTYPE_CODE)     # of q, k, v on the card
 _VARIANT_CODE = {"fma": 0, "tc": 1, "decode": 2}
 # decode: query heads one block reads a K/V row for (bf16: the 16 rows of
 # an mma tile; fp32: 8 lane-group accumulators); a range this short is one
 # block's work; blocks a long range is split to (one wave: three resident
-# per SM of an H100's 132); the fewest keys of one split
+# per SM of an H100's 132; two for the bf16 instance at D > 128, whose 88 KB
+# of shared memory fit twice); the fewest keys of one split
 DECODE_MAX_HEADS = {torch.bfloat16: 16, torch.float32: 8}
 DECODE_SHORT_RANGE = 256
 DECODE_TARGET_BLOCKS = 3 * 132
 DECODE_MIN_SPLIT = 128
 _fn = None
 _local = threading.local()      # the ctypes meta array, one per thread
+
+
+def decode_target_blocks(dtype: torch.dtype, d: int) -> int:
+    """Blocks of one wave of the decode instance for ``dtype`` and q/k head
+    dim ``d``."""
+    if dtype == torch.bfloat16 and d > 128:
+        return 2 * 132
+    return DECODE_TARGET_BLOCKS
 
 
 def _visible(sq: int, sk: int, causal: bool, window: Optional[int],
@@ -56,7 +71,8 @@ def flash_attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                           causal: bool = True, window: Optional[int] = None,
                           softcap: Optional[float] = None,
                           q_offset: int = 0) -> torch.Tensor:
-    """What the kernel computes, in plain PyTorch, all arithmetic in fp32.
+    """What the kernel computes, in plain PyTorch, all arithmetic in fp32:
+    q [B,Sq,N,G,D], k [B,Sk,N,D], v [B,Sk,N,Dv] -> [B,Sq,N,G,Dv].
 
     Materialises the ``[B, N, G, Sq, Sk]`` scores.  A query row with no
     visible key returns the mean of v over all Sk keys, as the kernel and
@@ -75,12 +91,13 @@ def flash_attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
 
 def _check(q, k, v, window, softcap):
     if q.dim() != 5 or k.dim() != 4 or v.dim() != 4:
-        raise ValueError("flash_attention takes q [B,Sq,N,G,D] and k/v "
-                         f"[B,Sk,N,D]; got {tuple(q.shape)}, "
-                         f"{tuple(k.shape)}, {tuple(v.shape)}")
+        raise ValueError("flash_attention takes q [B,Sq,N,G,D], k "
+                         "[B,Sk,N,D] and v [B,Sk,N,Dv]; got "
+                         f"{tuple(q.shape)}, {tuple(k.shape)}, "
+                         f"{tuple(v.shape)}")
     b, _, n, _, d = q.shape
-    if k.shape != v.shape or k.shape[0] != b or k.shape[2] != n \
-            or k.shape[3] != d:
+    if k.shape[:3] != v.shape[:3] or k.shape[0] != b or k.shape[2] != n \
+            or k.shape[3] != d or v.shape[3] < 1:
         raise ValueError(f"q {tuple(q.shape)}, k {tuple(k.shape)} and v "
                          f"{tuple(v.shape)} do not belong together")
     if not (q.dtype == k.dtype == v.dtype):
@@ -108,13 +125,14 @@ def _kernel_fn():
     return _fn
 
 
-def _fits16(d: int, esize: int, layouts) -> bool:
-    """Every (strides, base address) of ``layouts`` on 16 bytes except the
-    last stride, and a head dim ``d`` of whole 16-byte pieces."""
+def _fits16(esize: int, layouts) -> bool:
+    """Every (strides, base address, head dim) of ``layouts`` on 16 bytes
+    except the last stride, and every head dim of whole 16-byte pieces."""
     vec = 16 // esize
-    return d % vec == 0 and all(
-        ptr % 16 == 0 and all(s % vec == 0 for s in stride[:-1])
-        for stride, ptr in layouts)
+    return all(
+        d % vec == 0 and ptr % 16 == 0
+        and all(s % vec == 0 for s in stride[:-1])
+        for stride, ptr, d in layouts)
 
 
 def _rule(sq: int, dtype: torch.dtype, fits: bool) -> str:
@@ -128,9 +146,9 @@ def _rule(sq: int, dtype: torch.dtype, fits: bool) -> str:
 def _variant(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> str:
     """The kernel a CUDA call goes to, by an explicit rule:
 
-    * ``"decode"``: one query row (Sq = 1) and 16-byte loads fit: D a
-      multiple of 16 bytes, every stride but the last and every base address
-      on 16 bytes;
+    * ``"decode"``: one query row (Sq = 1) and 16-byte loads fit: D and Dv
+      multiples of 16 bytes, every stride but the last and every base
+      address on 16 bytes;
     * ``"tc"``: bf16 with more rows and the same fit (the tensor-core
       kernel's TMA boxes and wgmma tiles need it);
     * ``"fma"``: everything else, and fp32 with more rows (IEEE fp32
@@ -138,8 +156,8 @@ def _variant(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> str:
 
     The C entry launches the kernel named here or fails; nothing falls back."""
     return _rule(q.shape[1], q.dtype, _fits16(
-        q.shape[-1], q.element_size(),
-        [(t.stride(), t.data_ptr()) for t in (q, k, v)]))
+        q.element_size(),
+        [(t.stride(), t.data_ptr(), t.shape[-1]) for t in (q, k, v)]))
 
 
 def _decode_range(sk: int, causal: bool, window: Optional[int],
@@ -151,19 +169,20 @@ def _decode_range(sk: int, causal: bool, window: Optional[int],
     return lo, hi
 
 
-def decode_splits(b: int, n: int, visible: int) -> int:
+def decode_splits(b: int, n: int, visible: int,
+                  target: int = DECODE_TARGET_BLOCKS) -> int:
     """Blocks the decode kernel splits ``visible`` keys over, for ``b x n``
     (batch, kv head x chunk of query heads) units.
 
     One block per unit for a short range (the engine's caches up to a few
     hundred keys): no combine.  A longer range gets as many splits as keep
-    every block in one wave of ``DECODE_TARGET_BLOCKS`` (three resident
-    blocks per SM of an H100: a second, partial wave would double the time),
-    but never more splits than whole ``DECODE_MIN_SPLIT``-key pieces of the
-    range."""
+    every block in one wave of ``target`` blocks (``decode_target_blocks``:
+    the instance's resident blocks per SM of an H100: a second, partial wave
+    would double the time), but never more splits than whole
+    ``DECODE_MIN_SPLIT``-key pieces of the range."""
     if visible <= DECODE_SHORT_RANGE:
         return 1
-    fit = DECODE_TARGET_BLOCKS // max(1, b * n)
+    fit = target // max(1, b * n)
     return max(1, min(fit, visible // DECODE_MIN_SPLIT))
 
 
@@ -178,7 +197,7 @@ def _check_layout(name: str, stride: tuple, ptr: int, esize: int, d: int,
         raise ValueError(f"{name}: strides {stride} / address must be "
                          "multiples of 4 elements")
     if variant != "fma" and name != "out" and not _fits16(
-            d, esize, [(stride, ptr)]):
+            esize, [(stride, ptr, d)]):
         raise ValueError(f"{name}: the {variant} kernel needs strides "
                          f"{stride}, head dim {d} and address on 16 bytes")
 
@@ -194,10 +213,15 @@ def _launch(q, k, v, out, causal, window, softcap, q_offset):
         raise TypeError("the flash-attention kernel takes float32 or "
                         f"bfloat16, got {q.dtype}")
     b, sq, n, g, d = q.shape
-    sk = k.shape[1]
+    sk, dv = k.shape[1], v.shape[-1]
     if d > MAX_HEAD_DIM or d % 4:
-        raise ValueError(f"the flash-attention kernel takes head dims that "
-                         f"are multiples of 4 up to {MAX_HEAD_DIM}, got {d}")
+        raise ValueError(f"the flash-attention kernel takes q/k head dims "
+                         f"that are multiples of 4 up to {MAX_HEAD_DIM}, "
+                         f"got {d}")
+    if dv > min(d, MAX_V_HEAD_DIM) or dv % 4:
+        raise ValueError(f"the flash-attention kernel takes v head dims that "
+                         f"are multiples of 4 up to min(D, {MAX_V_HEAD_DIM})"
+                         f" = {min(d, MAX_V_HEAD_DIM)}, got {dv}")
     if b > 65535 or n * g > 65535:
         raise ValueError(f"batch {b} / heads {n * g} exceed the grid's 65535")
     # strides and addresses read once, for the rule and the checks
@@ -205,10 +229,10 @@ def _launch(q, k, v, out, causal, window, softcap, q_offset):
     qs, ks, vs, os_ = q.stride(), k.stride(), v.stride(), out.stride()
     qp, kp, vp, op = q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr()
     variant = _rule(sq, q.dtype,
-                    _fits16(d, esize, [(qs, qp), (ks, kp), (vs, vp)]))
-    for name, st, ptr in (("q", qs, qp), ("k", ks, kp), ("v", vs, vp),
-                          ("out", os_, op)):
-        _check_layout(name, st, ptr, esize, d, variant)
+                    _fits16(esize, [(qs, qp, d), (ks, kp, d), (vs, vp, dv)]))
+    for name, st, ptr, width in (("q", qs, qp, d), ("k", ks, kp, d),
+                                 ("v", vs, vp, dv), ("out", os_, op, dv)):
+        _check_layout(name, st, ptr, esize, width, variant)
     device = q.device
     stream = torch.cuda.current_stream(device).cuda_stream
     splits, split_len, g_chunks = 1, 1, 1
@@ -217,21 +241,22 @@ def _launch(q, k, v, out, causal, window, softcap, q_offset):
         g_chunks = -(-g // DECODE_MAX_HEADS[q.dtype])
         lo, hi = _decode_range(sk, causal, window, q_offset)
         visible = max(0, hi - lo)
-        splits = decode_splits(b, n * g_chunks, visible)
+        splits = decode_splits(b, n * g_chunks, visible,
+                               decode_target_blocks(q.dtype, d))
         split_len = max(1, -(-visible // splits))
         if splits > 1:
             units = b * n * g_chunks
             part, ticket = split_scratch(
                 device, stream,
-                4 * units * splits * -(-g // g_chunks) * (d + 2), units)
+                4 * units * splits * -(-g // g_chunks) * (dv + 2), units)
     meta = getattr(_local, "meta", None)
     if meta is None:
-        meta = _local.meta = (ctypes.c_longlong * 26)()
+        meta = _local.meta = (ctypes.c_longlong * 27)()
     meta[:] = [b, n, g, sq, sk, d, qs[0], qs[1], qs[2], qs[3],
                ks[0], ks[1], ks[2], vs[0], vs[1], vs[2],
                os_[0], os_[1], os_[2], os_[3],
                int(bool(causal)), int(window or 0), int(q_offset),
-               splits, split_len, g_chunks]
+               splits, split_len, g_chunks, dv]
     args = (qp, kp, vp, op, meta, 1.0 / math.sqrt(d), float(softcap or 0.0),
             _DTYPE_CODE[q.dtype], _VARIANT_CODE[variant], part, ticket, stream)
     fn = _kernel_fn()
@@ -248,7 +273,8 @@ def _launch(q, k, v, out, causal, window, softcap, q_offset):
 
 
 def _attend(q, k, v, out, causal, window, softcap, q_offset):
-    """Fills ``out`` (a [B,Sq,N,G,D] view with any strides) and returns it."""
+    """Fills ``out`` (a [B,Sq,N,G,Dv] view with any strides) and returns
+    it."""
     _check(q, k, v, window, softcap)
     q_offset = int(q_offset)
     if q.numel() == 0:
@@ -268,10 +294,12 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                     causal: bool = True, window: Optional[int] = None,
                     softcap: Optional[float] = None,
                     q_offset: int = 0) -> torch.Tensor:
-    """Model-layout attention: q [B,Sq,N,G,D], k/v [B,Sk,N,D] (any strides
-    with a contiguous D) -> a new contiguous [B,Sq,N,G,D].  Query row s sits
-    at position ``q_offset + s``; ``q_offset`` is a plain runtime integer."""
-    out = torch.empty(q.shape, dtype=q.dtype, device=q.device)
+    """Model-layout attention: q [B,Sq,N,G,D], k [B,Sk,N,D], v [B,Sk,N,Dv]
+    (any strides with contiguous head dims) -> a new contiguous
+    [B,Sq,N,G,Dv].  Query row s sits at position ``q_offset + s``;
+    ``q_offset`` is a plain runtime integer."""
+    out = torch.empty(q.shape[:-1] + v.shape[-1:], dtype=q.dtype,
+                      device=q.device)
     return _attend(q, k, v, out, causal, window, softcap, q_offset)
 
 
@@ -279,8 +307,9 @@ def flash_attention_bhsd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                          causal: bool = True, window: Optional[int] = None,
                          softcap: Optional[float] = None,
                          q_offset: int = 0) -> torch.Tensor:
-    """Attention on q [B,H,Sq,D], k/v [B,Hk,Sk,D] with H a multiple of Hk
-    (query head h reads kv head h // (H // Hk)) -> [B,H,Sq,D]."""
+    """Attention on q [B,H,Sq,D], k [B,Hk,Sk,D], v [B,Hk,Sk,Dv] with H a
+    multiple of Hk (query head h reads kv head h // (H // Hk)) ->
+    [B,H,Sq,Dv]."""
     if q.dim() != 4 or k.dim() != 4 or q.shape[1] % max(1, k.shape[1]):
         raise ValueError("flash_attention_bhsd takes q [B,H,Sq,D] and k/v "
                          f"[B,Hk,Sk,D] with Hk dividing H; got "
@@ -291,7 +320,8 @@ def flash_attention_bhsd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     def model_layout(t):            # [B,H,Sq,D] -> view [B,Sq,Hk,G,D]
         return t.unflatten(1, (hk, h // hk)).permute(0, 3, 1, 2, 4)
 
-    out = torch.empty(q.shape, dtype=q.dtype, device=q.device)
+    out = torch.empty(q.shape[:-1] + v.shape[-1:], dtype=q.dtype,
+                      device=q.device)
     _attend(model_layout(q), k.transpose(1, 2), v.transpose(1, 2),
             model_layout(out), causal, window, softcap, q_offset)
     return out

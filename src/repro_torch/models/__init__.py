@@ -1,4 +1,6 @@
-"""Runtime models of the port (dense GQA decoders and RWKV6 so far)."""
+"""Runtime models of the port: dense GQA decoders, MLA and MoE (deepseek)
+and RWKV6; mamba/hybrid, encoder and vision-prefix families still to
+port."""
 from . import layers, lm
 from .common import Initializer, RuntimeCfg
 from .convert import params_from_reference

@@ -22,13 +22,14 @@ PyTree = Any
 @dataclass(frozen=True)
 class RuntimeCfg:
     """Runtime knobs orthogonal to the architecture itself.  The JAX
-    package's fields that steer training, sharding or MoE come back with the
+    package's fields that steer training or sharding come back with the
     slices that read them."""
     param_dtype: str = "bfloat16"
     compute_dtype: str = "bfloat16"
     # "cuda": the hand-written kernel (its plain version for CPU tensors);
     # "naive": materialised scores, the reference the kernel is held against
     attention_impl: str = "cuda"
+    moe_capacity: float = 1.25          # expert capacity factor
 
 
 def dt(name) -> torch.dtype:

@@ -14,6 +14,10 @@ import torch
 
 from .._device import resolve_device, torch_dtype
 
+# leaves the JAX package's init draws in fp32 at any parameter dtype (the
+# MoE router: routing is computed in fp32); a cast leaves them fp32
+FP32_LEAVES = frozenset({"w_router"})
+
 
 def _leaf(a: np.ndarray, device: torch.device,
           dtype: Optional[torch.dtype]) -> torch.Tensor:
@@ -30,18 +34,24 @@ def _leaf(a: np.ndarray, device: torch.device,
 def params_from_reference(tree: Any, device=None, dtype=None) -> Any:
     """Nested dicts/lists/tuples of numpy arrays -> the same nesting of
     ``torch.Tensor`` on ``device`` (the card unless ``"cpu"``).  ``dtype``
-    (name or ``torch.dtype``) casts every floating leaf; None keeps each
-    leaf's own type, bf16 included."""
+    (name or ``torch.dtype``) casts every floating leaf except those the JAX
+    package's init keeps in fp32 whatever the parameter dtype
+    (``FP32_LEAVES``: the MoE router ``w_router``), which stay fp32 so that
+    a cast tree routes as the reference does; None keeps each leaf's own
+    type, bf16 included."""
     device = resolve_device(device)
     want = torch_dtype(dtype) if dtype is not None else None
 
-    def go(node):
+    def go(node, key=None):
         if isinstance(node, dict):
-            return {k: go(v) for k, v in node.items()}
+            return {k: go(v, k) for k, v in node.items()}
         if isinstance(node, (list, tuple)):
             return [go(v) for v in node]
         a = np.asarray(node)
         floating = a.dtype.kind == "f" or a.dtype.name == "bfloat16"
-        return _leaf(a, device, want if floating else None)
+        cast = want if floating else None
+        if cast is not None and key in FP32_LEAVES:
+            cast = torch.float32
+        return _leaf(a, device, cast)
 
     return go(tree)

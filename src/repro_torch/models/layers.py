@@ -1,11 +1,12 @@
-"""Layer library of the port: norms, RoPE, attention cores, the GQA
-attention layer, the FFN and the RWKV6 block, as pure functions over
-``{name: tensor}`` subtrees.
+"""Layer library of the port: norms, RoPE, attention cores, the GQA and MLA
+attention layers, the FFN, the MoE FFN and the RWKV6 block, as pure
+functions over ``{name: tensor}`` subtrees.
 
 Shapes follow the JAX package so weights carry across leaf by leaf:
 
 * GQA weights keep head structure: ``w_q [H, NKV, G, DH]``.
-* Activations ``q [B,S,N,G,D]``, ``k/v [B,Sk,N,D]``.
+* Activations ``q [B,S,N,G,D]``, ``k [B,Sk,N,D]``, ``v [B,Sk,N,Dv]`` (Dv =
+  D but in MLA).
 * ``attention_impl="cuda"`` (the default) routes every attention core
   through the hand-written kernel (``repro_torch.kernels``); ``"naive"`` is
   plain tensor code with materialised scores, kept as the reference the
@@ -13,7 +14,8 @@ Shapes follow the JAX package so weights carry across leaf by leaf:
 * Every WKV recurrence of ``rwkv6_layer`` goes through ``kernels.ops.wkv6``:
   the hand-written kernel for CUDA tensors, its plain version for CPU ones.
 
-Not ported yet: cross-attention (whisper), MLA, MoE, mamba.
+Not ported yet: cross-attention (whisper), mamba, and the expert-parallel
+(all-to-all) branch of the MoE FFN.
 """
 from __future__ import annotations
 
@@ -84,7 +86,7 @@ def _mask(sq: int, sk: int, causal: bool, window: Optional[int],
 
 def attn_naive(q, k, v, *, causal: bool, window: Optional[int],
                softcap: Optional[float], q_offset: int = 0) -> torch.Tensor:
-    """q [B,Sq,N,G,D], k/v [B,Sk,N,D] -> [B,Sq,N,G,D]."""
+    """q [B,Sq,N,G,D], k [B,Sk,N,D], v [B,Sk,N,Dv] -> [B,Sq,N,G,Dv]."""
     scale = 1.0 / math.sqrt(q.shape[-1])
     s = torch.einsum("bsngd,bknd->bngsk", q, k).float() * scale
     if softcap:
@@ -201,6 +203,86 @@ def gqa_attention(p: dict, x: torch.Tensor, spec, rt: RuntimeCfg, *,
 
 
 # ---------------------------------------------------------------------------
+# MLA attention (deepseek-v2)
+# ---------------------------------------------------------------------------
+
+def init_mla(ini: Initializer, spec, prefix: str = "") -> dict:
+    m = spec.mla
+    H, N = spec.d_model, spec.n_heads
+    return {
+        "ln": ini(prefix + "ln", (H,)),
+        "w_dq": ini(prefix + "w_dq", (H, m.q_lora)),
+        "ln_q": ini(prefix + "ln_q", (m.q_lora,)),
+        "w_uq_n": ini(prefix + "w_uq_n", (m.q_lora, N, m.nope_dim)),
+        "w_uq_r": ini(prefix + "w_uq_r", (m.q_lora, N, m.rope_dim)),
+        "w_dkv": ini(prefix + "w_dkv", (H, m.kv_lora)),
+        "ln_kv": ini(prefix + "ln_kv", (m.kv_lora,)),
+        "w_kr": ini(prefix + "w_kr", (H, m.rope_dim)),
+        "w_uk": ini(prefix + "w_uk", (m.kv_lora, N, m.nope_dim)),
+        "w_uv": ini(prefix + "w_uv", (m.kv_lora, N, m.v_dim)),
+        "w_o": ini(prefix + "w_o", (N, m.v_dim, H), scale=1.0 / math.sqrt(H)),
+    }
+
+
+def mla_attention(p: dict, x: torch.Tensor, spec, rt: RuntimeCfg, *,
+                  positions=None, cache: Optional[dict] = None) -> tuple:
+    """Multi-head latent attention with residual: x [B,S,H] -> (x + attn(x),
+    new cache).
+
+    ``cache`` (decode) is ``{"ckv": [B, kv_len, kv_lora], "kr": [B, kv_len,
+    rope_dim], "pos": int}``; ckv and kr are **updated in place** and handed
+    back in the new dict.  As in the JAX package, k's nope part and v are
+    recomputed from the whole ckv cache every step (no absorbed decode), the
+    rope key ``kr`` is shared by all N heads, and attention runs on q/k of
+    head dim nope + rope and v of head dim v_dim (the kernel's Dv < D
+    instance), scaled by 1/sqrt(nope + rope).  Writing past kv_len raises
+    (JAX clamps the write instead)."""
+    m = spec.mla
+    h = rms_norm(p["ln"], x)
+    cq = rms_norm(p["ln_q"], h @ cast(p["w_dq"], rt))
+    qn = torch.einsum("bsr,rnd->bsnd", cq, cast(p["w_uq_n"], rt))
+    qr = torch.einsum("bsr,rnd->bsnd", cq, cast(p["w_uq_r"], rt))
+    ckv_new = rms_norm(p["ln_kv"], h @ cast(p["w_dkv"], rt))
+    kr_new = h @ cast(p["w_kr"], rt)                           # [B,S,rope]
+    if cache is not None:
+        pos = int(cache["pos"])
+        s_new = x.shape[1]
+        if positions is None:
+            positions = torch.full(x.shape[:2], pos, dtype=torch.int32,
+                                   device=x.device)
+        qr = rope(qr, positions)
+        kr_new = rope(kr_new[:, :, None], positions)[:, :, 0]
+        ckv, kr = cache["ckv"], cache["kr"]
+        if pos + s_new > ckv.shape[1]:
+            raise ValueError(
+                f"KV cache overflow: position {pos} + {s_new} new token(s) "
+                f"exceeds kv_len {ckv.shape[1]}")
+        ckv[:, pos:pos + s_new] = ckv_new
+        kr[:, pos:pos + s_new] = kr_new
+        new_cache = {"ckv": ckv, "kr": kr, "pos": pos + s_new}
+        q_offset = pos
+    else:
+        if positions is None:
+            positions = torch.arange(x.shape[1], device=x.device) \
+                .expand(x.shape[0], -1)
+        qr = rope(qr, positions)
+        kr_new = rope(kr_new[:, :, None], positions)[:, :, 0]
+        ckv, kr = ckv_new, kr_new
+        new_cache = None
+        q_offset = 0
+
+    kn = torch.einsum("btr,rnd->btnd", ckv, cast(p["w_uk"], rt))
+    vv = torch.einsum("btr,rnd->btnd", ckv, cast(p["w_uv"], rt))
+    n = kn.shape[2]
+    qq = torch.cat([qn, qr], dim=-1)[:, :, :, None, :]        # [B,S,N,1,D]
+    kk = torch.cat([kn, kr[:, :, None].expand(-1, -1, n, m.rope_dim)],
+                   dim=-1)                                    # [B,T,N,D]
+    out5 = attn_core(qq, kk, vv, rt, causal=True, q_offset=q_offset)
+    out = torch.einsum("bsnd,ndh->bsh", out5[:, :, :, 0], cast(p["w_o"], rt))
+    return x + out, new_cache
+
+
+# ---------------------------------------------------------------------------
 # FFN
 # ---------------------------------------------------------------------------
 
@@ -227,6 +309,132 @@ def ffn(p: dict, x: torch.Tensor, spec, rt: RuntimeCfg) -> torch.Tensor:
     else:
         act = F.gelu(up, approximate="tanh")     # jax.nn.gelu's default form
     return x + act @ cast(p["w_down"], rt)
+
+
+# ---------------------------------------------------------------------------
+# MoE FFN (deepseek-moe, deepseek-v2): sort-based top-k with static capacity
+# ---------------------------------------------------------------------------
+
+def init_moe(ini: Initializer, spec, prefix: str = "") -> dict:
+    """The router ``w_router`` is drawn in fp32 at any parameter dtype, as in
+    the JAX package, so routing does not depend on it."""
+    H = spec.d_model
+    mo = spec.moe
+    p = {
+        "ln": ini(prefix + "ln_moe", (H,)),
+        "w_router": ini(prefix + "w_router", (H, mo.n_experts),
+                        dtype=torch.float32),
+        "w_egate": ini(prefix + "w_egate", (mo.n_experts, H, mo.d_expert)),
+        "w_eup": ini(prefix + "w_eup", (mo.n_experts, H, mo.d_expert)),
+        "w_edown": ini(prefix + "w_edown", (mo.n_experts, mo.d_expert, H),
+                       scale=1.0 / math.sqrt(mo.d_expert)),
+    }
+    if mo.n_shared:
+        sw = mo.n_shared * mo.d_expert
+        p["shared"] = init_ffn(ini, spec, width=sw, prefix=prefix + "sh_",
+                               gated=True)
+    return p
+
+
+def top_k_lowest_first(probs: torch.Tensor, k: int) -> tuple:
+    """(values, indices) of the ``k`` largest entries of the last dim in
+    descending order, an equal value with the lower index first: the order
+    ``jax.lax.top_k`` returns (``torch.topk`` promises none on a tie)."""
+    vals, idx = torch.sort(probs, dim=-1, descending=True, stable=True)
+    return vals[..., :k], idx[..., :k]
+
+
+def moe_dispatch(h: torch.Tensor, wr: torch.Tensor, *, E: int, Kk: int,
+                 capacity_factor: float) -> dict:
+    """Routing and dispatch of tokens ``h [b, s, H]`` over ``E`` experts.
+
+    Each token picks its ``Kk`` most probable experts (fp32 router softmax,
+    gates renormalised over the K and cast to h's dtype).  The T·K choices
+    are sorted by expert with a **stable** sort, so choices of one expert
+    keep token order; the one of rank r in its expert's run goes to slot r of
+    that expert, and only ranks below the capacity C = ceil(T·K/E·cf) are
+    kept: the others are dropped, as in the JAX package (at decode C is
+    small: 8 tokens of top 6 over 64 experts give C = 1).  Each kept slot is
+    written once, so the dispatch is a plain indexed copy (no atomics), and
+    nothing in it waits on the device.
+
+    Returns ``dispatched [E, C, H]`` and, for the combine, the sorted
+    entries' expert ``se``, token ``st``, ``rank``, ``keep`` and gate, and
+    C."""
+    b, s, H = h.shape
+    logits = torch.einsum("bsh,he->bse", h.float(), wr)
+    probs = torch.softmax(logits, dim=-1)
+    gates, idx = top_k_lowest_first(probs, Kk)
+    gates = (gates / torch.clamp(gates.sum(-1, keepdim=True), min=1e-9)) \
+        .to(h.dtype)
+    T = b * s
+    C = max(1, int(math.ceil(T * Kk / E * capacity_factor)))
+    flat_idx = idx.reshape(T * Kk)
+    flat_tok = torch.arange(T, device=h.device).repeat_interleave(Kk)
+    order = torch.argsort(flat_idx, stable=True)
+    se, st = flat_idx[order], flat_tok[order]
+    # the first sorted position of each entry's expert: its rank is the
+    # distance to it (no bincount, no boolean mask: nothing here waits on
+    # the device)
+    rank = torch.arange(T * Kk, device=h.device) - torch.searchsorted(se, se)
+    keep = rank < C
+    # row se * C + rank of an [E * C + 1, H] buffer; every dropped entry
+    # goes to the last row, which is cut off
+    slot = torch.where(keep, se * C + rank, torch.full_like(se, E * C))
+    buf = torch.zeros((E * C + 1, H), dtype=h.dtype, device=h.device)
+    buf[slot] = h.reshape(T, H)[st]
+    return {"dispatched": buf[:E * C].view(E, C, H), "se": se, "st": st,
+            "rank": rank, "keep": keep, "gate": gates.reshape(T * Kk)[order],
+            "C": C}
+
+
+def moe_combine(eo: torch.Tensor, route: dict, T: int, Kk: int) -> torch.Tensor:
+    """Expert outputs ``eo [E, C, H]`` back to tokens: [T, H].
+
+    The JAX package adds each kept entry's gate-weighted output into the
+    token's row in sorted order, i.e. a token's experts in ascending expert
+    order, rounding to the compute dtype at each add.  Here each token's K
+    entries are gathered into [T, K, H] in that order (a dropped entry is 0)
+    and summed one after the other: the same order and roundings on the CPU
+    and the card, with no atomics."""
+    se, st, rank, keep = route["se"], route["st"], route["rank"], route["keep"]
+    contrib = eo[se, torch.clamp(rank, max=route["C"] - 1)] \
+        * route["gate"][:, None]
+    contrib = torch.where(keep[:, None], contrib, torch.zeros_like(contrib))
+    # sorted entry i is token st[i]'s j-th choice in expert order, where j
+    # counts the token's entries before i: a stable sort by token keeps the
+    # expert order inside each token
+    by_token = torch.argsort(st, stable=True)
+    per_token = contrib[by_token].reshape(T, Kk, -1)
+    out = per_token[:, 0]
+    for j in range(1, Kk):
+        out = out + per_token[:, j]
+    return out
+
+
+def moe_ffn(p: dict, x: torch.Tensor, spec, rt: RuntimeCfg, *,
+            capacity_factor: float = 0.0) -> torch.Tensor:
+    """Sort-based top-k MoE with static expert capacity, plus the shared
+    experts, with residual: x [B,S,H] -> x'.  The single-device path of the
+    JAX package's ``moe_ffn``; the expert products are batched matrix
+    products (the JAX package leaves them to XLA as einsums)."""
+    mo = spec.moe
+    capacity_factor = capacity_factor or rt.moe_capacity
+    b, s, H = x.shape
+    h = rms_norm(p["ln"], x)
+    wg, wu, wd = (cast(p[k], rt) for k in ("w_egate", "w_eup", "w_edown"))
+    route = moe_dispatch(h, p["w_router"], E=mo.n_experts, Kk=mo.top_k,
+                         capacity_factor=capacity_factor)
+    dispatched = route["dispatched"]
+    ea = F.silu(torch.bmm(dispatched, wg)) * torch.bmm(dispatched, wu)
+    eo = torch.bmm(ea, wd)
+    out = moe_combine(eo, route, b * s, mo.top_k).reshape(b, s, H)
+    if "shared" in p:
+        sh = p["shared"]
+        so = (F.silu(h @ cast(sh["w_gate"], rt)) * (h @ cast(sh["w_up"], rt))) \
+            @ cast(sh["w_down"], rt)
+        out = out + so
+    return x + out
 
 
 # ---------------------------------------------------------------------------

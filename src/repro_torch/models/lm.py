@@ -1,10 +1,12 @@
-"""Generic decoder LM of the port: dense GQA decoders and RWKV6 so far.
+"""Generic decoder LM of the port: dense GQA decoders (plain, MQA,
+alternating local/global windows), MLA and MoE (deepseek), and RWKV6.
 
-The layer stack is grouped into a repeating *period* (1 for a plain decoder,
-2 for alternating local/global windows); the parameters of each slot of the
-period are stacked ``[n_rep, ...]`` exactly as in the JAX package, so a
-parameter tree carries across leaf by leaf.  Where the JAX package scans over
-the stack, the port loops over views of it.
+The layer stack is an unstacked *prefix* (deepseek's first dense layer)
+followed by a repeating *period* (1 for a plain decoder, 2 for alternating
+local/global windows); the parameters of each slot of the period are stacked
+``[n_rep, ...]`` exactly as in the JAX package, so a parameter tree carries
+across leaf by leaf.  Where the JAX package scans over the stack, the port
+loops over views of it.
 
 API:
   init_params(spec, rt, generator, device=)    -> parameter tree
@@ -34,18 +36,15 @@ from .common import Initializer, RuntimeCfg, dt
 def _require_ported(spec) -> None:
     """Raise for a spec whose family the port does not run yet."""
     todo = None
-    if spec.block == "mla" or spec.mla is not None:
-        todo = "MLA attention (ROADMAP.md queue 1, item 4: other families)"
-    elif spec.block == "mamba" or spec.attn_every > 1:
-        todo = "mamba / hybrid blocks (ROADMAP.md queue 1, item 4)"
-    elif spec.moe is not None:
-        todo = "MoE FFNs (ROADMAP.md queue 1, item 4)"
+    if spec.block == "mamba" or spec.attn_every > 1:
+        todo = "mamba / hybrid blocks (ROADMAP.md queue 1, item 1: jamba)"
     elif spec.encoder_layers:
-        todo = "encoder + cross-attention (ROADMAP.md queue 1, item 4)"
+        todo = ("encoder + cross-attention (ROADMAP.md queue 1, item 1: "
+                "whisper)")
     elif spec.vision_seq:
-        todo = "vision prefix (ROADMAP.md queue 1, item 4)"
-    elif spec.block not in ("gqa", "rwkv6"):
-        todo = f"block kind {spec.block!r}"
+        todo = "vision prefix (ROADMAP.md queue 1, item 1: internvl2)"
+    elif spec.block not in ("gqa", "mla", "rwkv6"):
+        todo = f"block kind {spec.block!r} (ROADMAP.md queue 1)"
     if todo:
         raise NotImplementedError(
             f"repro_torch does not run {spec.name!r} yet: {todo} still to "
@@ -53,26 +52,51 @@ def _require_ported(spec) -> None:
 
 
 def _slot_kind(spec, layer: int) -> dict:
-    """Describe layer ``layer``: mixer kind, window, ffn kind.  A GQA layer
-    is attention + FFN, only the window varies; an RWKV6 layer carries its
-    channel mix inside the block and has no separate FFN."""
+    """Describe layer ``layer``: mixer kind, window, ffn kind."""
+    mixer = "attn"
     if spec.block == "rwkv6":
-        return {"mixer": "rwkv", "window": None, "ffn": None}
+        mixer = "rwkv"
+    elif spec.block == "mamba" and spec.attn_every <= 1:
+        mixer = "mamba"
+    elif spec.attn_every > 1:
+        mixer = "attn" if layer % spec.attn_every == spec.attn_offset \
+            else "mamba"
     window = spec.window if spec._is_local_layer(layer) else None
-    return {"mixer": "attn", "window": window, "ffn": "ffn"}
+    if mixer != "attn":
+        window = None
+    if spec._is_moe_layer(layer):
+        ffn = "moe"
+    elif mixer == "rwkv":
+        ffn = None                       # channel-mix lives inside the block
+    elif spec.block == "mamba" and spec.attn_every <= 1:
+        ffn = None                       # pure-mamba: no separate FFN
+    else:
+        ffn = "ffn"
+    return {"mixer": mixer, "window": window, "ffn": ffn}
 
 
 def layer_pattern(spec) -> tuple:
     """(n_prefix_unstacked, period).  Pattern repeats every ``period``
-    layers after the prefix; a stack whose pattern does not repeat (an odd
-    number of alternating layers) is all prefix, unstacked."""
-    period = 2 if spec.window_pattern == "alternate" else 1
-    if spec.n_layers % period != 0:
-        period = math.gcd(period, spec.n_layers)
-    for l in range(spec.n_layers):
-        if _slot_kind(spec, l) != _slot_kind(spec, l % period):
+    layers after the prefix (deepseek's first dense layer); a stack whose
+    pattern does not repeat (an odd number of alternating layers) is all
+    prefix, unstacked."""
+    prefix = 1 if (spec.moe and spec.moe.first_dense) else 0
+    n = spec.n_layers - prefix
+    period = 1
+    if spec.attn_every > 1:
+        period = math.lcm(period, spec.attn_every)
+    if spec.moe and spec.moe.every > 1:
+        period = math.lcm(period, spec.moe.every)
+    if spec.window_pattern == "alternate":
+        period = math.lcm(period, 2)
+    if n % period != 0:
+        period = 1 if n == 0 else math.gcd(period, n)
+    # verify the pattern truly repeats
+    for l in range(prefix, spec.n_layers):
+        base = prefix + (l - prefix) % period
+        if _slot_kind(spec, l) != _slot_kind(spec, base):
             return (spec.n_layers, 1)    # fully unstacked fallback
-    return (0, period)
+    return (prefix, period)
 
 
 def _n_rep(spec) -> int:
@@ -86,10 +110,18 @@ def _n_rep(spec) -> int:
 
 
 def _init_slot(ini: Initializer, spec, kind: dict, prefix: str) -> dict:
+    p: dict = {}
     if kind["mixer"] == "rwkv":
-        return {"rwkv": L.init_rwkv6(ini, spec, prefix + "r_")}
-    return {"attn": L.init_gqa(ini, spec, prefix + "a_"),
-            "ffn": L.init_ffn(ini, spec, prefix=prefix + "f_")}
+        p["rwkv"] = L.init_rwkv6(ini, spec, prefix + "r_")
+    elif spec.block == "mla":
+        p["attn"] = L.init_mla(ini, spec, prefix + "a_")
+    else:
+        p["attn"] = L.init_gqa(ini, spec, prefix + "a_")
+    if kind["ffn"] == "moe":
+        p["moe"] = L.init_moe(ini, spec, prefix + "f_")
+    elif kind["ffn"] == "ffn":
+        p["ffn"] = L.init_ffn(ini, spec, prefix=prefix + "f_")
+    return p
 
 
 def _tree_map(fn, tree, *rest):
@@ -159,11 +191,16 @@ def _apply_slot(p: dict, x, spec, rt, kind: dict, *, positions=None,
     layer_cache = None if cache is None else cache.get(name)
     if name == "rwkv":
         x, c = L.rwkv6_layer(p["rwkv"], x, spec, rt, cache=layer_cache)
+    elif spec.block == "mla":
+        x, c = L.mla_attention(p["attn"], x, spec, rt, positions=positions,
+                               cache=layer_cache)
     else:
         x, c = L.gqa_attention(p["attn"], x, spec, rt, positions=positions,
                                window=kind["window"], cache=layer_cache)
     new_cache = {name: c} if c is not None else None
-    if kind["ffn"] == "ffn":
+    if kind["ffn"] == "moe":
+        x = L.moe_ffn(p["moe"], x, spec, rt)
+    elif kind["ffn"] == "ffn":
         x = L.ffn(p["ffn"], x, spec, rt)
     return x, new_cache
 
@@ -203,6 +240,14 @@ def forward(params: dict, tokens, spec, rt: RuntimeCfg, *,
 def _slot_cache(spec, rt, kind: dict, lead: tuple, batch: int, kv_len: int,
                 device) -> dict:
     cdt = dt(rt.compute_dtype)
+    if spec.block == "mla":
+        m = spec.mla
+        return {"attn": {
+            "ckv": torch.zeros(lead + (batch, kv_len, m.kv_lora), dtype=cdt,
+                               device=device),
+            "kr": torch.zeros(lead + (batch, kv_len, m.rope_dim), dtype=cdt,
+                              device=device),
+            "pos": 0}}
     if kind["mixer"] == "rwkv":
         nh, dh, H = spec.n_heads, spec.head_dim, spec.d_model
         return {"rwkv": {
@@ -221,10 +266,12 @@ def _slot_cache(spec, rt, kind: dict, lead: tuple, batch: int, kv_len: int,
 
 def init_cache(spec, rt: RuntimeCfg, batch: int, kv_len: int, *,
                device=None) -> dict:
-    """Empty decode cache on ``device``, per slot of the period: for
-    attention, k and v stacked ``[n_rep, B, klen, NKV, DH]`` and one integer
-    ``pos`` shared by the stack's layers (the JAX package keeps ``pos`` as an
-    ``[n_rep]`` array of equal entries); for RWKV6, the fp32 state ``wkv``
+    """Empty decode cache on ``device``, per prefix layer and per slot of the
+    period: for GQA attention, k and v stacked ``[n_rep, B, klen, NKV, DH]``
+    and one integer ``pos`` shared by the stack's layers (the JAX package
+    keeps ``pos`` as an ``[n_rep]`` array of equal entries); for MLA, the
+    latent ``ckv [n_rep, B, kv_len, kv_lora]``, the rope key ``kr [n_rep, B,
+    kv_len, rope_dim]`` and ``pos``; for RWKV6, the fp32 state ``wkv``
     ``[n_rep, B, N, D, D]`` and the two token shifts ``[n_rep, B, H]`` in the
     compute dtype.  An RWKV6 cache has no length: ``kv_len`` is not read."""
     _require_ported(spec)

@@ -13,10 +13,12 @@ import pytest
 import torch
 
 from repro.configs import get as jax_get
+from repro.core import MLASpec as JaxMLASpec
 from repro.core import ModelSpec as JaxModelSpec
+from repro.core import MoESpec as JaxMoESpec
 from repro.models import lm as JLM
 from repro.models.common import pvalue
-from repro_torch import ModelSpec, MoESpec
+from repro_torch import MLASpec, ModelSpec, MoESpec
 from repro_torch.configs import ARCHS, PORTED, get
 from repro_torch.models import (RuntimeCfg, init_cache, init_params, lm,
                                 params_from_reference)
@@ -49,13 +51,13 @@ def test_configs_agree_with_reference():
     assert set(PORTED) <= set(ARCHS) and len(ARCHS) == 10
 
 
-@pytest.mark.parametrize("name", [a for a in ARCHS if a not in PORTED])
+@pytest.mark.parametrize("name", ARCHS)
 def test_unserved_arch_resolves_to_reference(name):
     """Every arch resolves (the generator and the prover run them all) to
-    the reference's specs.  The serve launcher refuses the families the port
-    does not serve, and ``init_params`` the layer kinds it has no code for
-    (MoE, MLA, Mamba, an encoder, a vision prefix); the dense GQA stacks
-    (granite, gemma2, minitron) are layers it runs."""
+    the reference's specs.  The serve launcher refuses the three families
+    the port does not serve (jamba, whisper, internvl2), and ``init_params``
+    their layer kinds (Mamba, an encoder, a vision prefix), naming ROADMAP
+    queue 1; it builds the other seven, MoE and MLA included."""
     from repro_torch.launch import serve as serve_launcher
     ref = jax_get(name)
     arch = get(name)
@@ -63,24 +65,54 @@ def test_unserved_arch_resolves_to_reference(name):
         assert mine.params() == theirs.params()
         assert mine.name == theirs.name
     assert arch.skip == ref.skip
-    with pytest.raises(NotImplementedError, match="not ported"):
-        serve_launcher.main(["--arch", name, "--smoke", "--device", "cpu"])
     sm = arch.smoke
-    if sm.moe or sm.mla or sm.ssm or sm.encoder_layers or sm.vision_seq:
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
+    unported = bool(sm.ssm or sm.encoder_layers or sm.vision_seq)
+    assert (name not in PORTED) == unported
+    if unported:
+        with pytest.raises(NotImplementedError, match="not ported"):
+            serve_launcher.main(["--arch", name, "--smoke", "--device",
+                                 "cpu"])
+        with pytest.raises(NotImplementedError, match="ROADMAP.md queue 1"):
             init_params(sm, RuntimeCfg(), device="cpu")
+    else:
+        params = init_params(sm, RuntimeCfg(), device="cpu")
+        assert params["slots"] or params["prefix"]
+
+
+_MLA = dict(kv_lora=16, q_lora=24, rope_dim=4, nope_dim=8, v_dim=8)
+_MOE = dict(n_experts=4, top_k=2, d_expert=8)
 
 
 @pytest.mark.parametrize("kw", [
-    dict(block="mla"), dict(block="mamba"),
-    dict(attn_every=2), dict(moe=MoESpec(n_experts=4, top_k=2, d_expert=8)),
+    dict(block="mla", mla=_MLA), dict(block="mamba"),
+    dict(attn_every=2), dict(moe=_MOE),
     dict(encoder_layers=2), dict(vision_seq=4)],
     ids=["mla", "mamba", "hybrid", "moe", "encoder", "vision"])
 def test_unported_family_raises(kw):
-    spec = ModelSpec(name="x", n_layers=2, d_model=32, n_heads=2, n_kv_heads=2,
-                     d_ff=64, vocab=32, **kw)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        init_params(spec, RuntimeCfg(), device="cpu")
+    """Mamba, hybrid, encoder and vision-prefix stacks are refused, naming
+    ROADMAP queue 1.  MLA and MoE are ported: ``init_params`` builds a tree
+    equal in keys, shapes and dtypes to the reference's."""
+    def spec(cls, mla_cls, moe_cls):
+        extra = dict(kw)
+        if "mla" in extra:
+            extra["mla"] = mla_cls(**extra["mla"])
+        if "moe" in extra:
+            extra["moe"] = moe_cls(**extra["moe"])
+        return cls(name="x", n_layers=2, d_model=32, n_heads=2, n_kv_heads=2,
+                   d_ff=64, vocab=32, **extra)
+    tspec = spec(ModelSpec, MLASpec, MoESpec)
+    if "mla" not in kw and "moe" not in kw:
+        with pytest.raises(NotImplementedError, match="ROADMAP.md queue 1"):
+            init_params(tspec, RuntimeCfg(), device="cpu")
+        return
+    jspec = spec(JaxModelSpec, JaxMLASpec, JaxMoESpec)
+    jrt, trt = runtimes("bfloat16")
+    want = jax.tree.map(lambda a: (tuple(a.shape), str(a.dtype)),
+                        pvalue(JLM.init_params(jspec, jrt,
+                                               jax.random.PRNGKey(0))))
+    mine = init_params(tspec, trt, device="cpu")
+    got = jax.tree.map(lambda t: (tuple(t.shape), str(t.dtype)[6:]), mine)
+    assert got == want
 
 
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])

@@ -103,5 +103,5 @@ def test_serve_launcher_needs_device_request(monkeypatch):
 
 def test_serve_launcher_unported_arch():
     with pytest.raises(NotImplementedError, match="not ported"):
-        serve_launcher.main(["--arch", "gemma2-27b", "--smoke", "--device",
-                             "cpu"])
+        serve_launcher.main(["--arch", "whisper-medium", "--smoke",
+                             "--device", "cpu"])
