@@ -4,6 +4,8 @@
     python3 chip_smoke.py              # everything, on one CUDA device
     python3 chip_smoke.py --phases build,kernels --ptxas-info
     python3 chip_smoke.py --phases build,kernels,sweep --profile
+    python3 chip_smoke.py --phases build,kernels,serve --profile \
+        --models jamba-v0.1-52b
 
 Phases, one JSON line each on standard output:
 
@@ -22,19 +24,26 @@ Phases, one JSON line each on standard output:
            (decode or tiled), the tile, and the device time per launch;
            cost_reduce rows (the sweep's merged calls first) the split its
            wrapper's rule chose, and its and torch.matmul's device times
-  serve    seven served models, one after the other, each at published
+  serve    ten served models, one after the other, each at published
            width, bf16, random weights from a seed: qwen3-14b (attention
            through flash_attention), rwkv6-7b (every WKV recurrence through
            wkv6: decode steps on its decode kernel, the prefill on its tiled
            kernel, counted apart), minitron-8b and deepseek-moe-16b at
            published depth, deepseek-v2-236b (MLA + MoE; 4 of 60 layers),
-           gemma2-27b and granite-34b (8 layers each; depth cuts listed as
-           reduced).  For each, an Engine with 8 slots answers 16 requests,
-           then one [2, 2048] prefill (gemma2 also one [1, 8192], so that
-           its 4096-key window masks keys).  Every launch count is set to 0
+           gemma2-27b and granite-34b (8 layers each), jamba-v0.1-52b (Mamba
+           + attention + MoE; 8 of 32 layers, one period; depth cuts listed
+           as reduced), whisper-medium (24 encoder + 24 decoder layers) and
+           internvl2-26b (48 layers).  For each, an Engine with 8 slots
+           answers 16 requests, then one [2, 2048] prefill through
+           lm.forward (gemma2 also one [1, 8192], so that its 4096-key
+           window masks keys; whisper [2, 448], its decoder's context, with
+           [2, 1500, 1024] frames; internvl2 after a [2, 256, 6144] vision
+           prefix: logits [2, 2304, V]).  Every launch count is set to 0
            just before each model's run and read just after; each model's
-           flash launches must be (steps + prefills) x layers.  Three warm
-           prefills follow: every reading, their median as prefill_ms
+           flash launches must be steps x (attention + cross-attention
+           layers) + prefills x (encoder + attention + cross-attention
+           layers).  Three warm prefills follow: every reading, their median
+           as prefill_ms.  --models runs a subset (a partial run)
   sweep    the generator's design-space sweep on the batched backend:
            dse.sweep over every (dp, tp, cp, pp) factorisation of 64 devices
            for qwen3-14b's published spec, train, batch 256 x seq 4096, on
@@ -57,11 +66,15 @@ Phases, one JSON line each on standard output:
            pre-flight line.  Counts set to 0 just before and read just after
   parity   the smoke specs on the card in fp32, then in float16 (which the
            attention kernel reads as fp32): qwen3, granite, minitron,
-           gemma2, deepseek-moe and deepseek-v2 (MLA: q/k 24, v 16 on the
-           fma and fp32 decode kernels) attention through the kernel
+           gemma2, deepseek-moe, deepseek-v2 (MLA: q/k 24, v 16 on the fma
+           and fp32 decode kernels), jamba, whisper (with frames) and
+           internvl2 (with a vision prefix) attention through the kernel
            against the naive core; rwkv6 through the wkv6 kernel against the
-           same parameters on the CPU (the plain version).  Same greedy
-           tokens and logits within 1e-4 (fp32) / 5e-2 (float16)
+           same parameters on the CPU (the plain version).  Every engine
+           step's logits and the prefill's within 1e-4 (fp32) / 5e-2
+           (float16), the same greedy tokens (where a step's two best
+           logits tie within that limit the engines may part there: the
+           tie is reported)
   analysis STAGE's verifier and prover on the card's sweeps (run before the
            kernels line, after api): the sweep phase's qwen3-14b space with
            prove=True, verify=True on the card (the space certified, one
@@ -78,6 +91,11 @@ Phases, one JSON line each on standard output:
            with verify=True on the card (a main path of its own, counted),
            against the CPU (rel 1e-10) and the compiled backend (rel 1e-6)
 
+``--profile`` adds to each serve line a trace of four decode steps and of
+one warm prefill: device-busy time, idle share, top kernels, and the device
+time of Mamba's scan and conv, the MoE dispatch and combine (torch.profiler
+ranges) and of the flash and cuBLAS kernels.
+
 Each phase line carries the seconds since the script started.  After serve,
 sweep, api and analysis, the ``kernels`` line: every kernel with its
 launches on the main paths (flash_attention's summed over the served
@@ -87,6 +105,7 @@ for the card, and as the last line ``{"ok": true, "device": {...}}``.  Any failu
 exit code; without a CUDA device the script exits non-zero before any phase.
 """
 import argparse
+import contextlib
 import dataclasses
 import gc
 import json
@@ -116,7 +135,7 @@ from repro_torch.kernels import flash_attention as fa  # noqa: E402
 from repro_torch.kernels import ref  # noqa: E402
 from repro_torch.kernels import rwkv6_scan as wkv  # noqa: E402
 from repro_torch.models import RuntimeCfg, init_params, lm  # noqa: E402
-from repro_torch.serve import Engine, Request, make_prefill  # noqa: E402
+from repro_torch.serve import Engine, Request  # noqa: E402
 
 DEV = torch.device("cuda", 0)
 
@@ -323,6 +342,30 @@ ATTENTION_CASES = [
     dict(name="gemma2-window-softcap-prefill", main=True, B=1, N=16, G=2,
          Sq=8192, Sk=8192, D=128, dtype=BF16, causal=True, window=4096,
          softcap=50.0),
+    # whisper-medium (16 heads x 64, one per kv head): the encoder's unmasked
+    # self-attention over 1500 frames, the decoder's causal self-attention
+    # over its 448-token context, its cross-attention of 448 queries to the
+    # 1500 encoder outputs, and the two decode steps: self over the 448-entry
+    # cache and cross over 1500 keys (random here: on the served path the
+    # cross caches are zeros, as in the JAX package)
+    dict(name="whisper-encoder", main=True, B=2, N=16, G=1, Sq=1500,
+         Sk=1500, D=64, dtype=BF16, causal=False),
+    dict(name="whisper-self-prefill", main=True, B=2, N=16, G=1, Sq=448,
+         Sk=448, D=64, dtype=BF16, causal=True),
+    dict(name="whisper-cross-prefill", main=True, B=2, N=16, G=1, Sq=448,
+         Sk=1500, D=64, dtype=BF16, causal=False),
+    dict(name="whisper-self-decode", main=True, B=8, N=16, G=1, Sq=1, Sk=448,
+         D=64, dtype=BF16, causal=True, q_offset=447),
+    dict(name="whisper-cross-decode", main=True, B=8, N=16, G=1, Sq=1,
+         Sk=1500, D=64, dtype=BF16, causal=False),
+    # internvl2-26b's prefill over 256 vision + 2048 text positions (48 / 8
+    # heads x 128); jamba's one attention layer in 8 (32 / 8 heads x 128)
+    dict(name="internvl2-prefill", main=True, B=2, N=8, G=6, Sq=2304,
+         Sk=2304, D=128, dtype=BF16, causal=True),
+    dict(name="jamba-prefill", main=True, B=2, N=8, G=4, Sq=2048, Sk=2048,
+         D=128, dtype=BF16, causal=True),
+    dict(name="jamba-decode", main=True, B=8, N=8, G=4, Sq=1, Sk=2048,
+         D=128, dtype=BF16, causal=True, q_offset=2047),
 ]
 
 
@@ -994,13 +1037,77 @@ def device_us(e) -> float:
                    getattr(e, "self_cuda_time_total", 0.0))
 
 
+# the port's functions a profile times apart (each runs inside a
+# torch.profiler range of its own name while the profile records), and the
+# device kernels it sums by family, from their names
+PROFILED_FUNCTIONS = ("mamba_layer", "_ssm_scan", "_causal_conv", "moe_ffn",
+                      "moe_dispatch", "moe_combine")
+KERNEL_FAMILIES = {"flash_attention": ("flash",), "wkv6": ("wkv6",),
+                   "cublas": ("gemm", "nvjet", "cutlass", "xmma")}
+
+
+@contextlib.contextmanager
+def profiled_functions():
+    """Wrap each of ``PROFILED_FUNCTIONS`` of ``models.layers`` in a range of
+    its name, for one profile; the functions are restored after it."""
+    from torch.profiler import record_function
+    from repro_torch.models import layers
+    saved = {name: getattr(layers, name) for name in PROFILED_FUNCTIONS}
+
+    def ranged(name, fn):
+        def call(*args, **kw):
+            with record_function(name):
+                return fn(*args, **kw)
+        return call
+
+    for name, fn in saved.items():
+        setattr(layers, name, ranged(name, fn))
+    try:
+        yield
+    finally:
+        for name, fn in saved.items():
+            setattr(layers, name, fn)
+
+
+def kernel_events(prof) -> list:
+    """The ``key_averages`` rows of device kernels.  The device-side rows of
+    the ranges ``profiled_functions`` opens (their spans on the device,
+    idle gaps included) are no kernels and are left out."""
+    from torch.autograd import DeviceType
+    return [e for e in prof.key_averages()
+            if e.device_type == DeviceType.CUDA and device_us(e) > 0
+            and e.key not in PROFILED_FUNCTIONS]
+
+
+def device_split(prof, events, busy_ms: float, per: int = 1) -> dict:
+    """Device ms (per ``per`` steps) and share of the busy time of each
+    profiled function that ran (the kernels of every op under its range)
+    and of each kernel family."""
+    ranges = {name: 0.0 for name in PROFILED_FUNCTIONS}
+    for e in prof.events():
+        us = sum(k.duration for k in e.kernels if k.name not in ranges)
+        parent = e.cpu_parent
+        while us and parent is not None:
+            if parent.name in ranges:
+                ranges[parent.name] += us
+            parent = parent.cpu_parent
+    families = {fam: sum(device_us(e) for e in events
+                         if any(t in e.key.lower() for t in tags))
+                for fam, tags in KERNEL_FAMILIES.items()}
+    out = {}
+    for name, us in {**ranges, **families}.items():
+        if us > 0:
+            ms = us / 1e3 / per
+            out[name] = {"ms": ms, "share_of_busy": ms / busy_ms}
+    return out
+
+
 def profile_decode(spec, rt, params, steps: int = 4) -> dict:
     """Where a decode step's time goes (``--profile``): a full 8-slot engine
     takes 16 steps on the host's clock, then ``steps`` more under
     torch.profiler.  The device-busy time per step comes from the trace; the
     idle share holds it against the step time of those 16 steps, so both
     numbers are one engine's in one run."""
-    from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     eng = Engine(spec, rt, params, batch_slots=8, kv_len=2048, device=DEV)
     rng = np.random.RandomState(7)
@@ -1013,13 +1120,13 @@ def profile_decode(spec, rt, params, steps: int = 4) -> dict:
     eng.run(max_steps=16)
     torch.cuda.synchronize()
     step_ms = (time.perf_counter() - t0) * 1e3 / 16
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+    with profiled_functions(), profile(
+            activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         eng.run(max_steps=steps)
         torch.cuda.synchronize()
 
     # kernel events only: the CPU-side op rows repeat their kernels' time
-    events = [e for e in prof.key_averages()
-              if e.device_type == DeviceType.CUDA and device_us(e) > 0]
+    events = kernel_events(prof)
     busy_ms = sum(device_us(e) for e in events) / 1e3 / steps
     if not events:
         return {"device_busy_ms_per_step": "not measured",
@@ -1030,6 +1137,8 @@ def profile_decode(spec, rt, params, steps: int = 4) -> dict:
         "step_ms_unprofiled_same_engine": step_ms,
         "device_idle_share": max(0.0, 1.0 - busy_ms / step_ms),
         "device_kernels_per_step": sum(e.count for e in events) / steps,
+        "device_ms_per_step_by_part": device_split(prof, events, busy_ms,
+                                                   steps),
         "top_device_ms_per_step": [
             {"name": e.key[:60], "ms": device_us(e) / 1e3 / steps,
              "calls": e.count / steps} for e in top],
@@ -1072,18 +1181,17 @@ def profile_prefill(prefill, params, tokens, kernel: str) -> dict:
     """Where a warm [2, 2048] prefill's time goes (``--profile``): one
     prefill under torch.profiler; its wall time on the host beside the
     device-busy time and the device time of the model's kernel in it."""
-    from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     prefill(params, tokens)                              # warm-up
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+    with profiled_functions(), profile(
+            activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
         prefill(params, tokens)
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3
 
-    events = [e for e in prof.key_averages()
-              if e.device_type == DeviceType.CUDA and device_us(e) > 0]
+    events = kernel_events(prof)
     if not events:
         return {"device_busy_ms": "not measured",
                 "reason": "the profiler recorded no device time"}
@@ -1096,18 +1204,24 @@ def profile_prefill(prefill, params, tokens, kernel: str) -> dict:
         "device_idle_share": max(0.0, 1.0 - busy_ms / wall_ms),
         f"{kernel}_device_ms": sum(device_us(e) for e in mine) / 1e3,
         f"{kernel}_kernel_launches": sum(e.count for e in mine),
+        "device_ms_by_part": device_split(prof, events, busy_ms),
         "top_device_ms": [{"name": e.key[:60], "ms": device_us(e) / 1e3,
                            "calls": e.count} for e in top],
     }
 
 
 # each served model: its published (layers, d_model, d_ff, vocab), and the
-# kernel its path runs once per layer in every decode step and in every
-# prefill.  ``layers``: the depth served where the published one is cut
-# (reduced): deepseek-v2-236b's 60 layers are 471 GB in bf16, granite-34b's
-# 88 are 94.5 GB, neither fits one 80 GB card; gemma2-27b's 46 would hold
-# the phase as long as two more full-depth models.  ``long_prefill``: one
-# more [1, S] prefill, so that gemma2's 4096-key window masks keys.
+# kernel its path runs (``flash_launches``: how often).  ``layers``: the
+# depth served where the published one is cut (reduced): deepseek-v2-236b's
+# 60 layers are 471 GB in bf16, granite-34b's 88 are 94.5 GB, jamba's 32 are
+# 103 GB, none fits one 80 GB card (jamba at 16 leaves no margin for init's
+# fp32 draw of a layer and the prefill's fp32 scan tensors); gemma2-27b's 46
+# would hold the phase as long as two more full-depth models.
+# ``long_prefill``: one more [1, S] prefill, so that gemma2's 4096-key window
+# masks keys.  ``kv_len`` / ``prefill_len``: whisper's decoder context is
+# 448 tokens.  ``frames`` / ``vision``: the encoder's frame embeddings and
+# the VLM's patch embeddings [2, n, d_model] the prefill takes (the configs'
+# stubs), drawn from numpy with a seed.
 SERVED = {
     "qwen3-14b": dict(widths=(40, 5120, 17408, 151936), kernel="flash_attention"),
     "rwkv6-7b": dict(widths=(32, 4096, 14336, 65536), kernel="wkv6"),
@@ -1121,7 +1235,32 @@ SERVED = {
                        kernel="flash_attention", long_prefill=8192),
     "granite-34b": dict(widths=(88, 6144, 24576, 49152), layers=8,
                         kernel="flash_attention"),
+    "jamba-v0.1-52b": dict(widths=(32, 4096, 14336, 65536), layers=8,
+                           kernel="flash_attention"),
+    "whisper-medium": dict(widths=(24, 1024, 4096, 51865),
+                           kernel="flash_attention", kv_len=448,
+                           prefill_len=448, frames=1500),
+    "internvl2-26b": dict(widths=(48, 6144, 16384, 92553),
+                          kernel="flash_attention", vision=256),
 }
+
+
+def flash_launches(spec) -> tuple:
+    """(per decode step, per prefill) launches of the attention kernel: one
+    per attention layer, one per cross-attention layer (every decoder layer
+    of an encoder-decoder), and in the prefill one per encoder layer."""
+    attn = sum(lm._slot_kind(spec, l)["mixer"] == "attn"
+               for l in range(spec.n_layers))
+    cross = spec.n_layers if spec.encoder_layers else 0
+    return attn + cross, spec.encoder_layers + attn + cross
+
+
+def tree_params(spec) -> float:
+    """Parameters of the model's tree: the spec's count, plus the decoder's
+    cross-attention (one per layer), which ``ModelSpec.params`` leaves out."""
+    cross = (spec.n_layers * 2 * spec.d_model * spec.head_dim
+             * (spec.n_heads + spec.n_kv_heads) if spec.encoder_layers else 0)
+    return spec.params() + cross
 
 
 def _named_leaves(tree, key=None):
@@ -1157,11 +1296,15 @@ def phase_serve(name: str, kernels: list, with_profile: bool = False) -> dict:
     require(all(t.is_cuda and t.dtype == (torch.float32 if k in FP32_LEAVES
                                           else torch.bfloat16)
                 for k, t in named),
-            "a parameter is not bf16 on the card (the MoE router fp32)")
-    require(abs(n_params - spec.params()) / spec.params() < 0.01,
-            f"{n_params} parameters, the spec counts {spec.params():.0f}")
+            "a parameter is not bf16 on the card (the MoE router and "
+            "Mamba's A_log fp32)")
+    fp32_leaves = sorted({k for k, t in named if t.dtype == torch.float32})
+    require(abs(n_params - tree_params(spec)) / tree_params(spec) < 0.01,
+            f"{n_params} parameters, the spec counts {tree_params(spec):.0f}")
 
-    slots, kv_len, n_req, max_new = 8, 2048, 16, 16
+    slots, n_req, max_new = 8, 16, 16
+    kv_len = served.get("kv_len", 2048)
+    prefill_len = served.get("prefill_len", 2048)
     engine = Engine(spec, rt, params, batch_slots=slots, kv_len=kv_len,
                     device=DEV)
     rng = np.random.RandomState(0)
@@ -1171,11 +1314,21 @@ def phase_serve(name: str, kernels: list, with_profile: bool = False) -> dict:
         prompt_tokens += len(prompt)
         engine.submit(Request(rid=rid, prompt=prompt, max_new=max_new))
     prefill_tokens = torch.from_numpy(
-        rng.randint(0, spec.vocab, size=(2, 2048))).to(DEV)
+        rng.randint(0, spec.vocab, size=(2, prefill_len))).to(DEV)
     long_tokens = torch.from_numpy(rng.randint(
         0, spec.vocab, size=(1, served["long_prefill"]))).to(DEV) \
         if "long_prefill" in served else None
-    prefill = make_prefill(spec, rt)
+    # the encoder's frames / the VLM's patch embeddings of the two prompts
+    prefix = {key: torch.from_numpy(rng.standard_normal(
+        (2, served[key], spec.d_model)).astype(np.float32)).to(DEV)
+        for key in ("frames", "vision") if key in served}
+    sv = served.get("vision", 0)
+
+    def prefill(p, tokens):
+        """The prefill entry: lm.forward with the frames / vision prefix of
+        as many prompts as ``tokens`` has rows -> logits [B, Sv + S, V]."""
+        return lm.forward(p, tokens, spec, rt,
+                          **{k: t[:tokens.shape[0]] for k, t in prefix.items()})
 
     # ---- the main path, with every launch count at 0 just before ----
     reset_counts()
@@ -1184,7 +1337,7 @@ def phase_serve(name: str, kernels: list, with_profile: bool = False) -> dict:
     done = engine.run(max_steps=kv_len)
     torch.cuda.synchronize()
     decode_s = time.perf_counter() - t0
-    last_logits, first = timed_prefill(prefill, params, prefill_tokens)
+    logits, first = timed_prefill(prefill, params, prefill_tokens)
     long_logits = long_info = None
     if long_tokens is not None:
         long_logits, long_info = timed_prefill(prefill, params, long_tokens)
@@ -1199,27 +1352,36 @@ def phase_serve(name: str, kernels: list, with_profile: bool = False) -> dict:
                 f"req {r.rid}: {len(r.out)} tokens")
         require(all(0 <= t < spec.vocab for t in r.out),
                 f"req {r.rid}: {r.out}")
-    require(last_logits.shape == (2, 1, spec.vocab),
-            f"prefill logits have shape {tuple(last_logits.shape)}")
-    require(torch.isfinite(last_logits).all(),
+    require(logits.shape == (2, sv + prefill_len, spec.vocab),
+            f"prefill logits have shape {tuple(logits.shape)}")
+    require(torch.isfinite(logits[:, -1]).all(),
             "prefill logits not finite")
+    del logits
     prefills = 1
     if long_logits is not None:
-        require(long_logits.shape == (1, 1, spec.vocab)
-                and bool(torch.isfinite(long_logits).all()),
-                "the long prefill's logits are not finite of shape [1,1,V]")
+        require(long_logits.shape == (1, served["long_prefill"], spec.vocab)
+                and bool(torch.isfinite(long_logits[:, -1]).all()),
+                "the long prefill's logits are not finite of shape [1,S,V]")
+        del long_logits
         prefills = 2
     kernel = served["kernel"]
-    expected = (engine.steps + prefills) * spec.n_layers
-    require(counts[kernel] == expected,
-            f"{kernel} launched {counts[kernel]} times, expected "
-            f"({engine.steps} steps + {prefills} prefills) x {spec.n_layers}"
-            f" = {expected}")
+    per_step, per_prefill = flash_launches(spec)
+    if kernel == "flash_attention":
+        expected = engine.steps * per_step + prefills * per_prefill
+        require(counts[kernel] == expected,
+                f"{kernel} launched {counts[kernel]} times, expected "
+                f"{engine.steps} steps x {per_step} + {prefills} prefills x "
+                f"{per_prefill} = {expected}")
     require(all(n == 0 for k, n in counts.items() if k != kernel),
             f"{name} launched another model's kernel: {counts}")
     if kernel == "wkv6":
-        # the rule: every engine step is one token (decode), the [2, 2048]
-        # prefill is 2048 steps (tiled)
+        # the rule: one launch per layer; every engine step is one token
+        # (decode), the [2, 2048] prefill is 2048 steps (tiled)
+        per_step = per_prefill = spec.n_layers
+        require(counts[kernel] == (engine.steps + prefills) * spec.n_layers,
+                f"wkv6 launched {counts[kernel]} times, expected "
+                f"({engine.steps} steps + {prefills} prefills) x "
+                f"{spec.n_layers}")
         predicted = {"decode": engine.steps * spec.n_layers,
                      "tiled": spec.n_layers}
         require(wkv_variants == predicted,
@@ -1254,7 +1416,8 @@ def phase_serve(name: str, kernels: list, with_profile: bool = False) -> dict:
         "published_layers": published_layers,
         "reduced": ([f"depth {spec.n_layers} of {published_layers} layers"]
                     if spec.n_layers != published_layers else []),
-        "params": n_params, "dtype": "bfloat16", "init_s": init_s,
+        "params": n_params, "dtype": "bfloat16", "fp32_leaves": fp32_leaves,
+        "init_s": init_s,
         "slots": slots, "kv_len": kv_len, "requests": n_req,
         "served": len(done), "max_new": max_new,
         "prompt_tokens": prompt_tokens, "generated_tokens": generated,
@@ -1265,13 +1428,17 @@ def phase_serve(name: str, kernels: list, with_profile: bool = False) -> dict:
         **({"long_prefill_shape": [1, served["long_prefill"]],
             "long_prefill_ms": long_info.pop("ms"),
             "long_prefill_host_events": long_info} if long_info else {}),
-        "prefill_shape": [2, 2048], "prefill_first_ms": first.pop("ms"),
+        "prefill_shape": [2, prefill_len],
+        **({"prefix": {k: list(t.shape) for k, t in prefix.items()}}
+           if prefix else {}),
+        "prefill_positions": sv + prefill_len,
+        "prefill_first_ms": first.pop("ms"),
         "prefill_ms": float(np.median(warm_ms)),
         "prefill_warm_ms_readings": warm_ms,
         "prefill_host_events": [first, *warm],
         "kernel": kernel, "launches": counts,
-        "launches_per_decode_step": spec.n_layers,
-        "launches_per_prefill": spec.n_layers, "prefills_counted": prefills,
+        "launches_per_decode_step": per_step,
+        "launches_per_prefill": per_prefill, "prefills_counted": prefills,
         "peak_memory_gb": torch.cuda.max_memory_allocated() / 1e9,
         "first_request_tokens": done[0].out[:8],
     }
@@ -2059,17 +2226,28 @@ PARITY_TOL = {"float32": 1e-4, "float16": 5e-2}
 
 
 # the smoke specs whose attention the parity phase holds against the naive
-# core: qwen3, then this slice's five families (granite's MQA, minitron's
-# gelu FFN, gemma2's windows and softcaps, deepseek-moe's MoE, deepseek-v2's
-# MLA with q/k of 24 and v of 16 through the fma and fp32 decode kernels)
+# core: qwen3, granite's MQA, minitron's gelu FFN, gemma2's windows and
+# softcaps, deepseek-moe's MoE, deepseek-v2's MLA with q/k of 24 and v of 16
+# through the fma and fp32 decode kernels, jamba's Mamba + MoE hybrid,
+# whisper's encoder and cross-attention (frames of 30), internvl2's vision
+# prefix (8 positions)
 PARITY_SPECS = ("qwen3-14b", "granite-34b", "minitron-8b", "gemma2-27b",
-                "deepseek-moe-16b", "deepseek-v2-236b")
+                "deepseek-moe-16b", "deepseek-v2-236b", "jamba-v0.1-52b",
+                "whisper-medium", "internvl2-26b")
 
 
 def phase_parity(dtype: str = "float32", name: str = "qwen3-14b") -> dict:
     """The smoke spec of ``name`` at ``dtype``: attention through the kernel
     (``"cuda"``; a float16 runtime hands it fp32 q/k/v) against the naive
-    core, same greedy tokens and logits within ``PARITY_TOL``."""
+    core: every engine step's logits within ``PARITY_TOL``, the same greedy
+    tokens, prefill logits within ``PARITY_TOL``.
+
+    Two paths whose logits may differ by the tolerance may pick different
+    tokens where a step's two best logits are closer than it (a tie): the
+    engines are compared step by step up to the first step whose greedy
+    picks differ, and there every differing pick must be such a tie on the
+    naive core's logits; the two runs diverge after it, so their tokens are
+    compared only where no step ties."""
     spec = get_arch(name).smoke
     kw = dict(param_dtype=dtype, compute_dtype=dtype)
     rt_cuda = RuntimeCfg(attention_impl="cuda", **kw)
@@ -2081,27 +2259,64 @@ def phase_parity(dtype: str = "float32", name: str = "qwen3-14b") -> dict:
                for _ in range(3)]
 
     def serve(rt):
+        """-> (greedy tokens by request, every step's (tokens, logits))."""
         eng = Engine(spec, rt, params, batch_slots=2, kv_len=64, device=DEV)
+        steps, step = [], eng.step_fn
+
+        def recorded(p, cache, tok):
+            logits, cache = step(p, cache, tok)
+            steps.append((tok.clone(), logits[:, 0].float().clone()))
+            return logits, cache
+
+        eng.step_fn = recorded
         for rid, pr in enumerate(prompts):
             eng.submit(Request(rid=rid, prompt=pr, max_new=6))
-        return {r.rid: r.out for r in eng.run(max_steps=64)}
+        return {r.rid: r.out for r in eng.run(max_steps=64)}, steps
 
     reset_counts()
-    got = serve(rt_cuda)
+    got, got_steps = serve(rt_cuda)
     kernel_launches = fa.launches
     reset_counts()
-    want = serve(rt_naive)
+    want, want_steps = serve(rt_naive)
     require(fa.launches == 0, "the naive core launched the kernel")
     require(kernel_launches > 0, "the cuda path did not run the kernel")
-    require(sorted(got) == [0, 1, 2] and got == want,
-            f"greedy tokens differ ({dtype}): cuda {got}, naive {want}")
+    require(sorted(got) == [0, 1, 2] == sorted(want)
+            and all(len(o) == 6 for o in (*got.values(), *want.values())),
+            f"not every request served ({dtype}): cuda {got}, naive {want}")
+    step_err, tie = 0.0, None
+    for i, ((tok_c, l_c), (tok_n, l_n)) in enumerate(zip(got_steps,
+                                                         want_steps)):
+        require(torch.equal(tok_c, tok_n), "the engines fed other tokens "
+                "before their picks differed")
+        step_err = max(step_err, (l_c - l_n).abs().max().item())
+        require(step_err <= PARITY_TOL[dtype],
+                f"step {i} logits ({dtype}): cuda vs naive max abs err "
+                f"{step_err}")
+        pick_c, pick_n = l_c.argmax(-1), l_n.argmax(-1)
+        if not torch.equal(pick_c, pick_n):
+            rows = (pick_c != pick_n).nonzero().flatten()
+            gaps = (l_n[rows, pick_n[rows]] - l_n[rows, pick_c[rows]])
+            require(bool((gaps <= PARITY_TOL[dtype]).all()),
+                    f"step {i}: greedy picks differ ({dtype}) where the "
+                    f"naive logits are {gaps.tolist()} apart")
+            tie = {"step": i, "rows": rows.tolist(), "gaps": gaps.tolist()}
+            break
+    if tie is None:
+        require(got == want,
+                f"greedy tokens differ ({dtype}): cuda {got}, naive {want}")
     tokens = torch.from_numpy(rng.randint(0, spec.vocab, size=(2, 40))).to(DEV)
+    prefix = {key: torch.from_numpy(rng.standard_normal(
+        (2, n, spec.d_model)).astype(np.float32)).to(DEV)
+        for key, n in (("frames", spec.encoder_layers and spec.enc_seq),
+                       ("vision", spec.vision_seq)) if n}
     reset_counts()
-    l_cuda = lm.forward(params, tokens, spec, rt_cuda)
+    l_cuda = lm.forward(params, tokens, spec, rt_cuda, **prefix)
     prefill_launches = fa.launches
-    l_naive = lm.forward(params, tokens, spec, rt_naive)
-    require(prefill_launches == spec.n_layers,
+    l_naive = lm.forward(params, tokens, spec, rt_naive, **prefix)
+    require(prefill_launches == flash_launches(spec)[1],
             f"the prefill launched the kernel {prefill_launches} times")
+    require(l_cuda.shape == (2, spec.vision_seq + 40, spec.vocab),
+            f"smoke logits of shape {tuple(l_cuda.shape)}")
     torch.cuda.synchronize()
     # a final softcap (gemma2) returns fp32 logits, as in the JAX package
     want_dtype = torch.float32 if spec.final_softcap else getattr(torch, dtype)
@@ -2112,7 +2327,10 @@ def phase_parity(dtype: str = "float32", name: str = "qwen3-14b") -> dict:
     require(err <= PARITY_TOL[dtype],
             f"smoke logits ({dtype}): cuda vs naive max abs err {err}")
     return {"spec": spec.name, "dtype": dtype, "requests": 3,
-            "tokens_equal": True, "engine_flash_launches": kernel_launches,
+            "tokens_equal": got == want, "tie": tie,
+            "engine_steps": len(got_steps),
+            "step_logits_max_abs_err": step_err,
+            "engine_flash_launches": kernel_launches,
             "prefill_flash_launches": prefill_launches,
             "logits_max_abs": l_naive.float().abs().max().item(),
             "logits_max_abs_err": err, "tolerance": PARITY_TOL[dtype]}
@@ -2177,11 +2395,17 @@ def main(argv=None) -> int:
                          "one warm prefill with torch.profiler (device-busy "
                          "time, idle share, top kernels); sweep phase: the "
                          "same for one warm evaluation of the sweep's points")
+    ap.add_argument("--models", default=",".join(SERVED),
+                    help="serve phase: comma-separated subset of the served "
+                         "models (a subset makes the run partial)")
     args = ap.parse_args(argv)
     phases = [p for p in args.phases.split(",") if p]
     unknown = set(phases) - set(PHASES)
     if unknown:
         ap.error(f"unknown phases {sorted(unknown)}")
+    models = [m for m in args.models.split(",") if m]
+    if set(models) - set(SERVED):
+        ap.error(f"unknown models {sorted(set(models) - set(SERVED))}")
 
     smi = nvidia_smi_line()
     kind = torch.cuda.get_device_name(0)
@@ -2209,7 +2433,7 @@ def main(argv=None) -> int:
         ap.error("the serve, sweep, api and analysis phases need the kernels "
                  "phase")
     if "serve" in phases:
-        for name in SERVED:
+        for name in models:
             emit("serve", **phase_serve(name, kernels,
                                         with_profile=args.profile))
             gc.collect()                 # free one model before the next
@@ -2223,14 +2447,16 @@ def main(argv=None) -> int:
     if main_paths:
         # ``launches`` is the count of each kernel's first main path (the
         # api and analysis phases require and report their own counts)
-        ran = {"flash_attention": "serve", "wkv6": "serve",
-               "cost_reduce": "sweep" if "sweep" in phases else "analysis"}
+        served = {SERVED[m]["kernel"] for m in models} \
+            if "serve" in phases else set()
+        paths = {f"serve {m}" for m in models}
         for k in kernels:
-            if ran[k["name"]] in phases:
+            if k["name"] in served or (k["name"] == "cost_reduce" and {
+                    "sweep", "analysis"} & set(phases)):
                 require(k["launches"] > 0,
                         f"kernel {k['name']} never ran on the main path")
                 for iname, inst in k.get("instances", {}).items():
-                    require(inst["launches"] > 0,
+                    require(inst["launches"] > 0 or inst["path"] not in paths,
                             f"{k['name']} {iname} never ran on its path")
         probe_library_backends()
         print(json.dumps({"kernels": kernels}), flush=True)
@@ -2246,8 +2472,9 @@ def main(argv=None) -> int:
                 emit("parity", **phase_parity(dtype, name))
             emit("parity", **phase_parity_rwkv(dtype))
 
-    if set(phases) != set(PHASES):
-        print(json.dumps({"ok": False, "partial": phases}), flush=True)
+    if set(phases) != set(PHASES) or models != list(SERVED):
+        print(json.dumps({"ok": False, "partial": phases, "models": models}),
+              flush=True)
         return 2
     print(smi, flush=True)
     print(json.dumps({"ok": True, "device": {

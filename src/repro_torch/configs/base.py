@@ -9,8 +9,7 @@
 ``--arch <id>`` everywhere resolves through :func:`get`, which returns every
 arch of ``ARCHS``: the generator (``Scenario``, sweeps, the prover, the
 ``python -m repro_torch.analysis`` CLI) runs them all.  ``PORTED`` names the
-families the port also *serves*; the serve launcher refuses the others, and
-``models.lm.init_params`` refuses their layer kinds.
+archs the port also *serves* (``models/``, ``launch/serve.py``): all ten.
 
 Own copy of ``repro.configs.base``.
 """
@@ -27,9 +26,8 @@ ARCHS = (
     "deepseek-moe-16b", "deepseek-v2-236b", "internvl2-26b", "jamba-v0.1-52b",
     "rwkv6-7b",
 )
-# the families the port serves (models/, launch/serve.py)
-PORTED = ("qwen3-14b", "rwkv6-7b", "granite-34b", "minitron-8b",
-          "gemma2-27b", "deepseek-moe-16b", "deepseek-v2-236b")
+# the archs the port serves (models/, launch/serve.py)
+PORTED = ARCHS
 
 
 @dataclass(frozen=True)

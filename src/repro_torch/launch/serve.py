@@ -4,9 +4,12 @@
     PYTHONPATH=src python -m repro_torch.launch.serve --arch qwen3-14b \\
         --smoke --device cpu
 
-Before it serves, it prints the symbolic pre-flight line
-(:mod:`repro_torch.launch.preflight`): the decode step's predicted time and
-peak memory on the modelled cluster.
+Every arch of ``configs`` is served as the JAX package's launcher serves
+it, through the decode path alone: whisper-medium decodes against its
+cross-attention caches, which nothing fills (zeros), and internvl2-26b
+without a vision prefix.  Before it serves, it prints the symbolic
+pre-flight line (:mod:`repro_torch.launch.preflight`): the decode step's
+predicted time and peak memory on the modelled cluster.
 """
 import argparse
 
@@ -14,7 +17,7 @@ import numpy as np
 import torch
 
 from repro_torch._device import resolve_device
-from repro_torch.configs import PORTED, get as get_arch
+from repro_torch.configs import get as get_arch
 from repro_torch.launch.preflight import announce, preflight
 from repro_torch.models import init_params
 from repro_torch.serve import Engine, Request
@@ -48,12 +51,6 @@ def main(argv=None):
     args = ap.parse_args(argv)
 
     arch = get_arch(args.arch)
-    if arch.name not in PORTED:
-        raise NotImplementedError(
-            f"arch {arch.name!r}: its model family is not ported to "
-            f"repro_torch's serving path yet (served: {PORTED}); see "
-            "ROADMAP.md queue 1.  The generator (Scenario, sweeps, prover) "
-            "runs it; the JAX package `repro` serves it")
     device = resolve_device(args.device)
     spec = arch.smoke if args.smoke else arch.spec
     rt = arch.runtime                  # attention through the CUDA kernel

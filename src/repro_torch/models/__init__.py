@@ -1,6 +1,6 @@
-"""Runtime models of the port: dense GQA decoders, MLA and MoE (deepseek)
-and RWKV6; mamba/hybrid, encoder and vision-prefix families still to
-port."""
+"""Runtime models of the port: dense GQA decoders, MLA and MoE (deepseek),
+RWKV6, the Mamba hybrid (jamba), the encoder-decoder (whisper) and the
+vision prefix (internvl2): all ten architectures of ``configs``."""
 from . import layers, lm
 from .common import Initializer, RuntimeCfg
 from .convert import params_from_reference

@@ -15,8 +15,9 @@ import torch
 from .._device import resolve_device, torch_dtype
 
 # leaves the JAX package's init draws in fp32 at any parameter dtype (the
-# MoE router: routing is computed in fp32); a cast leaves them fp32
-FP32_LEAVES = frozenset({"w_router"})
+# MoE router: routing is computed in fp32; Mamba's A_log); a cast leaves
+# them fp32
+FP32_LEAVES = frozenset({"w_router", "A_log"})
 
 
 def _leaf(a: np.ndarray, device: torch.device,
@@ -36,9 +37,9 @@ def params_from_reference(tree: Any, device=None, dtype=None) -> Any:
     ``torch.Tensor`` on ``device`` (the card unless ``"cpu"``).  ``dtype``
     (name or ``torch.dtype``) casts every floating leaf except those the JAX
     package's init keeps in fp32 whatever the parameter dtype
-    (``FP32_LEAVES``: the MoE router ``w_router``), which stay fp32 so that
-    a cast tree routes as the reference does; None keeps each leaf's own
-    type, bf16 included."""
+    (``FP32_LEAVES``: the MoE router ``w_router``, Mamba's ``A_log``), which
+    stay fp32 so that a cast tree routes and decays as the reference does;
+    None keeps each leaf's own type, bf16 included."""
     device = resolve_device(device)
     want = torch_dtype(dtype) if dtype is not None else None
 

@@ -1,6 +1,6 @@
-"""Layer library of the port: norms, RoPE, attention cores, the GQA and MLA
-attention layers, the FFN, the MoE FFN and the RWKV6 block, as pure
-functions over ``{name: tensor}`` subtrees.
+"""Layer library of the port: norms, RoPE, attention cores, the GQA (self
+and cross) and MLA attention layers, the FFN, the MoE FFN, the Mamba mixer
+and the RWKV6 block, as pure functions over ``{name: tensor}`` subtrees.
 
 Shapes follow the JAX package so weights carry across leaf by leaf:
 
@@ -13,9 +13,10 @@ Shapes follow the JAX package so weights carry across leaf by leaf:
   kernel is held against inside the model.
 * Every WKV recurrence of ``rwkv6_layer`` goes through ``kernels.ops.wkv6``:
   the hand-written kernel for CUDA tensors, its plain version for CPU ones.
+* The Mamba scan (``_ssm_scan``) is plain PyTorch, as the JAX package's is
+  plain JAX (``lax.associative_scan``, no Pallas kernel).
 
-Not ported yet: cross-attention (whisper), mamba, and the expert-parallel
-(all-to-all) branch of the MoE FFN.
+Not ported yet: the expert-parallel (all-to-all) branch of the MoE FFN.
 """
 from __future__ import annotations
 
@@ -138,27 +139,50 @@ def init_gqa(ini: Initializer, spec, prefix: str = "") -> dict:
     return p
 
 
+def _kv(p: dict, src: torch.Tensor, rt: RuntimeCfg) -> tuple:
+    """k and v projected from ``src`` [B,T,H] (k normed where the layer has
+    ``kn``)."""
+    k = torch.einsum("bth,hnd->btnd", src, cast(p["w_k"], rt))
+    v = torch.einsum("bth,hnd->btnd", src, cast(p["w_v"], rt))
+    if p.get("kn") is not None:
+        k = rms_norm(p["kn"], k)
+    return k, v
+
+
 def gqa_attention(p: dict, x: torch.Tensor, spec, rt: RuntimeCfg, *,
                   positions=None, window: Optional[int] = None,
-                  causal: bool = True, cache: Optional[dict] = None
-                  ) -> tuple:
-    """Self-attention with residual: x [B,S,H] -> (x + attn(x), new cache).
+                  causal: bool = True, cross_kv: Optional[torch.Tensor] = None,
+                  cache: Optional[dict] = None) -> tuple:
+    """Attention with residual: x [B,S,H] -> (x + attn(x), new cache).
 
-    ``cache`` (decode) is ``{"k", "v": [B, klen, NKV, DH], "pos": int}``.
-    Its k and v are **updated in place** and handed back in the new dict;
-    ``pos`` is a Python int.  A sliding-window layer whose cache is no longer
-    than the window keeps a ring: shift left, append, attend to the filled
-    tail.  Writing past ``klen`` raises (JAX clamps the write instead)."""
+    Self-attention: ``cache`` (decode) is ``{"k", "v": [B, klen, NKV, DH],
+    "pos": int}``.  Its k and v are **updated in place** and handed back in
+    the new dict; ``pos`` is a Python int.  A sliding-window layer whose
+    cache is no longer than the window keeps a ring: shift left, append,
+    attend to the filled tail.  Writing past ``klen`` raises (JAX clamps the
+    write instead).  ``causal=False`` with no cache is the encoder's.
+
+    Cross-attention (whisper's decoder), as in the JAX package: with
+    ``cross_kv`` [B,T,H] (the encoder's output), k and v come from it, q and
+    k are not roped, no mask, and the new cache is ``{"k", "v"}``; with a
+    cache that has no ``pos``, q attends to its k and v, unmasked, and the
+    cache comes back unchanged."""
     h = rms_norm(p["ln"], x)
     q = torch.einsum("bsh,hngd->bsngd", h, cast(p["w_q"], rt))
     if p.get("qn") is not None:
         q = rms_norm(p["qn"], q)
-    k = torch.einsum("bsh,hnd->bsnd", h, cast(p["w_k"], rt))
-    v = torch.einsum("bsh,hnd->bsnd", h, cast(p["w_v"], rt))
-    if p.get("kn") is not None:
-        k = rms_norm(p["kn"], k)
 
-    if cache is not None:                       # decode against the cache
+    if cache is not None and "pos" not in cache:  # cached cross-attention
+        new_cache = cache
+        out5 = attn_core(q, cache["k"], cache["v"], rt, causal=False,
+                         softcap=spec.attn_softcap)
+    elif cross_kv is not None:                    # cross-attention, prefill
+        k, v = _kv(p, cross_kv, rt)
+        new_cache = {"k": k, "v": v}
+        out5 = attn_core(q, k, v, rt, causal=False, window=window,
+                         softcap=spec.attn_softcap)
+    elif cache is not None:                     # decode against the cache
+        k, v = _kv(p, h, rt)
         pos = int(cache["pos"])
         if positions is None:
             positions = torch.full(x.shape[:2], pos, dtype=torch.int32,
@@ -191,6 +215,7 @@ def gqa_attention(p: dict, x: torch.Tensor, spec, rt: RuntimeCfg, *,
             out5 = attn_core(q, ck, cv, rt, causal=True, window=window,
                              softcap=spec.attn_softcap, q_offset=pos)
     else:
+        k, v = _kv(p, h, rt)
         if positions is None:
             positions = torch.arange(x.shape[1], device=x.device) \
                 .expand(x.shape[0], -1)
@@ -435,6 +460,143 @@ def moe_ffn(p: dict, x: torch.Tensor, spec, rt: RuntimeCfg, *,
             @ cast(sh["w_down"], rt)
         out = out + so
     return x + out
+
+
+# ---------------------------------------------------------------------------
+# Mamba (selective SSM): chunked scan with an O(1) carried state
+# ---------------------------------------------------------------------------
+
+def init_mamba(ini: Initializer, spec, prefix: str = "") -> dict:
+    """``A_log`` is drawn in fp32 at any parameter dtype, as in the JAX
+    package."""
+    H = spec.d_model
+    ss = spec.ssm
+    din = ss.expand * H
+    dtr = ss.dt_rank or H // 16
+    return {
+        "ln": ini(prefix + "ln_ssm", (H,)),
+        "w_in": ini(prefix + "w_in", (H, 2 * din)),
+        "conv": ini(prefix + "conv", (4, din), scale=0.5),
+        "w_xdb": ini(prefix + "w_xdb", (din, dtr + 2 * ss.d_state)),
+        "w_dt": ini(prefix + "w_dt", (dtr, din)),
+        "A_log": ini(prefix + "A_log", (din, ss.d_state), scale=1.0,
+                     dtype=torch.float32),
+        "D": ini(prefix + "D", (din,)),
+        "w_out": ini(prefix + "w_out", (din, H), scale=1.0 / math.sqrt(din)),
+    }
+
+
+def _combine(a1, x1, a2, x2) -> tuple:
+    """(a1, x1) then (a2, x2): h -> a2 (a1 h + x1) + x2."""
+    return a1 * a2, x1 * a2 + x2
+
+
+def _associative_scan(a: torch.Tensor, x: torch.Tensor) -> tuple:
+    """Inclusive scan of ``_combine`` over dim 1, by the odd/even recursion
+    of ``jax.lax.associative_scan`` (log depth, the same pairs combined in
+    the same order, so the same roundings)."""
+    n = a.shape[1]
+    if n < 2:
+        return a, x
+    odd_a, odd_x = _associative_scan(*_combine(a[:, 0:-1:2], x[:, 0:-1:2],
+                                               a[:, 1::2], x[:, 1::2]))
+    if n % 2 == 0:
+        ev_a, ev_x = _combine(odd_a[:, :-1], odd_x[:, :-1], a[:, 2::2],
+                              x[:, 2::2])
+    else:
+        ev_a, ev_x = _combine(odd_a, odd_x, a[:, 2::2], x[:, 2::2])
+
+    def interleave(first, even, odd):
+        out = first.new_empty((first.shape[0], n) + tuple(first.shape[2:]))
+        out[:, 0:1] = first
+        out[:, 2::2] = even
+        out[:, 1::2] = odd
+        return out
+
+    return (interleave(a[:, :1], ev_a, odd_a),
+            interleave(x[:, :1], ev_x, odd_x))
+
+
+def _ssm_scan(dA: torch.Tensor, dBx: torch.Tensor, h0: torch.Tensor,
+              chunk: int) -> tuple:
+    """h_t = dA_t * h_{t-1} + dBx_t over dim 1; returns (all h, last h).
+
+    dA/dBx: [B, S, D, P]; h0 [B, D, P].  The JAX package's chunking: chunks
+    of ``chunk`` steps carried one after the other, one chunk of S when
+    ``chunk`` does not divide S; a log-depth scan inside each chunk."""
+    s = dA.shape[1]
+    if s % chunk != 0:
+        chunk = s
+    hs = torch.empty_like(dBx)
+    h = h0
+    for c0 in range(0, s, chunk):
+        aa, xx = _associative_scan(dA[:, c0:c0 + chunk],
+                                   dBx[:, c0:c0 + chunk])
+        torch.add(xx, aa * h[:, None], out=hs[:, c0:c0 + chunk])
+        h = hs[:, c0 + chunk - 1]
+    return hs, h
+
+
+def _causal_conv(xpad: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """The depthwise causal conv of ``xpad`` [B, 3 + S, Din] (three earlier
+    inputs, then S new) with taps ``w`` [4, Din]: [B, S, Din], the four
+    products summed in the JAX package's order in the compute dtype."""
+    s = xpad.shape[1] - 3
+    out = xpad[:, 0:s] * w[0]
+    for i in range(1, 4):
+        out = out + xpad[:, i:i + s] * w[i]
+    return out
+
+
+def _softplus(x: torch.Tensor) -> torch.Tensor:
+    """``jax.nn.softplus``: log(1 + e^x) as logaddexp(x, 0), with no
+    threshold (``F.softplus`` returns x itself above 20)."""
+    return torch.logaddexp(x, torch.zeros((), dtype=x.dtype, device=x.device))
+
+
+def mamba_layer(p: dict, x: torch.Tensor, spec, rt: RuntimeCfg, *,
+                cache: Optional[dict] = None) -> tuple:
+    """Selective-SSM mixer with residual: x [B,S,H] -> (x', new cache).
+
+    ``cache`` (decode) is ``{"conv": [B, 3, Din] compute dtype, "ssm": [B,
+    Din, P] fp32}``: the last three conv inputs and the scan state.  Its
+    tensors are **updated in place** and handed back in the new dict.  The
+    causal conv sums its four taps in the JAX package's order in the compute
+    dtype; dt, dA, dBx and the state are fp32, y is cast back to x's
+    dtype."""
+    ss = spec.ssm
+    b, s, H = x.shape
+    din = ss.expand * H
+    dtr = ss.dt_rank or H // 16
+    h = rms_norm(p["ln"], x)
+    xz = h @ cast(p["w_in"], rt)
+    xs, z = xz[..., :din], xz[..., din:]
+
+    prev = cache["conv"] if cache is not None else xs.new_zeros((b, 3, din))
+    xpad = torch.cat([prev, xs], dim=1)
+    xc = F.silu(_causal_conv(xpad, cast(p["conv"], rt)))
+
+    xdb = xc @ cast(p["w_xdb"], rt)
+    dt0, Bt, Ct = (xdb[..., :dtr], xdb[..., dtr:dtr + ss.d_state],
+                   xdb[..., dtr + ss.d_state:])
+    dtt = _softplus((dt0 @ cast(p["w_dt"], rt)).float())       # [B,S,Din]
+    A = -torch.exp(p["A_log"].float())                         # [Din, P]
+    dA = torch.exp_(dtt[..., None] * A)                        # [B,S,Din,P]
+    dBx = (dtt * xc.float())[..., None] * Bt[:, :, None, :].float()
+    h0 = cache["ssm"] if cache is not None else \
+        torch.zeros((b, din, ss.d_state), dtype=torch.float32,
+                    device=x.device)
+    hs, h_last = _ssm_scan(dA, dBx, h0, chunk=min(s, 256))
+    y = torch.einsum("bsip,bsp->bsi", hs, Ct.float()).to(x.dtype)
+    y = y + xc * cast(p["D"], rt)
+    y = y * F.silu(z)
+    out = y @ cast(p["w_out"], rt)
+    new_cache = None
+    if cache is not None:
+        cache["conv"].copy_(xpad[:, -3:])
+        cache["ssm"].copy_(h_last)
+        new_cache = {"conv": cache["conv"], "ssm": cache["ssm"]}
+    return x + out, new_cache
 
 
 # ---------------------------------------------------------------------------

@@ -1,21 +1,25 @@
-"""Generic decoder LM of the port: dense GQA decoders (plain, MQA,
-alternating local/global windows), MLA and MoE (deepseek), and RWKV6.
+"""Generic decoder LM of the port, covering all ten architectures: dense
+GQA decoders (plain, MQA, alternating local/global windows), MLA and MoE
+(deepseek), RWKV6, the Mamba + attention + MoE hybrid (jamba), an encoder
+with decoder cross-attention (whisper) and a vision prefix (internvl2).
 
 The layer stack is an unstacked *prefix* (deepseek's first dense layer)
 followed by a repeating *period* (1 for a plain decoder, 2 for alternating
-local/global windows); the parameters of each slot of the period are stacked
-``[n_rep, ...]`` exactly as in the JAX package, so a parameter tree carries
-across leaf by leaf.  Where the JAX package scans over the stack, the port
+local/global windows, 8 for jamba's seven Mamba layers and one attention
+layer); the parameters of each slot of the period are stacked ``[n_rep,
+...]`` exactly as in the JAX package, as are the encoder's layers and the
+decoder's cross-attention (one per layer), so a parameter tree carries
+across leaf by leaf.  Where the JAX package scans over a stack, the port
 loops over views of it.
 
 API:
   init_params(spec, rt, generator, device=)    -> parameter tree
-  forward(params, tokens, spec, rt)            -> logits  (prefill)
+  forward(params, tokens, spec, rt, frames=, vision=) -> logits (prefill)
   init_cache(spec, rt, batch, kv_len, device=) -> decode cache
   decode_step(params, cache, tokens, spec, rt) -> (logits, cache)
 
-Families still to port raise ``NotImplementedError`` naming their ROADMAP
-queue.  ``loss_fn`` waits for the training slice.
+A block kind no configuration has raises ``NotImplementedError``.
+``loss_fn`` waits for the training slice.
 """
 from __future__ import annotations
 
@@ -33,22 +37,14 @@ from .common import Initializer, RuntimeCfg, dt
 # ---------------------------------------------------------------------------
 
 
+BLOCKS = ("gqa", "mla", "mamba", "rwkv6")
+
+
 def _require_ported(spec) -> None:
-    """Raise for a spec whose family the port does not run yet."""
-    todo = None
-    if spec.block == "mamba" or spec.attn_every > 1:
-        todo = "mamba / hybrid blocks (ROADMAP.md queue 1, item 1: jamba)"
-    elif spec.encoder_layers:
-        todo = ("encoder + cross-attention (ROADMAP.md queue 1, item 1: "
-                "whisper)")
-    elif spec.vision_seq:
-        todo = "vision prefix (ROADMAP.md queue 1, item 1: internvl2)"
-    elif spec.block not in ("gqa", "mla", "rwkv6"):
-        todo = f"block kind {spec.block!r} (ROADMAP.md queue 1)"
-    if todo:
+    """Raise for a block kind that neither package builds."""
+    if spec.block not in BLOCKS:
         raise NotImplementedError(
-            f"repro_torch does not run {spec.name!r} yet: {todo} still to "
-            "port; the JAX package `repro` runs it")
+            f"{spec.name!r}: block kind {spec.block!r} is none of {BLOCKS}")
 
 
 def _slot_kind(spec, layer: int) -> dict:
@@ -109,10 +105,16 @@ def _n_rep(spec) -> int:
 # ---------------------------------------------------------------------------
 
 
+# an encoder layer of whisper: unmasked self-attention and a dense FFN
+ENC_KIND = {"mixer": "attn", "window": None, "ffn": "ffn"}
+
+
 def _init_slot(ini: Initializer, spec, kind: dict, prefix: str) -> dict:
     p: dict = {}
     if kind["mixer"] == "rwkv":
         p["rwkv"] = L.init_rwkv6(ini, spec, prefix + "r_")
+    elif kind["mixer"] == "mamba":
+        p["mamba"] = L.init_mamba(ini, spec, prefix + "m_")
     elif spec.block == "mla":
         p["attn"] = L.init_mla(ini, spec, prefix + "a_")
     else:
@@ -134,13 +136,13 @@ def _tree_map(fn, tree, *rest):
     return fn(tree, *rest)
 
 
-def _init_stack(ini: Initializer, spec, kind: dict, n_rep: int,
-                s: int) -> dict:
-    """``n_rep`` slots stacked ``[n_rep, ...]``, filled one layer at a time so
-    that the fp32 draw of only one layer is alive beside the stack."""
+def _init_stack(init_one, n_rep: int) -> dict:
+    """``n_rep`` subtrees ``init_one(r)`` stacked ``[n_rep, ...]``, filled one
+    layer at a time so that the fp32 draw of only one layer is alive beside
+    the stack."""
     stack: dict = {}
     for r in range(n_rep):
-        rep = _init_slot(ini, spec, kind, f"l{r}s{s}_")
+        rep = init_one(r)
         if r == 0:
             stack = _tree_map(
                 lambda t: torch.empty((n_rep,) + tuple(t.shape), dtype=t.dtype,
@@ -165,12 +167,21 @@ def init_params(spec, rt: RuntimeCfg, generator: Optional[torch.Generator] = Non
         "ln_f": ini("ln_f", (H,)),
         "lm_head": ini("lm_head", (H, V)),
     }
+    if spec.encoder_layers:
+        params["encoder"] = _init_stack(
+            lambda i: _init_slot(ini, spec, ENC_KIND, f"enc{i}_"),
+            spec.encoder_layers)
+        params["ln_enc"] = ini("ln_enc", (H,))
+        # decoder cross-attention, one per decoder layer
+        params["cross"] = _init_stack(
+            lambda i: L.init_gqa(ini, spec, f"x{i}_"), spec.n_layers)
     prefix_n, period = layer_pattern(spec)
     params["prefix"] = [_init_slot(ini, spec, _slot_kind(spec, l), f"pl{l}_")
                         for l in range(prefix_n)]
     n_rep = _n_rep(spec)
     params["slots"] = [
-        _init_stack(ini, spec, _slot_kind(spec, prefix_n + s), n_rep, s)
+        _init_stack(lambda r, kind=_slot_kind(spec, prefix_n + s), s=s:
+                    _init_slot(ini, spec, kind, f"l{r}s{s}_"), n_rep)
         for s in range(period)]
     return params
 
@@ -186,23 +197,41 @@ def _index(tree, i: int):
 
 
 def _apply_slot(p: dict, x, spec, rt, kind: dict, *, positions=None,
-                cache=None):
+                cache=None, cross_kv=None, cross_p=None, cross_cache=None):
     name = kind["mixer"]
     layer_cache = None if cache is None else cache.get(name)
     if name == "rwkv":
         x, c = L.rwkv6_layer(p["rwkv"], x, spec, rt, cache=layer_cache)
+    elif name == "mamba":
+        x, c = L.mamba_layer(p["mamba"], x, spec, rt, cache=layer_cache)
     elif spec.block == "mla":
         x, c = L.mla_attention(p["attn"], x, spec, rt, positions=positions,
                                cache=layer_cache)
     else:
         x, c = L.gqa_attention(p["attn"], x, spec, rt, positions=positions,
                                window=kind["window"], cache=layer_cache)
-    new_cache = {name: c} if c is not None else None
+    new_cache = {name: c} if c is not None else {}
+    if cross_p is not None:
+        x, cc = L.gqa_attention(cross_p, x, spec, rt, cross_kv=cross_kv,
+                                cache=cross_cache)
+        if cache is not None:
+            new_cache["cross"] = cc
     if kind["ffn"] == "moe":
         x = L.moe_ffn(p["moe"], x, spec, rt)
     elif kind["ffn"] == "ffn":
         x = L.ffn(p["ffn"], x, spec, rt)
-    return x, new_cache
+    return x, new_cache or None
+
+
+def _run_encoder(params: dict, frames, spec, rt: RuntimeCfg):
+    """The encoder over frame embeddings [B, T, H]: unmasked self-attention
+    and a dense FFN per layer, then ``ln_enc``."""
+    x = L.cast(frames, rt)
+    for i in range(spec.encoder_layers):
+        p = _index(params["encoder"], i)
+        x, _ = L.gqa_attention(p["attn"], x, spec, rt, causal=False)
+        x = L.ffn(p["ffn"], x, spec, rt)
+    return L.rms_norm(params["ln_enc"], x)
 
 
 def _logits(params: dict, x, spec, rt: RuntimeCfg):
@@ -214,21 +243,37 @@ def _logits(params: dict, x, spec, rt: RuntimeCfg):
 
 
 @torch.no_grad()
-def forward(params: dict, tokens, spec, rt: RuntimeCfg, *,
-            positions=None) -> torch.Tensor:
+def forward(params: dict, tokens, spec, rt: RuntimeCfg, *, frames=None,
+            vision=None, positions=None) -> torch.Tensor:
     """Prefill forward: tokens [B, S] (on the parameters' device) ->
-    logits [B, S, V]."""
+    logits [B, Sv + S, V].
+
+    ``vision`` [B, Sv, H] (a VLM's patch embeddings) is cast to the compute
+    dtype and prepended to the token embeddings.  ``frames`` [B, T, H] (an
+    encoder's frame embeddings) are required when the spec has an encoder:
+    the encoder runs over them and every decoder layer cross-attends to its
+    output."""
     _require_ported(spec)
     x = L.cast(params["embed"][tokens], rt)
+    if vision is not None:
+        x = torch.cat([vision.to(x.dtype), x], dim=1)
+    cross_kv = None
+    if spec.encoder_layers:
+        if frames is None:
+            raise ValueError(f"{spec.name!r} has an encoder: forward needs "
+                             "frames [B, T, H]")
+        cross_kv = _run_encoder(params, frames, spec, rt)
     prefix_n, period = layer_pattern(spec)
     for l, p in enumerate(params["prefix"]):
         x, _ = _apply_slot(p, x, spec, rt, _slot_kind(spec, l),
                            positions=positions)
     kinds = [_slot_kind(spec, prefix_n + s) for s in range(period)]
     for r in range(_n_rep(spec)):
+        cross_p = _index(params["cross"], r) if spec.encoder_layers else None
         for s in range(period):
             x, _ = _apply_slot(_index(params["slots"][s], r), x, spec, rt,
-                               kinds[s], positions=positions)
+                               kinds[s], positions=positions,
+                               cross_kv=cross_kv, cross_p=cross_p)
     return _logits(params, x, spec, rt)
 
 
@@ -240,28 +285,33 @@ def forward(params: dict, tokens, spec, rt: RuntimeCfg, *,
 def _slot_cache(spec, rt, kind: dict, lead: tuple, batch: int, kv_len: int,
                 device) -> dict:
     cdt = dt(rt.compute_dtype)
-    if spec.block == "mla":
-        m = spec.mla
-        return {"attn": {
-            "ckv": torch.zeros(lead + (batch, kv_len, m.kv_lora), dtype=cdt,
-                               device=device),
-            "kr": torch.zeros(lead + (batch, kv_len, m.rope_dim), dtype=cdt,
-                              device=device),
-            "pos": 0}}
-    if kind["mixer"] == "rwkv":
-        nh, dh, H = spec.n_heads, spec.head_dim, spec.d_model
-        return {"rwkv": {
-            "wkv": torch.zeros(lead + (batch, nh, dh, dh), dtype=torch.float32,
-                               device=device),
-            "shift_tm": torch.zeros(lead + (batch, H), dtype=cdt, device=device),
-            "shift_cm": torch.zeros(lead + (batch, H), dtype=cdt,
-                                    device=device)}}
+
+    def zeros(*shape, dtype=cdt):
+        return torch.zeros(lead + (batch,) + shape, dtype=dtype, device=device)
+
     nkv, dh = max(1, spec.n_kv_heads), spec.head_dim
-    klen = min(kv_len, spec.window) if kind["window"] else kv_len
-    shape = lead + (batch, klen, nkv, dh)
-    return {"attn": {"k": torch.zeros(shape, dtype=cdt, device=device),
-                     "v": torch.zeros(shape, dtype=cdt, device=device),
-                     "pos": 0}}
+    if kind["mixer"] == "rwkv":
+        nh, H = spec.n_heads, spec.d_model
+        c = {"rwkv": {"wkv": zeros(nh, dh, dh, dtype=torch.float32),
+                      "shift_tm": zeros(H), "shift_cm": zeros(H)}}
+    elif kind["mixer"] == "mamba":
+        din = spec.ssm.expand * spec.d_model
+        c = {"mamba": {"conv": zeros(3, din),
+                       "ssm": zeros(din, spec.ssm.d_state,
+                                    dtype=torch.float32)}}
+    elif spec.block == "mla":
+        m = spec.mla
+        c = {"attn": {"ckv": zeros(kv_len, m.kv_lora),
+                      "kr": zeros(kv_len, m.rope_dim), "pos": 0}}
+    else:
+        klen = min(kv_len, spec.window) if kind["window"] else kv_len
+        c = {"attn": {"k": zeros(klen, nkv, dh), "v": zeros(klen, nkv, dh),
+                      "pos": 0}}
+    if spec.encoder_layers:
+        # filled by nothing, as in the JAX package: decode attends to zeros
+        c["cross"] = {"k": zeros(spec.enc_seq, nkv, dh),
+                      "v": zeros(spec.enc_seq, nkv, dh)}
+    return c
 
 
 def init_cache(spec, rt: RuntimeCfg, batch: int, kv_len: int, *,
@@ -273,7 +323,12 @@ def init_cache(spec, rt: RuntimeCfg, batch: int, kv_len: int, *,
     latent ``ckv [n_rep, B, kv_len, kv_lora]``, the rope key ``kr [n_rep, B,
     kv_len, rope_dim]`` and ``pos``; for RWKV6, the fp32 state ``wkv``
     ``[n_rep, B, N, D, D]`` and the two token shifts ``[n_rep, B, H]`` in the
-    compute dtype.  An RWKV6 cache has no length: ``kv_len`` is not read."""
+    compute dtype; for Mamba, the last three conv inputs ``conv [n_rep, B,
+    3, Din]`` in the compute dtype and the fp32 state ``ssm [n_rep, B, Din,
+    P]``.  A recurrent cache has no length: ``kv_len`` is not read.  With an
+    encoder, every slot also holds the cross-attention's ``k`` and ``v``
+    ``[n_rep, B, enc_seq, NKV, DH]``, zeros: as in the JAX package nothing
+    fills them, so decode attends to zero keys and values."""
     _require_ported(spec)
     device = resolve_device(device)
     prefix_n, period = layer_pattern(spec)
@@ -292,11 +347,13 @@ def decode_step(params: dict, cache: dict, tokens, spec,
                 rt: RuntimeCfg) -> tuple:
     """One decode step: tokens [B, S_new] -> (logits [B, S_new, V], cache).
 
-    The cache's tensors (k and v; the RWKV6 state and shifts) are **updated
+    The cache's tensors (k and v; the RWKV6 and Mamba states) are **updated
     in place**; the returned cache shares them and carries the advanced
     ``pos``.  As in the JAX package, slot s of the period runs over all its
-    repeats before slot s+1 starts (for period 1 that is plain layer
-    order)."""
+    repeats before slot s+1 starts (for period 1 that is plain layer order;
+    jamba's period of 8 at 16 layers runs layers 0, 8, 1, 9, ...).  With an
+    encoder, layer r of a slot cross-attends with ``params["cross"][r]``
+    to its cached cross k and v."""
     _require_ported(spec)
     x = L.cast(params["embed"][tokens], rt)
     prefix_n, period = layer_pattern(spec)
@@ -315,8 +372,11 @@ def decode_step(params: dict, cache: dict, tokens, spec,
         for r in range(_n_rep(spec)):
             layer_cache = _tree_map(
                 lambda t: t[r] if isinstance(t, torch.Tensor) else t, stack)
+            cross_p = _index(params["cross"], r) if spec.encoder_layers \
+                else None
             x, nc = _apply_slot(_index(params["slots"][s], r), x, spec, rt,
-                                kind, cache=layer_cache)
+                                kind, cache=layer_cache, cross_p=cross_p,
+                                cross_cache=layer_cache.get("cross"))
         # the stacked tensors were written in place; ``pos`` (attention)
         # is the last layer's
         new_cache["slots"].append(_tree_map(

@@ -1,8 +1,10 @@
-"""The five families this slice serves (granite MQA, minitron's gelu FFN,
-gemma2's alternating windows and softcaps, deepseek-moe's MoE and
-deepseek-v2's MLA + MoE) against the JAX package on the CPU, at their smoke
-specs: the parameter tree, prefill logits, decode steps and the serving
-engine's greedy tokens.
+"""The families served beside qwen3 and rwkv6 (granite MQA, minitron's gelu
+FFN, gemma2's alternating windows and softcaps, deepseek-moe's MoE,
+deepseek-v2's MLA + MoE, jamba's Mamba + attention + MoE hybrid, whisper's
+encoder and cross-attention, internvl2's vision prefix) against the JAX
+package on the CPU, at their smoke specs: the parameter tree, prefill logits
+(with frames / a vision prefix), decode steps and the serving engine's
+greedy tokens.
 
 Weights are initialised by the JAX package and carried across; tokens come
 from numpy with a seed.  fp32, logits within 1e-4 (the same arithmetic in
@@ -27,7 +29,8 @@ from repro_torch.serve import Engine, Request
 from torch_port_helpers import as_f32, port_spec, runtimes, shared_params
 
 FAMILIES = ("granite-34b", "minitron-8b", "gemma2-27b", "deepseek-moe-16b",
-            "deepseek-v2-236b")
+            "deepseek-v2-236b", "jamba-v0.1-52b", "whisper-medium",
+            "internvl2-26b")
 TOL = 1e-4
 
 
@@ -53,16 +56,33 @@ def _specs(name):
     return jspec, get(name).smoke
 
 
+def _prefix_inputs(spec, seed):
+    """Whisper's frame embeddings [2, enc_seq, H] and internvl2's patch
+    embeddings [2, vision_seq, H], from numpy with a seed: {name: array}."""
+    rng = np.random.RandomState(seed)
+    extra = {}
+    if spec.encoder_layers:
+        extra["frames"] = rng.standard_normal((2, spec.enc_seq, spec.d_model))
+    if spec.vision_seq:
+        extra["vision"] = rng.standard_normal((2, spec.vision_seq,
+                                               spec.d_model))
+    return extra
+
+
 def test_the_five_are_served():
-    assert set(FAMILIES) <= set(PORTED) and len(PORTED) == 7
+    """Every arch is served: the families here, qwen3 and rwkv6."""
+    assert set(FAMILIES) <= set(PORTED) and len(PORTED) == 10
+    assert {"qwen3-14b", "rwkv6-7b"} | set(FAMILIES) == set(PORTED)
 
 
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 @pytest.mark.parametrize("name", FAMILIES)
 def test_param_tree_matches_reference(name, dtype):
     """The port's own init: the same keys, nesting, shapes and dtypes as
-    the reference's tree (the MoE router fp32 at either dtype), and the same
-    layer pattern (deepseek's dense first layer as the prefix)."""
+    the reference's tree (the MoE router and Mamba's ``A_log`` fp32 at
+    either dtype; whisper's encoder, ``ln_enc`` and per-layer ``cross``),
+    and the same layer pattern (deepseek's dense first layer as the prefix,
+    jamba's period of 8)."""
     jspec, tspec = _specs(name)
     jrt, trt = runtimes(dtype)
     jparams = JLM.init_params(jspec, jrt, jax.random.PRNGKey(0))
@@ -81,16 +101,22 @@ def test_forward_logits(name):
     jparams, tparams = shared_params(jspec)
     jrt, trt = runtimes(impl="cuda", jax_impl="naive")
     tok = _tokens(0, 2, 20, tspec.vocab)
-    want = JLM.forward(jparams, jnp.asarray(tok), jspec, jrt)
-    got = lm.forward(tparams, torch.from_numpy(tok), tspec, trt)
-    assert got.shape == (2, 20, tspec.vocab)
+    extra = _prefix_inputs(tspec, 1)
+    want = JLM.forward(jparams, jnp.asarray(tok), jspec, jrt,
+                       **{k: jnp.asarray(v, jnp.float32)
+                          for k, v in extra.items()})
+    got = lm.forward(tparams, torch.from_numpy(tok), tspec, trt,
+                     **{k: torch.from_numpy(v).float()
+                        for k, v in extra.items()})
+    assert got.shape == (2, tspec.vision_seq + 20, tspec.vocab)
     _close(got, want)
 
 
 @pytest.mark.parametrize("name", FAMILIES)
 def test_decode_steps(name):
     """Six single-token steps from an empty 16-entry cache; gemma2's local
-    layers keep a ring no longer than the window."""
+    layers keep a ring no longer than the window; whisper's cross caches
+    are zeros in both packages."""
     jspec, tspec = _specs(name)
     jparams, tparams = shared_params(jspec)
     jrt, trt = runtimes(impl="cuda", jax_impl="naive")
@@ -158,3 +184,41 @@ def test_gemma2_ring_cache_at_the_published_window():
                                      tspec, trt)
         _close(got, want)
     _close(tcache["slots"][0]["attn"]["k"], jcache["slots"][0]["attn"]["k"])
+
+
+def _jamba16():
+    """jamba's smoke spec at 16 layers: two repeats of the period of 8."""
+    jspec0 = jax_get("jamba-v0.1-52b").smoke
+    kw = {f: getattr(jspec0, f) for f in jspec0.__dataclass_fields__}
+    kw.update(n_layers=16, name="jamba-smoke-16")
+    jspec = JaxModelSpec(**kw)
+    return jspec, port_spec(jspec)
+
+
+def test_jamba_decode_runs_slot_by_slot():
+    """At n_rep 2 the reference's decode runs each slot of the period over
+    both repeats before the next slot (layers 0, 8, 1, 9, ...), while its
+    forward runs layer order.  The port's decode steps equal the
+    reference's, and its decode of a prompt differs from its own prefill
+    logits, as the reference's does."""
+    jspec, tspec = _jamba16()
+    assert lm.layer_pattern(tspec) == JLM.layer_pattern(jspec) == (0, 8)
+    assert lm._n_rep(tspec) == 2
+    jparams, tparams = shared_params(jspec)
+    jrt, trt = runtimes(impl="cuda", jax_impl="naive")
+    jcache = JLM.init_cache(jspec, jrt, 2, 16)
+    tcache = init_cache(tspec, trt, 2, 16, device="cpu")
+    tok = _tokens(40, 2, 5, tspec.vocab)
+    for step in range(5):
+        want, jcache = JLM.decode_step(jparams, jcache,
+                                       jnp.asarray(tok[:, step:step + 1]),
+                                       jspec, jrt)
+        got, tcache = lm.decode_step(tparams, tcache,
+                                     torch.from_numpy(tok[:, step:step + 1]),
+                                     tspec, trt)
+        _close(got, want)
+    prefill = lm.forward(tparams, torch.from_numpy(tok), tspec, trt)
+    jprefill = JLM.forward(jparams, jnp.asarray(tok), jspec, jrt)
+    _close(prefill, jprefill)
+    assert not np.allclose(as_f32(got[:, 0]), as_f32(prefill[:, -1]),
+                           atol=1e-2)

@@ -16,9 +16,10 @@ from repro.configs import get as jax_get
 from repro.core import MLASpec as JaxMLASpec
 from repro.core import ModelSpec as JaxModelSpec
 from repro.core import MoESpec as JaxMoESpec
+from repro.core import SSMSpec as JaxSSMSpec
 from repro.models import lm as JLM
 from repro.models.common import pvalue
-from repro_torch import MLASpec, ModelSpec, MoESpec
+from repro_torch import MLASpec, ModelSpec, MoESpec, SSMSpec
 from repro_torch.configs import ARCHS, PORTED, get
 from repro_torch.models import (RuntimeCfg, init_cache, init_params, lm,
                                 params_from_reference)
@@ -54,58 +55,51 @@ def test_configs_agree_with_reference():
 @pytest.mark.parametrize("name", ARCHS)
 def test_unserved_arch_resolves_to_reference(name):
     """Every arch resolves (the generator and the prover run them all) to
-    the reference's specs.  The serve launcher refuses the three families
-    the port does not serve (jamba, whisper, internvl2), and ``init_params``
-    their layer kinds (Mamba, an encoder, a vision prefix), naming ROADMAP
-    queue 1; it builds the other seven, MoE and MLA included."""
-    from repro_torch.launch import serve as serve_launcher
+    the reference's specs, and the port serves every one: ``init_params``
+    builds its smoke spec's tree (Mamba, an encoder, a vision prefix, MoE
+    and MLA included) with the reference's keys, shapes and dtypes."""
     ref = jax_get(name)
     arch = get(name)
     for mine, theirs in ((arch.spec, ref.spec), (arch.smoke, ref.smoke)):
         assert mine.params() == theirs.params()
         assert mine.name == theirs.name
     assert arch.skip == ref.skip
-    sm = arch.smoke
-    unported = bool(sm.ssm or sm.encoder_layers or sm.vision_seq)
-    assert (name not in PORTED) == unported
-    if unported:
-        with pytest.raises(NotImplementedError, match="not ported"):
-            serve_launcher.main(["--arch", name, "--smoke", "--device",
-                                 "cpu"])
-        with pytest.raises(NotImplementedError, match="ROADMAP.md queue 1"):
-            init_params(sm, RuntimeCfg(), device="cpu")
-    else:
-        params = init_params(sm, RuntimeCfg(), device="cpu")
-        assert params["slots"] or params["prefix"]
+    assert name in PORTED
+    jrt, trt = runtimes("bfloat16")
+    want = jax.tree.map(lambda a: (tuple(a.shape), str(a.dtype)),
+                        pvalue(JLM.init_params(ref.smoke, jrt,
+                                               jax.random.PRNGKey(0))))
+    params = init_params(arch.smoke, trt, device="cpu")
+    assert params["slots"] or params["prefix"]
+    got = jax.tree.map(lambda t: (tuple(t.shape), str(t.dtype)[6:]), params)
+    assert got == want
 
 
 _MLA = dict(kv_lora=16, q_lora=24, rope_dim=4, nope_dim=8, v_dim=8)
 _MOE = dict(n_experts=4, top_k=2, d_expert=8)
+_SSM = dict(d_state=4, expand=2, dt_rank=4)
 
 
 @pytest.mark.parametrize("kw", [
-    dict(block="mla", mla=_MLA), dict(block="mamba"),
-    dict(attn_every=2), dict(moe=_MOE),
-    dict(encoder_layers=2), dict(vision_seq=4)],
+    dict(block="mla", mla=_MLA), dict(block="mamba", ssm=_SSM),
+    dict(attn_every=2, ssm=_SSM), dict(moe=_MOE),
+    dict(encoder_layers=2, enc_seq=6), dict(vision_seq=4)],
     ids=["mla", "mamba", "hybrid", "moe", "encoder", "vision"])
 def test_unported_family_raises(kw):
-    """Mamba, hybrid, encoder and vision-prefix stacks are refused, naming
-    ROADMAP queue 1.  MLA and MoE are ported: ``init_params`` builds a tree
-    equal in keys, shapes and dtypes to the reference's."""
-    def spec(cls, mla_cls, moe_cls):
+    """Every family is ported: ``init_params`` builds a tree equal in keys,
+    shapes and dtypes to the reference's (Mamba's ``A_log`` fp32 at bf16),
+    and fp32 logits of the reference's weights agree within 1e-4, with
+    frames for the encoder and a vision prefix for the VLM."""
+    def spec(cls, mla_cls, moe_cls, ssm_cls):
         extra = dict(kw)
-        if "mla" in extra:
-            extra["mla"] = mla_cls(**extra["mla"])
-        if "moe" in extra:
-            extra["moe"] = moe_cls(**extra["moe"])
+        for key, nested in (("mla", mla_cls), ("moe", moe_cls),
+                            ("ssm", ssm_cls)):
+            if key in extra:
+                extra[key] = nested(**extra[key])
         return cls(name="x", n_layers=2, d_model=32, n_heads=2, n_kv_heads=2,
                    d_ff=64, vocab=32, **extra)
-    tspec = spec(ModelSpec, MLASpec, MoESpec)
-    if "mla" not in kw and "moe" not in kw:
-        with pytest.raises(NotImplementedError, match="ROADMAP.md queue 1"):
-            init_params(tspec, RuntimeCfg(), device="cpu")
-        return
-    jspec = spec(JaxModelSpec, JaxMLASpec, JaxMoESpec)
+    tspec = spec(ModelSpec, MLASpec, MoESpec, SSMSpec)
+    jspec = spec(JaxModelSpec, JaxMLASpec, JaxMoESpec, JaxSSMSpec)
     jrt, trt = runtimes("bfloat16")
     want = jax.tree.map(lambda a: (tuple(a.shape), str(a.dtype)),
                         pvalue(JLM.init_params(jspec, jrt,
@@ -113,6 +107,24 @@ def test_unported_family_raises(kw):
     mine = init_params(tspec, trt, device="cpu")
     got = jax.tree.map(lambda t: (tuple(t.shape), str(t.dtype)[6:]), mine)
     assert got == want
+
+    jparams, tparams = shared_params(jspec)
+    jrt, trt = runtimes(impl="cuda", jax_impl="naive")
+    rng = np.random.RandomState(5)
+    tok = rng.randint(0, 32, size=(2, 7))
+    extra = {}
+    if tspec.encoder_layers:
+        extra["frames"] = rng.standard_normal((2, tspec.enc_seq, 32))
+    if tspec.vision_seq:
+        extra["vision"] = rng.standard_normal((2, tspec.vision_seq, 32))
+    want = JLM.forward(jparams, jnp.asarray(tok), jspec, jrt,
+                       **{k: jnp.asarray(v, jnp.float32)
+                          for k, v in extra.items()})
+    got = lm.forward(tparams, torch.from_numpy(tok), tspec, trt,
+                     **{k: torch.from_numpy(v).float()
+                        for k, v in extra.items()})
+    assert got.shape == (2, 7 + tspec.vision_seq, 32)
+    _close(got, want, 1e-4)
 
 
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
