@@ -91,6 +91,23 @@ Phases, one JSON line each on standard output:
            with verify=True on the card (a main path of its own, counted),
            against the CPU (rel 1e-10) and the compiled backend (rel 1e-6)
 
+  train    training on the card, which runs no kernel: the attention and
+           wkv6 kernels are forward only, as the Pallas kernels are, so
+           training takes the reference's own training paths in plain
+           PyTorch (attention_impl="chunked": online-softmax attention under
+           checkpoint, RWKV6's chunk loop).  qwen3-14b and rwkv6-7b at
+           published width, bf16, 4 layers each (reduced), remat "full",
+           loss_chunk 512: six make_train_step steps on TokenPipeline batch
+           0 [2, 2048], repeated, lr 1e-4 (the first a warm-up, five timed,
+           ending in a sync): ms/step, tokens/s, peak GB, mfu (model FLOPs
+           over the bf16 peak), every loss; the loss must fall by 0.3 and no
+           kernel may launch.  Then train-parity: every family's smoke spec
+           at fp32 (TF32 off), loss, gradients and one step's parameters on
+           the card against the CPU; and the kernels' refusal:
+           ops.flash_attention, ops.wkv6 and ops.cost_reduce raise on a CUDA
+           input that requires grad, make_train_step with
+           attention_impl="cuda" raises
+
 ``--profile`` adds to each serve line a trace of four decode steps and of
 one warm prefill: device-busy time, idle share, top kernels, and the device
 time of Mamba's scan and conv, the MoE dispatch and combine (torch.profiler
@@ -134,8 +151,14 @@ from repro_torch.kernels import cost_reduce as cr  # noqa: E402
 from repro_torch.kernels import flash_attention as fa  # noqa: E402
 from repro_torch.kernels import ref  # noqa: E402
 from repro_torch.kernels import rwkv6_scan as wkv  # noqa: E402
+from repro_torch.data import DataCfg, TokenPipeline  # noqa: E402
+from repro_torch.kernels import ops  # noqa: E402
 from repro_torch.models import RuntimeCfg, init_params, lm  # noqa: E402
 from repro_torch.serve import Engine, Request  # noqa: E402
+from repro_torch.train import (OptCfg, init_opt_state,  # noqa: E402
+                               make_train_step)
+from repro_torch.train.train_step import value_and_grad  # noqa: E402
+from repro_torch.train.tree import leaves  # noqa: E402
 
 DEV = torch.device("cuda", 0)
 
@@ -151,7 +174,8 @@ PEAK_FLOPS = {torch.bfloat16: 989e12,     # tensor cores
 TOL = {torch.float32: dict(absolute=2e-5, rms_share=0.0, relative=2e-5),
        torch.bfloat16: dict(absolute=0.0, rms_share=1e-2, relative=2.0 ** -7)}
 
-PHASES = ("build", "kernels", "serve", "sweep", "api", "parity", "analysis")
+PHASES = ("build", "kernels", "serve", "sweep", "api", "parity", "analysis",
+          "train")
 # the kernels' wrapper modules, each with its launch count, and their sources
 COUNTERS = {"flash_attention": fa, "wkv6": wkv, "cost_reduce": cr}
 SOURCES = {"flash_attention": "src/repro_torch/kernels/csrc/flash_attention.cu",
@@ -1162,7 +1186,8 @@ def timed_prefill(prefill, params, tokens) -> tuple:
     gc.callbacks.append(on_gc)
     try:
         t0 = time.perf_counter()
-        logits = prefill(params, tokens)
+        with torch.no_grad():
+            logits = prefill(params, tokens)
         torch.cuda.synchronize()
         ms = (time.perf_counter() - t0) * 1e3
     finally:
@@ -1182,10 +1207,12 @@ def profile_prefill(prefill, params, tokens, kernel: str) -> dict:
     prefill under torch.profiler; its wall time on the host beside the
     device-busy time and the device time of the model's kernel in it."""
     from torch.profiler import ProfilerActivity, profile
-    prefill(params, tokens)                              # warm-up
+    with torch.no_grad():
+        prefill(params, tokens)                          # warm-up
     torch.cuda.synchronize()
     with profiled_functions(), profile(
-            activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof, \
+            torch.no_grad():
         t0 = time.perf_counter()
         prefill(params, tokens)
         torch.cuda.synchronize()
@@ -2382,6 +2409,287 @@ def phase_parity_rwkv(dtype: str = "float32") -> dict:
             "tolerance": PARITY_TOL[dtype]}
 
 
+# ---------------------------------------------------------------------------
+# train: steps of two models at published width, the smoke specs' gradients
+# on the card against the CPU, the kernels' refusal to be differentiated
+# ---------------------------------------------------------------------------
+
+# each trained model: its published (layers, d_model, d_ff, vocab) and the
+# depth trained (reduced).  AdamW keeps the parameters (bf16), the new
+# parameters, the gradients (bf16) and the old and new fp32 m and v alive at
+# once (the update is functional): 22 bytes a parameter.  qwen3-14b's
+# embedding and head are 1.556 B parameters and a layer 0.330 B, so 4
+# layers are 2.88 B, 63 GB at the end of the update, and 40 would be 15 B;
+# rwkv6-7b's 4 of 32 layers are 1.41 B.
+TRAINED = {
+    "qwen3-14b": dict(widths=(40, 5120, 17408, 151936), layers=4),
+    "rwkv6-7b": dict(widths=(32, 4096, 14336, 65536), layers=4),
+}
+# bf16 parameters and compute, the reference's training attention (queries
+# of a [2, 2048] batch in two blocks, keys in two chunks), the CE over
+# chunks of 512, every layer under activation checkpointing
+TRAIN_RT = dict(attention_impl="chunked", attn_chunk=1024, loss_chunk=512,
+                remat="full")
+TRAIN_BATCH, TRAIN_SEQ, TRAIN_STEPS = 2, 2048, 6
+# the overfit check of tests/test_train_integration.py: six steps on one
+# batch take the loss down by at least 0.3.  lr 1e-4: at 1e-3 Adam
+# overshoots at this width (qwen3-14b's loss 12.44 at the first step, 15.64
+# at the sixth); at 1e-4 both models fall steadily
+TRAIN_OPT = dict(lr=1e-4, warmup=2)
+OVERFIT_DROP = 0.3
+# leaves whose parameters are no matrix product: the embedding (a gather)
+# and RWKV6's per-head bonus u (elementwise)
+NOT_MATMUL = frozenset({"embed", "u"})
+
+
+def train_flops(spec, params, tokens: int) -> dict:
+    """Model FLOPs of one step, the numerator of ``mfu``: 6 x the parameters
+    of matrix products x tokens (forward 2, backward 4), plus for each
+    attention layer the two attention products QK^T and PV over every
+    (query, key) pair of the sequence, forward and backward: 12 x heads x
+    head dim x seq x tokens.  The chunked path computes the masked half of
+    the causal square too, so it is counted.  The recomputation of
+    activation checkpointing is not counted (it is not model work); nor is
+    RWKV6's recurrence (under 0.4 % of its matrix products)."""
+    matmul = sum(t.numel() for k, t in _named_leaves(params)
+                 if t.dim() > 1 and k not in NOT_MATMUL)
+    attn_layers = sum(lm._slot_kind(spec, l)["mixer"] == "attn"
+                      for l in range(spec.n_layers))
+    attention = 12 * attn_layers * spec.n_heads * spec.head_dim \
+        * TRAIN_SEQ * tokens
+    return {"matmul_params": matmul, "attention_layers": attn_layers,
+            "flops_per_step": 6 * matmul * tokens + attention}
+
+
+def phase_train(name: str) -> dict:
+    """``TRAIN_STEPS`` steps of ``name`` at published width (bf16, cut in
+    depth) on pipeline batch 0, repeated: the first a warm-up, the rest
+    timed on the host's clock ending in a sync.  Losses and grad norms
+    finite, the last loss ``OVERFIT_DROP`` below the first, and no kernel
+    launched (training never reaches a forward-only kernel)."""
+    trained = TRAINED[name]
+    spec = get_arch(name).spec
+    require((spec.n_layers, spec.d_model, spec.d_ff, spec.vocab)
+            == trained["widths"], f"not the published {name}")
+    published_layers = spec.n_layers
+    spec = dataclasses.replace(spec, n_layers=trained["layers"])
+    rt = RuntimeCfg(**TRAIN_RT)
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    params = init_params(spec, rt, torch.Generator(device=DEV).manual_seed(0),
+                         device=DEV)
+    opt = init_opt_state(params)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    n_params = sum(t.numel() for t in leaves(params))
+    flops = train_flops(spec, params, TRAIN_BATCH * TRAIN_SEQ)
+    pipe = TokenPipeline(DataCfg(global_batch=TRAIN_BATCH, seq_len=TRAIN_SEQ,
+                                 vocab=spec.vocab, seed=0))
+    batch = {k: torch.from_numpy(v).to(DEV) for k, v in pipe.batch(0).items()}
+    step = make_train_step(spec, rt, OptCfg(**TRAIN_OPT))
+
+    reset_counts()
+    metrics = []
+    t0 = time.perf_counter()
+    params, opt, m = step(params, opt, batch)            # warm-up
+    metrics.append(m)
+    torch.cuda.synchronize()
+    first_ms = (time.perf_counter() - t0) * 1e3
+    t0 = time.perf_counter()
+    for _ in range(TRAIN_STEPS - 1):
+        params, opt, m = step(params, opt, batch)
+        metrics.append(m)
+    torch.cuda.synchronize()
+    ms = (time.perf_counter() - t0) * 1e3 / (TRAIN_STEPS - 1)
+    counts = {k: module.launches for k, module in COUNTERS.items()}
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+
+    losses = [float(m["loss"]) for m in metrics]
+    norms = [float(m["grad_norm"]) for m in metrics]
+    lrs = [float(m["lr"]) for m in metrics]
+    require(all(np.isfinite(losses)) and all(np.isfinite(norms)),
+            f"{name}: losses {losses}, grad norms {norms}")
+    require(losses[-1] < losses[0] - OVERFIT_DROP,
+            f"{name}: the loss fell from {losses[0]} to {losses[-1]}, not "
+            f"by {OVERFIT_DROP}")
+    require(all(n == 0 for n in counts.values()),
+            f"{name}: training launched a forward-only kernel: {counts}")
+    require(int(opt["step"]) == TRAIN_STEPS, "the optimizer step count")
+    require(all(t.dtype == torch.bfloat16 for t in leaves(params)),
+            f"{name}: a parameter left bf16")
+    del params, opt, batch, metrics, m
+    tokens = TRAIN_BATCH * TRAIN_SEQ
+    return {
+        "model": spec.name, "layers": spec.n_layers,
+        "published_layers": published_layers,
+        "reduced": [f"depth {spec.n_layers} of {published_layers} layers"],
+        "d_model": spec.d_model, "params": n_params, "dtype": "bfloat16",
+        "runtime": TRAIN_RT, "opt": TRAIN_OPT,
+        "batch": [TRAIN_BATCH, TRAIN_SEQ], "init_s": init_s,
+        "steps": TRAIN_STEPS, "first_step_ms": first_ms,
+        "ms_per_step": ms, "tokens_per_s": tokens / (ms / 1e3),
+        "peak_memory_gb": peak_gb, **flops,
+        "mfu": flops["flops_per_step"] / (ms / 1e3)
+        / PEAK_FLOPS[torch.bfloat16],
+        "mfu_peak_flops": PEAK_FLOPS[torch.bfloat16],
+        "losses": losses, "grad_norms": norms, "lrs": lrs,
+        "loss_drop": losses[0] - losses[-1], "launches": counts,
+    }
+
+
+# the smoke specs whose training the card holds against the CPU: dense
+# (qwen3, minitron's gelu FFN), MQA (granite), alternating windows and
+# softcaps (gemma2), MoE (deepseek-moe), MLA (deepseek-v2), the Mamba hybrid
+# (jamba), RWKV6's chunk loop, encoder + cross-attention (whisper, frames in
+# the batch), the vision prefix (internvl2)
+TRAIN_PARITY_SPECS = PARITY_SPECS + ("rwkv6-7b",)
+# fp32 on both sides, TF32 off: the loss within 1e-5 relative, every
+# gradient leaf and every parameter after one step within 1e-4 x the leaf's
+# largest |CPU value| + 1e-6 (the same arithmetic, sums in another order)
+TRAIN_PARITY_TOL = dict(loss=1e-5, rel=1e-4, floor=1e-6)
+# eps 1e-3 bounds how far Adam's first update g / (|g| + eps) moves with a
+# gradient's last digits (by 1/eps), so the step compares within the bound
+TRAIN_PARITY_OPT = dict(lr=1e-2, warmup=2, eps=1e-3)
+
+
+def _leaf_errors(got, want) -> tuple:
+    """(worst |got - want| / bound over the leaves, its leaf's index)."""
+    worst, at = 0.0, None
+    for i, (g, w) in enumerate(zip(leaves(got), leaves(want))):
+        w = w.float()
+        bound = TRAIN_PARITY_TOL["rel"] * float(w.abs().max()) \
+            + TRAIN_PARITY_TOL["floor"]
+        share = float((g.detach().float().cpu() - w).abs().max()) / bound
+        if share > worst:
+            worst, at = share, i
+    return worst, at
+
+
+def phase_train_parity() -> dict:
+    """Every family's smoke spec at fp32: the loss, every gradient and the
+    parameters after one ``make_train_step`` step on the card against the
+    same calls on the CPU (which the CPU tests hold against the JAX
+    package).  Chunked attention in chunks of 16 over a [2, 32] batch, the
+    CE in chunks of 8."""
+    rt = RuntimeCfg(param_dtype="float32", compute_dtype="float32",
+                    attention_impl="chunked", attn_chunk=16, loss_chunk=8)
+    rows = {}
+    for name in TRAIN_PARITY_SPECS:
+        spec = get_arch(name).smoke
+        cpu_params = init_params(spec, rt, torch.Generator().manual_seed(3),
+                                 device="cpu")
+        params = lm._tree_map(lambda t: t.to(DEV), cpu_params)
+        batch = TokenPipeline(DataCfg(global_batch=2, seq_len=32,
+                                      vocab=spec.vocab, seed=3)).batch(0)
+        rng = np.random.RandomState(3)
+        for key, n in (("frames", spec.encoder_layers and spec.enc_seq),
+                       ("vision", spec.vision_seq)):
+            if n:
+                batch[key] = rng.standard_normal(
+                    (2, n, spec.d_model)).astype(np.float32)
+        cpu_batch = {k: torch.from_numpy(v) for k, v in batch.items()}
+        dev_batch = {k: t.to(DEV) for k, t in cpu_batch.items()}
+        reset_counts()
+        loss, grads = value_and_grad(params, dev_batch, spec, rt)
+        want_loss, want_grads = value_and_grad(cpu_params, cpu_batch, spec,
+                                                rt)
+        step = make_train_step(spec, rt, OptCfg(**TRAIN_PARITY_OPT))
+        stepped, _, m = step(params, init_opt_state(params), dev_batch)
+        want_stepped, _, want_m = step(cpu_params, init_opt_state(cpu_params),
+                                       cpu_batch)
+        counts = {k: module.launches for k, module in COUNTERS.items()}
+        loss_err = abs(float(loss) - float(want_loss)) / abs(float(want_loss))
+        grad_share, grad_leaf = _leaf_errors(grads, want_grads)
+        step_share, step_leaf = _leaf_errors(stepped, want_stepped)
+        require(np.isfinite(float(loss)), f"{name}: the card's loss")
+        require(loss_err <= TRAIN_PARITY_TOL["loss"],
+                f"{name}: loss {float(loss)} on the card, "
+                f"{float(want_loss)} on the CPU")
+        require(grad_share <= 1.0, f"{name}: gradient leaf {grad_leaf} at "
+                f"{grad_share} of its bound")
+        require(step_share <= 1.0, f"{name}: parameter leaf {step_leaf} after "
+                f"a step at {step_share} of its bound")
+        require(all(n == 0 for n in counts.values()),
+                f"{name}: training launched a kernel: {counts}")
+        rows[spec.name] = {
+            "loss": float(loss), "loss_rel_err": loss_err,
+            "grad_leaves": len(leaves(grads)),
+            "worst_grad_share_of_bound": grad_share,
+            "worst_step_share_of_bound": step_share,
+            "grad_norm": float(m["grad_norm"]),
+            "grad_norm_cpu": float(want_m["grad_norm"])}
+    return {"dtype": "float32", "tf32": False, "runtime": "chunked, "
+            "attn_chunk 16, loss_chunk 8", "batch": [2, 32],
+            "opt": TRAIN_PARITY_OPT, "tolerance": TRAIN_PARITY_TOL,
+            "specs": rows, "refusals": check_refusals()}
+
+
+def check_refusals() -> dict:
+    """The forward-only kernels refuse to be differentiated on the card:
+    ``ops.flash_attention``, ``ops.wkv6`` and ``ops.cost_reduce`` raise on a
+    CUDA input that requires grad, before any launch; ``make_train_step``
+    with ``attention_impl="cuda"`` raises at its first step (qwen3's smoke
+    spec through flash attention, rwkv6's through wkv6).  A missing raise
+    fails the run."""
+    g = torch.Generator(device=DEV).manual_seed(4)
+
+    def randn(*shape, dtype=torch.float32):
+        return torch.randn(shape, generator=g, device=DEV, dtype=dtype)
+
+    entries = {
+        "flash_attention": (lambda q, k, v: ops.flash_attention(q, k, v),
+                            [randn(1, 64, 2, 2, 64), randn(1, 64, 2, 64),
+                             randn(1, 64, 2, 64)]),
+        "wkv6": (lambda r, k, v, w, u, s0: ops.wkv6(r, k, v, w, u, s0,
+                                                    chunk=32),
+                 [randn(1, 64, 2, 64), randn(1, 64, 2, 64),
+                  randn(1, 64, 2, 64), torch.rand((1, 64, 2, 64), generator=g,
+                                                  device=DEV),
+                  randn(2, 64), randn(1, 2, 64, 64)]),
+        "cost_reduce": (ops.cost_reduce, [randn(4, 96, dtype=torch.float64),
+                                          randn(8, 96, dtype=torch.float64)]),
+    }
+
+    def raises(fn, kernel) -> str:
+        try:
+            fn()
+        except RuntimeError as e:
+            require(kernel in str(e), f"{kernel} raised another error: {e}")
+            return str(e)
+        raise AssertionError(f"{kernel} did not refuse an input that "
+                             "requires grad")
+
+    out = {}
+    reset_counts()
+    for kernel, (entry, args) in entries.items():
+        for i in range(len(args)):
+            grad_args = [a.clone().requires_grad_(j == i)
+                         for j, a in enumerate(args)]
+            out[kernel] = raises(lambda: entry(*grad_args), kernel)
+    refused_launches = {k: module.launches for k, module in COUNTERS.items()}
+    require(all(n == 0 for n in refused_launches.values()),
+            f"a refused call launched its kernel: {refused_launches}")
+    for kernel, (entry, args) in entries.items():       # the kernels run
+        entry(*args)
+    require(all(module.launches == 1 for module in COUNTERS.values()),
+            "a kernel did not run on inputs that need no grad")
+    rt = RuntimeCfg(param_dtype="float32", compute_dtype="float32")
+    for name, kernel in (("qwen3-14b", "flash_attention"),
+                         ("rwkv6-7b", "wkv6")):
+        spec = get_arch(name).smoke
+        params = init_params(spec, rt, torch.Generator(device=DEV)
+                             .manual_seed(5), device=DEV)
+        batch = {k: torch.from_numpy(v).to(DEV) for k, v in TokenPipeline(
+            DataCfg(global_batch=2, seq_len=32, vocab=spec.vocab))
+            .batch(0).items()}
+        step = make_train_step(spec, rt, OptCfg())
+        out[f"train_step {name} cuda"] = raises(
+            lambda: step(params, init_opt_state(params), batch), kernel)
+    return {"refused": sorted(out), "refused_launches": refused_launches}
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--phases", default=",".join(PHASES),
@@ -2471,6 +2779,16 @@ def main(argv=None) -> int:
             for name in PARITY_SPECS:
                 emit("parity", **phase_parity(dtype, name))
             emit("parity", **phase_parity_rwkv(dtype))
+    if "train" in phases:
+        # fp32 products (RWKV6's chunk, the parity's smoke specs) in full
+        # fp32, as on the CPU
+        torch.backends.cuda.matmul.allow_tf32 = False
+        torch.backends.cudnn.allow_tf32 = False
+        for name in TRAINED:
+            emit("train", **phase_train(name))
+            gc.collect()                 # free one model before the next
+            torch.cuda.empty_cache()
+        emit("train-parity", **phase_train_parity())
 
     if set(phases) != set(PHASES) or models != list(SERVED):
         print(json.dumps({"ok": False, "partial": phases, "models": models}),

@@ -4,7 +4,8 @@ vision prefix (internvl2): all ten architectures of ``configs``."""
 from . import layers, lm
 from .common import Initializer, RuntimeCfg
 from .convert import params_from_reference
-from .lm import decode_step, forward, init_cache, init_params
+from .lm import decode_step, forward, init_cache, init_params, loss_fn
 
 __all__ = ["layers", "lm", "Initializer", "RuntimeCfg", "decode_step",
-           "forward", "init_cache", "init_params", "params_from_reference"]
+           "forward", "init_cache", "init_params", "loss_fn",
+           "params_from_reference"]

@@ -22,13 +22,20 @@ PyTree = Any
 @dataclass(frozen=True)
 class RuntimeCfg:
     """Runtime knobs orthogonal to the architecture itself.  The JAX
-    package's fields that steer training or sharding come back with the
-    slices that read them."""
+    package's fields that only sharding and the dry run read (``scan_layers``,
+    ``sp``, ``zero1``, ``grad_accum``, ``logical_rules``) come back with
+    those slices; ``train.make_train_step`` takes ``grad_accum`` itself."""
     param_dtype: str = "bfloat16"
     compute_dtype: str = "bfloat16"
-    # "cuda": the hand-written kernel (its plain version for CPU tensors);
-    # "naive": materialised scores, the reference the kernel is held against
+    # "cuda": the hand-written kernels, forward only (their plain versions
+    # for CPU tensors); "chunked": online-softmax attention and the RWKV6
+    # chunk loop in plain PyTorch, what training runs; "naive": materialised
+    # scores, the reference the kernel is held against
     attention_impl: str = "cuda"
+    attn_chunk: int = 1024              # kv-chunk for online-softmax attention
+    attn_q_block: bool = True           # block queries by attn_chunk too
+    remat: str = "none"                 # none | full | dots
+    loss_chunk: int = 0                 # >0: CE loss over seq chunks
     moe_capacity: float = 1.25          # expert capacity factor
 
 

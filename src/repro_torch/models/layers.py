@@ -7,12 +7,18 @@ Shapes follow the JAX package so weights carry across leaf by leaf:
 * GQA weights keep head structure: ``w_q [H, NKV, G, DH]``.
 * Activations ``q [B,S,N,G,D]``, ``k [B,Sk,N,D]``, ``v [B,Sk,N,Dv]`` (Dv =
   D but in MLA).
-* ``attention_impl="cuda"`` (the default) routes every attention core
-  through the hand-written kernel (``repro_torch.kernels``); ``"naive"`` is
-  plain tensor code with materialised scores, kept as the reference the
-  kernel is held against inside the model.
-* Every WKV recurrence of ``rwkv6_layer`` goes through ``kernels.ops.wkv6``:
-  the hand-written kernel for CUDA tensors, its plain version for CPU ones.
+* ``attention_impl="cuda"`` (the default, serving) routes every attention
+  core through the hand-written kernel (``repro_torch.kernels``);
+  ``"chunked"`` is the JAX package's online-softmax attention in plain
+  PyTorch (``attn_chunked``), under ``torch.utils.checkpoint``, what
+  training runs; ``"naive"`` is plain tensor code with materialised scores,
+  kept as the reference the kernel is held against inside the model.
+* The WKV recurrence of ``rwkv6_layer`` is chosen by the same field, never
+  by grad mode: ``"cuda"`` goes through ``kernels.ops.wkv6`` (the
+  hand-written kernel for CUDA tensors, its plain version for CPU ones);
+  any other runs the JAX layer's own chunk loop (``_wkv_chunk``) in plain
+  PyTorch, which autograd follows.  The kernels have no backward and refuse
+  an input that requires grad (``kernels/ops.py``).
 * The Mamba scan (``_ssm_scan``) is plain PyTorch, as the JAX package's is
   plain JAX (``lax.associative_scan``, no Pallas kernel).
 
@@ -20,11 +26,13 @@ Not ported yet: the expert-parallel (all-to-all) branch of the MoE FFN.
 """
 from __future__ import annotations
 
+import functools
 import math
 from typing import Optional
 
 import torch
 import torch.nn.functional as F
+from torch.utils.checkpoint import checkpoint
 
 from .common import Initializer, RuntimeCfg, dt
 
@@ -98,6 +106,82 @@ def attn_naive(q, k, v, *, causal: bool, window: Optional[int],
     return torch.einsum("bngsk,bknd->bsngd", p, v)
 
 
+def attn_chunked(q, k, v, *, causal: bool, window: Optional[int],
+                 softcap: Optional[float], chunk: int = 1024,
+                 q_offset: int = 0, q_block: bool = True) -> torch.Tensor:
+    """Online-softmax (flash) attention in plain PyTorch, the JAX package's
+    ``attn_chunked``: queries in blocks of ``chunk`` where that divides Sq
+    (and Sq is longer), keys and values in chunks of ``chunk``.  q
+    [B,Sq,N,G,D], k [B,Sk,N,D], v [B,Sk,N,Dv] -> [B,Sq,N,G,Dv]."""
+    sq = q.shape[1]
+    if q_block and sq > chunk and sq % chunk == 0:
+        # the JAX package maps the blocks with traced offsets, so a block
+        # never takes the naive shortcut of ``_attn_flash``
+        outs = [_attn_flash(q[:, i:i + chunk], k, v, causal=causal,
+                            window=window, softcap=softcap, chunk=chunk,
+                            q_offset=q_offset + i, naive_ok=False)
+                for i in range(0, sq, chunk)]
+        return torch.cat(outs, dim=1)
+    return _attn_flash(q, k, v, causal=causal, window=window,
+                       softcap=softcap, chunk=chunk, q_offset=q_offset)
+
+
+def _flash_chunk(m, l, acc, q, kci, vci, kpos, qpos, sk: int, causal: bool,
+                 window: Optional[int], softcap: Optional[float],
+                 scale: float) -> tuple:
+    """One kv chunk of the online softmax: (m, l, acc) -> their update.
+    Masked scores are -1e30 (not -inf), as in the JAX package."""
+    s = torch.einsum("bsngd,bknd->bngsk", q, kci).float() * scale
+    if softcap:
+        s = softcap * torch.tanh(s / softcap)
+    mask = kpos[None, :] < sk
+    if causal:
+        mask = mask & (kpos[None, :] <= qpos[:, None])
+    if window is not None:
+        mask = mask & (kpos[None, :] > qpos[:, None] - window)
+    s = s.masked_fill(~mask, -1e30)
+    # amax and maximum split the gradient at a tie, as JAX's max does
+    m_new = torch.maximum(m, s.amax(-1))
+    p = torch.exp(s - m_new[..., None])
+    corr = torch.exp(m - m_new)
+    l_new = l * corr + p.sum(-1)
+    acc_new = acc * corr[..., None] \
+        + torch.einsum("bngsk,bknd->bngsd", p.to(q.dtype), vci)
+    return m_new, l_new, acc_new
+
+
+def _attn_flash(q, k, v, *, causal: bool, window: Optional[int],
+                softcap: Optional[float], chunk: int, q_offset: int = 0,
+                naive_ok: bool = True) -> torch.Tensor:
+    """kv chunks of ``attn_chunked``, each under ``checkpoint``: the
+    backward recomputes a chunk's probabilities instead of keeping
+    O(Sq x chunk) fp32 residuals per chunk."""
+    b, sq, n, g, d = q.shape
+    sk = k.shape[1]
+    if sk <= chunk and naive_ok:
+        return attn_naive(q, k, v, causal=causal, window=window,
+                          softcap=softcap, q_offset=q_offset)
+    nchunks = -(-sk // chunk)
+    pad = nchunks * chunk - sk
+    if pad:
+        k = F.pad(k, (0, 0, 0, 0, 0, pad))
+        v = F.pad(v, (0, 0, 0, 0, 0, pad))
+    dv = v.shape[-1]
+    scale = 1.0 / math.sqrt(d)
+    qpos = torch.arange(sq, device=q.device) + q_offset
+    m = torch.full((b, n, g, sq), -1e30, dtype=torch.float32, device=q.device)
+    l = torch.zeros((b, n, g, sq), dtype=torch.float32, device=q.device)
+    acc = torch.zeros((b, n, g, sq, dv), dtype=torch.float32, device=q.device)
+    for ci in range(nchunks):
+        sl = slice(ci * chunk, (ci + 1) * chunk)
+        kpos = torch.arange(ci * chunk, (ci + 1) * chunk, device=q.device)
+        m, l, acc = checkpoint(_flash_chunk, m, l, acc, q, k[:, sl], v[:, sl],
+                               kpos, qpos, sk, causal, window, softcap, scale,
+                               use_reentrant=False)
+    out = acc / torch.maximum(l, l.new_full((), 1e-30))[..., None]
+    return out.permute(0, 3, 1, 2, 4).to(q.dtype)            # [B,Sq,N,G,Dv]
+
+
 def attn_core(q, k, v, rt: RuntimeCfg, *, causal: bool, window=None,
               softcap=None, q_offset: int = 0) -> torch.Tensor:
     if rt.attention_impl == "cuda":
@@ -111,11 +195,18 @@ def attn_core(q, k, v, rt: RuntimeCfg, *, causal: bool, window=None,
         return kops.flash_attention(q, k, v, causal=causal, window=window,
                                     softcap=softcap,
                                     q_offset=q_offset).to(dtype)
+    if rt.attention_impl == "chunked":
+        # flash semantics: the backward recomputes from q/k/v instead of
+        # keeping every chunk's probabilities
+        fn = functools.partial(attn_chunked, causal=causal, window=window,
+                               softcap=softcap, chunk=rt.attn_chunk,
+                               q_offset=q_offset, q_block=rt.attn_q_block)
+        return checkpoint(fn, q, k, v, use_reentrant=False)
     if rt.attention_impl == "naive":
         return attn_naive(q, k, v, causal=causal, window=window,
                           softcap=softcap, q_offset=q_offset)
     raise ValueError(f"attention_impl {rt.attention_impl!r}: "
-                     "one of cuda | naive")
+                     "one of cuda | chunked | naive")
 
 
 # ---------------------------------------------------------------------------
@@ -390,8 +481,10 @@ def moe_dispatch(h: torch.Tensor, wr: torch.Tensor, *, E: int, Kk: int,
     logits = torch.einsum("bsh,he->bse", h.float(), wr)
     probs = torch.softmax(logits, dim=-1)
     gates, idx = top_k_lowest_first(probs, Kk)
-    gates = (gates / torch.clamp(gates.sum(-1, keepdim=True), min=1e-9)) \
-        .to(h.dtype)
+    # maximum, not clamp: at a tie it splits the gradient as JAX does (the
+    # floor made on the device: a scalar from the host would wait for it)
+    gsum = gates.sum(-1, keepdim=True)
+    gates = (gates / torch.maximum(gsum, gsum.new_full((), 1e-9))).to(h.dtype)
     T = b * s
     C = max(1, int(math.ceil(T * Kk / E * capacity_factor)))
     flat_idx = idx.reshape(T * Kk)
@@ -527,14 +620,23 @@ def _ssm_scan(dA: torch.Tensor, dBx: torch.Tensor, h0: torch.Tensor,
     s = dA.shape[1]
     if s % chunk != 0:
         chunk = s
-    hs = torch.empty_like(dBx)
+    # a write through ``out=`` has no backward: where autograd records, the
+    # chunks (the same sums) are joined instead
+    joined = torch.is_grad_enabled() and any(
+        t.requires_grad for t in (dA, dBx, h0))
+    hs = None if joined else torch.empty_like(dBx)
+    parts = []
     h = h0
     for c0 in range(0, s, chunk):
         aa, xx = _associative_scan(dA[:, c0:c0 + chunk],
                                    dBx[:, c0:c0 + chunk])
-        torch.add(xx, aa * h[:, None], out=hs[:, c0:c0 + chunk])
-        h = hs[:, c0 + chunk - 1]
-    return hs, h
+        if joined:
+            part = xx + aa * h[:, None]
+            parts.append(part)
+        else:
+            part = torch.add(xx, aa * h[:, None], out=hs[:, c0:c0 + chunk])
+        h = part[:, -1]
+    return (torch.cat(parts, dim=1) if joined else hs), h
 
 
 def _causal_conv(xpad: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
@@ -639,6 +741,39 @@ def _token_shift(x: torch.Tensor, prev: Optional[torch.Tensor]) -> torch.Tensor:
 WKV_CHUNK = 32
 
 
+def _wkv_chunk(r, k, v, w, u, state) -> tuple:
+    """One chunk of RWKV6, the JAX layer's own: r/k/v/w [B,C,N,D] fp32 (w =
+    decay in (0,1)), u [N,D], state [B,N,D,D] -> (out [B,C,N,D], new state).
+
+    The intra-chunk term factorises the pairwise decay
+    ``exp(sum_{j<l<=t} log w_l)`` as ``exp(cum_t) exp(-cum_j)``; to keep the
+    positive exponent finite the per-step log-decay is floored at ``-80/C``
+    for the factorisation only.  The state's decay uses the true value."""
+    C = r.shape[1]
+    lw = torch.log(torch.maximum(w, w.new_full((), 1e-30)))  # [B,C,N,D], true
+    cum = torch.cumsum(lw, dim=1)                          # inclusive
+    cum_excl = cum - lw
+    # inter-chunk: r_t . (decay-to-t o state), exponent <= 0
+    inter = torch.einsum("bcnd,bnde->bcne", r * torch.exp(cum_excl), state)
+    # intra-chunk: s_tj = sum_d r_td k_jd exp(cum_excl_t - cum_j), j < t
+    lwc = torch.maximum(lw, lw.new_full((), -80.0 / C))
+    cumc = torch.cumsum(lwc, dim=1)
+    rt_ = r * torch.exp(cumc - lwc)
+    kt = k * torch.exp(-cumc)
+    s = torch.einsum("bcnd,bjnd->bncj", rt_, kt)
+    cix = torch.arange(C, device=r.device)
+    s = s.masked_fill(cix[:, None] <= cix[None, :], 0.0)
+    intra = torch.einsum("bncj,bjne->bcne", s, v)
+    # current-token bonus
+    bonus = torch.einsum("bcnd,bcnd,bcne->bcne", r, u[None, None] * k, v)
+    out = inter + intra + bonus
+    # state update: S' = decay_total o S + sum_j (k_j decay_{j->end})^T v_j
+    total = cum[:, -1]                                     # [B,N,D]
+    kdec = k * torch.exp(total[:, None] - cum)
+    upd = torch.einsum("bjnd,bjne->bnde", kdec, v)
+    return out, state * torch.exp(total)[..., None] + upd
+
+
 def rwkv6_layer(p: dict, x: torch.Tensor, spec, rt: RuntimeCfg, *,
                 cache: Optional[dict] = None) -> tuple:
     """Time mix + channel mix with residuals: x [B,S,H] -> (x', new cache).
@@ -647,7 +782,12 @@ def rwkv6_layer(p: dict, x: torch.Tensor, spec, rt: RuntimeCfg, *,
     [B,H]}``.  Its tensors are **updated in place** (the kernel writes the new
     state over the old one) and handed back in the new dict.  The chunk rule
     is the JAX layer's: ``min(32, S)``, and one chunk of S when that does
-    not divide S; the chunk is part of the result (``kernels/rwkv6_scan.py``)."""
+    not divide S; the chunk is part of the result (``kernels/rwkv6_scan.py``).
+
+    ``rt.attention_impl == "cuda"`` runs the recurrence through the wkv6
+    kernel (r, k, v in the compute dtype; forward only); any other value
+    runs the JAX layer's chunk loop (``_wkv_chunk``, r, k, v in fp32), which
+    autograd follows."""
     b, s, _ = x.shape
     nh, dh = spec.n_heads, spec.head_dim
     h = rms_norm(p["ln"], x)
@@ -659,9 +799,6 @@ def rwkv6_layer(p: dict, x: torch.Tensor, spec, rt: RuntimeCfg, *,
     def heads(nm):
         return torch.einsum("bsh,hnd->bsnd", mix(nm), cast(p[f"w_{nm}"], rt))
 
-    # r, k, v in the compute dtype: wkv6 reads bf16 and fp32 as they are
-    # and casts any other to fp32
-    from ..kernels import ops as kops
     r, k, v = (heads(nm) for nm in ("r", "k", "v"))
     g = heads("g")
     d1 = mix("w") @ cast(p["w_dec1"], rt)
@@ -673,12 +810,26 @@ def rwkv6_layer(p: dict, x: torch.Tensor, spec, rt: RuntimeCfg, *,
         cs = s
     u = p["u"].float()
     if cache is not None:
-        state0 = state_out = cache["wkv"]
+        state0 = cache["wkv"]
     else:
         state0 = torch.zeros((b, nh, dh, dh), dtype=torch.float32,
                              device=x.device)
-        state_out = None
-    out, _ = kops.wkv6(r, k, v, w, u, state0, chunk=cs, state_out=state_out)
+    if rt.attention_impl == "cuda":
+        # r, k, v in the compute dtype: wkv6 reads bf16 and fp32 as they
+        # are and casts any other to fp32
+        from ..kernels import ops as kops
+        out, _ = kops.wkv6(r, k, v, w, u, state0, chunk=cs,
+                           state_out=state0 if cache is not None else None)
+    else:
+        state, outs = state0, []
+        for c0 in range(0, s, cs):
+            sl = slice(c0, c0 + cs)
+            o, state = _wkv_chunk(r[:, sl].float(), k[:, sl].float(),
+                                  v[:, sl].float(), w[:, sl], u, state)
+            outs.append(o)
+        out = torch.cat(outs, dim=1)
+        if cache is not None:
+            cache["wkv"].copy_(state)
     out = rms_norm(p["gn"], out.to(x.dtype))             # per-head groupnorm
     out = out * F.silu(g)
     x = x + torch.einsum("bsnd,ndh->bsh", out, cast(p["w_tmo"], rt))

@@ -14,19 +14,30 @@ loops over views of it.
 
 API:
   init_params(spec, rt, generator, device=)    -> parameter tree
-  forward(params, tokens, spec, rt, frames=, vision=) -> logits (prefill)
+  forward(params, tokens, spec, rt, frames=, vision=) -> logits (train /
+                                                 prefill; differentiable)
+  loss_fn(params, batch, spec, rt)             -> scalar (mean token CE)
   init_cache(spec, rt, batch, kv_len, device=) -> decode cache
   decode_step(params, cache, tokens, spec, rt) -> (logits, cache)
 
+``forward`` records autograd wherever a parameter requires grad; a caller
+that only serves runs it under ``torch.no_grad()``.  Training needs a
+runtime whose attention is not the forward-only kernel
+(``attention_impl="chunked"``): the kernels refuse an input that requires
+grad.  ``rt.remat`` checkpoints the prefix layers, each repeat of the
+period and each encoder layer, as the JAX package does.
+
 A block kind no configuration has raises ``NotImplementedError``.
-``loss_fn`` waits for the training slice.
 """
 from __future__ import annotations
 
+import functools
 import math
 from typing import Optional
 
 import torch
+from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
+                                    create_selective_checkpoint_contexts)
 
 from . import layers as L
 from .._device import resolve_device
@@ -223,14 +234,44 @@ def _apply_slot(p: dict, x, spec, rt, kind: dict, *, positions=None,
     return x, new_cache or None
 
 
+def _save_unbatched_products(ctx, func, *args, **kwargs):
+    """The selective-checkpoint policy of ``remat="dots"``: keep the outputs
+    of matrix products without batch dimensions (JAX's
+    ``dots_with_no_batch_dims_saveable``), recompute everything else.  A
+    weight product ``x @ W`` runs as ``mm``; an einsum without batch dims
+    runs as a ``bmm`` of batch 1, which is kept too."""
+    aten = torch.ops.aten
+    if func in (aten.mm.default, aten.addmm.default) or (
+            func is aten.bmm.default and args[0].shape[0] == 1):
+        return CheckpointPolicy.MUST_SAVE
+    return CheckpointPolicy.PREFER_RECOMPUTE
+
+
+def _remat(fn, rt: RuntimeCfg):
+    """``fn`` under activation checkpointing as ``rt.remat`` asks: ``"full"``
+    keeps only its inputs, ``"dots"`` also the un-batched products."""
+    if rt.remat == "none":
+        return fn
+    if rt.remat == "full":
+        return functools.partial(checkpoint, fn, use_reentrant=False)
+    if rt.remat == "dots":
+        return functools.partial(
+            checkpoint, fn, use_reentrant=False,
+            context_fn=functools.partial(create_selective_checkpoint_contexts,
+                                         _save_unbatched_products))
+    raise ValueError(f"remat {rt.remat!r}: one of none | full | dots")
+
+
 def _run_encoder(params: dict, frames, spec, rt: RuntimeCfg):
     """The encoder over frame embeddings [B, T, H]: unmasked self-attention
     and a dense FFN per layer, then ``ln_enc``."""
+    def enc_block(x, p):
+        x, _ = L.gqa_attention(p["attn"], x, spec, rt, causal=False)
+        return L.ffn(p["ffn"], x, spec, rt)
+
     x = L.cast(frames, rt)
     for i in range(spec.encoder_layers):
-        p = _index(params["encoder"], i)
-        x, _ = L.gqa_attention(p["attn"], x, spec, rt, causal=False)
-        x = L.ffn(p["ffn"], x, spec, rt)
+        x = _remat(enc_block, rt)(x, _index(params["encoder"], i))
     return L.rms_norm(params["ln_enc"], x)
 
 
@@ -242,11 +283,10 @@ def _logits(params: dict, x, spec, rt: RuntimeCfg):
     return logits
 
 
-@torch.no_grad()
 def forward(params: dict, tokens, spec, rt: RuntimeCfg, *, frames=None,
             vision=None, positions=None) -> torch.Tensor:
-    """Prefill forward: tokens [B, S] (on the parameters' device) ->
-    logits [B, Sv + S, V].
+    """Training / prefill forward: tokens [B, S] (on the parameters' device)
+    -> logits [B, Sv + S, V].
 
     ``vision`` [B, Sv, H] (a VLM's patch embeddings) is cast to the compute
     dtype and prepended to the token embeddings.  ``frames`` [B, T, H] (an
@@ -265,16 +305,55 @@ def forward(params: dict, tokens, spec, rt: RuntimeCfg, *, frames=None,
         cross_kv = _run_encoder(params, frames, spec, rt)
     prefix_n, period = layer_pattern(spec)
     for l, p in enumerate(params["prefix"]):
-        x, _ = _apply_slot(p, x, spec, rt, _slot_kind(spec, l),
-                           positions=positions)
+        def prefix_block(xc, pc, kind=_slot_kind(spec, l)):
+            return _apply_slot(pc, xc, spec, rt, kind, positions=positions)[0]
+        x = _remat(prefix_block, rt)(x, p)
     kinds = [_slot_kind(spec, prefix_n + s) for s in range(period)]
-    for r in range(_n_rep(spec)):
+
+    def group(xc, r):
+        """Repeat ``r`` of the period: its slots, each cross-attending with
+        ``params["cross"][r]`` where the spec has an encoder."""
         cross_p = _index(params["cross"], r) if spec.encoder_layers else None
         for s in range(period):
-            x, _ = _apply_slot(_index(params["slots"][s], r), x, spec, rt,
-                               kinds[s], positions=positions,
-                               cross_kv=cross_kv, cross_p=cross_p)
+            xc, _ = _apply_slot(_index(params["slots"][s], r), xc, spec, rt,
+                                kinds[s], positions=positions,
+                                cross_kv=cross_kv, cross_p=cross_p)
+        return xc
+
+    for r in range(_n_rep(spec)):
+        x = _remat(group, rt)(x, r)
     return _logits(params, x, spec, rt)
+
+
+def loss_fn(params: dict, batch: dict, spec, rt: RuntimeCfg) -> torch.Tensor:
+    """Mean next-token cross entropy of ``batch`` (``tokens`` and ``labels``
+    [B, S]; ``frames`` / ``vision`` where the spec takes them): fp32
+    ``logsumexp`` minus the gold logit.  A VLM's logits are cut to the
+    labelled positions (the vision prefix has no labels).  With
+    ``rt.loss_chunk`` dividing S (and shorter), the sum runs over sequence
+    chunks in order, each under ``checkpoint``, so that only one chunk's
+    [B, chunk, V] fp32 working set is alive, as the JAX package's scan."""
+    logits = forward(params, batch["tokens"], spec, rt,
+                     frames=batch.get("frames"), vision=batch.get("vision"))
+    labels = batch["labels"]
+    if logits.shape[1] != labels.shape[1]:       # VLM: vision positions
+        logits = logits[:, -labels.shape[1]:]
+    b, s = labels.shape
+    if rt.loss_chunk and s % rt.loss_chunk == 0 and s > rt.loss_chunk:
+        tot = torch.zeros((), dtype=torch.float32, device=logits.device)
+        for c0 in range(0, s, rt.loss_chunk):
+            sl = slice(c0, c0 + rt.loss_chunk)
+            tot = tot + checkpoint(_ce_sum, logits[:, sl], labels[:, sl],
+                                   use_reentrant=False)
+        return tot / (b * s)
+    return _ce_sum(logits, labels) / (b * s)
+
+
+def _ce_sum(logits, labels) -> torch.Tensor:
+    """Sum over [B, S] of logsumexp(logits) - logits[label], in fp32."""
+    lf = logits.float()
+    gold = torch.gather(lf, -1, labels[..., None].long())[..., 0]
+    return torch.sum(torch.logsumexp(lf, dim=-1) - gold)
 
 
 # ---------------------------------------------------------------------------

@@ -45,8 +45,10 @@ def make_serve_step(spec, rt: RuntimeCfg):
 def make_prefill(spec, rt: RuntimeCfg):
     def prefill(params, tokens):
         """Full-batch prefill -> last-position logits (the engine fills its
-        cache token by token through serve_step)."""
-        return lm.forward(params, tokens, spec, rt)[:, -1:]
+        cache token by token through serve_step).  Serving records no
+        autograd graph."""
+        with torch.no_grad():
+            return lm.forward(params, tokens, spec, rt)[:, -1:]
     return prefill
 
 

@@ -48,7 +48,8 @@ def test_import_leaves_jax_out_of_the_process():
             "repro_torch.kernels, repro_torch.serve, repro_torch.configs, "
             "repro_torch.core.dse, repro_torch.core.batched, "
             "repro_torch.obs, repro_torch.obs.__main__, "
-            "repro_torch.analysis, repro_torch.analysis.__main__; "
+            "repro_torch.analysis, repro_torch.analysis.__main__, "
+            "repro_torch.train, repro_torch.data; "
             "repro_torch.configs.all_archs(); "
             "bad = [m for m in sys.modules if m.split('.')[0] in "
             "('jax', 'jaxlib', 'repro')]; print(bad); sys.exit(bool(bad))")

@@ -1,13 +1,18 @@
 """Shared helpers of the tests that hold ``repro_torch`` against ``repro``:
 inputs come from numpy with a seed and go to both packages."""
+import dataclasses
+
 import jax
 import jax.numpy as jnp
 import numpy as np
+import pytest
 import torch
 
+from repro.configs import get as jax_get
 from repro.models import RuntimeCfg as JaxRuntimeCfg
 from repro.models import init_params as jax_init_params
 from repro.models.common import pvalue
+from repro_torch.configs import get
 from repro_torch.models import RuntimeCfg, params_from_reference
 
 
@@ -126,3 +131,90 @@ def check_both(check: str, *args, **kw):
     want = getattr(janalysis, check)(*args, **kw)
     assert report_rows(got) == report_rows(want), check
     return got
+
+
+# ---------------------------------------------------------------------------
+# training: the loss and its gradients in both packages
+# ---------------------------------------------------------------------------
+
+def train_batch(spec, seed, b=2, s=32):
+    """tokens, labels [b, s] (and whisper's frames / internvl2's vision
+    prefix [b, n, H]) from numpy with a seed: {name: array}."""
+    rng = np.random.RandomState(seed)
+    batch = {"tokens": rng.randint(0, spec.vocab, size=(b, s)),
+             "labels": rng.randint(0, spec.vocab, size=(b, s))}
+    if spec.encoder_layers:
+        batch["frames"] = rng.standard_normal(
+            (b, spec.enc_seq, spec.d_model)).astype(np.float32)
+    if spec.vision_seq:
+        batch["vision"] = rng.standard_normal(
+            (b, spec.vision_seq, spec.d_model)).astype(np.float32)
+    return batch
+
+
+def jax_value_and_grad(jparams, batch, jspec, jrt):
+    """The reference's loss and gradients, jitted: (loss, [grad leaves] in
+    ``jax.tree.leaves`` order, as numpy)."""
+    from repro.models import lm as JLM
+    fn = jax.jit(jax.value_and_grad(
+        lambda p, b: JLM.loss_fn(p, b, jspec, jrt)))
+    loss, grads = fn(jparams, {k: jnp.asarray(v) for k, v in batch.items()})
+    return float(loss), [np.asarray(g) for g in jax.tree.leaves(pvalue(grads))]
+
+
+def torch_value_and_grad(tparams, batch, tspec, trt):
+    """The port's loss and gradients: (loss, [grad leaves] in the same
+    order, as numpy; zeros where the loss does not reach a leaf)."""
+    from repro_torch.train.train_step import value_and_grad
+    from repro_torch.train.tree import leaves
+    loss, grads = value_and_grad(
+        tparams, {k: torch.from_numpy(v) for k, v in batch.items()},
+        tspec, trt)
+    return float(loss), [g.numpy() for g in leaves(grads)]
+
+
+def assert_grads_close(got, want, rel=1e-4, floor=1e-6):
+    """Every leaf within rel * max|want leaf| + floor."""
+    assert len(got) == len(want)
+    for i, (g, w) in enumerate(zip(got, want)):
+        assert g.shape == w.shape, (i, g.shape, w.shape)
+        bound = rel * float(np.abs(w).max()) + floor
+        err = float(np.abs(g - w).max())
+        assert err <= bound, (i, g.shape, err, bound)
+
+
+def train_runtimes(loss_chunk, remat="none"):
+    """Both packages' fp32 training runtime of the grads tests: chunked
+    attention in kv chunks of 16."""
+    jrt, trt = runtimes(impl="chunked")
+    kw = dict(attn_chunk=16, loss_chunk=loss_chunk)
+    return (dataclasses.replace(jrt, remat=remat, **kw),
+            dataclasses.replace(trt, remat=remat, **kw))
+
+
+def check_loss_and_grads(name, loss_chunk, seed=0):
+    """The smoke spec of ``name``: loss within 1e-5 relative, every
+    gradient leaf within 1e-4 * max|reference leaf| + 1e-6."""
+    jspec, tspec = jax_get(name).smoke, get(name).smoke
+    jparams, tparams = shared_params(jspec)
+    jrt, trt = train_runtimes(loss_chunk)
+    batch = train_batch(tspec, seed)
+    want_l, want_g = jax_value_and_grad(jparams, batch, jspec, jrt)
+    got_l, got_g = torch_value_and_grad(tparams, batch, tspec, trt)
+    assert np.isfinite(got_l)
+    assert abs(got_l - want_l) <= 1e-5 * abs(want_l), (got_l, want_l)
+    assert_grads_close(got_g, want_g)
+
+
+def check_remat_equal(name):
+    """none / full / dots: the same loss and gradients."""
+    spec = get(name).smoke
+    _, tparams = shared_params(jax_get(name).smoke)
+    batch = train_batch(spec, 3)
+    base_l, base_g = torch_value_and_grad(tparams, batch, spec,
+                                          train_runtimes(8)[1])
+    for remat in ("full", "dots"):
+        l, g = torch_value_and_grad(tparams, batch, spec,
+                                    train_runtimes(8, remat)[1])
+        assert l == pytest.approx(base_l, rel=1e-6)
+        assert_grads_close(g, base_g, rel=1e-6, floor=0.0)
