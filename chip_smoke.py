@@ -107,6 +107,21 @@ Phases, one JSON line each on standard output:
            ops.flash_attention, ops.wkv6 and ops.cost_reduce raise on a CUDA
            input that requires grad, make_train_step with
            attention_impl="cuda" raises
+  ckpt     the training launcher and checkpoints on the card, which run no
+           kernel: deepseek-moe-16b at published widths cut to depth 2 of
+           28 (the dense prefix layer and one MoE layer, 1.09 B
+           parameters, a checkpoint of 10.9 GB: bf16 parameters, the fp32
+           router, fp32 m and v) through launch.train.train on
+           TokenPipeline [2, 2048].  Run A: 12 steps, saving at 10.  Run B,
+           in a fresh directory: steps 0-10 (saving at 10), the saved state
+           digested on the card leaf by leaf, restored (disk to device) and
+           digested again (equal), then a second launcher call to 12 that
+           prints "resumed at step 10"; its losses at steps 11-12 within
+           1e-3 relative of run A's (the gap and whether they are
+           bit-equal printed).  The manifest's axes equal param_axes(spec);
+           every loss finite; no kernel launched; free space checked before
+           each write (short: raise); each directory deleted once read.
+           Bytes, save and restore seconds and GB/s, ms/step, peak GB
 
 ``--profile`` adds to each serve line a trace of four decode steps and of
 one warm prefill: device-busy time, idle share, top kernels, and the device
@@ -153,7 +168,8 @@ from repro_torch.kernels import ref  # noqa: E402
 from repro_torch.kernels import rwkv6_scan as wkv  # noqa: E402
 from repro_torch.data import DataCfg, TokenPipeline  # noqa: E402
 from repro_torch.kernels import ops  # noqa: E402
-from repro_torch.models import RuntimeCfg, init_params, lm  # noqa: E402
+from repro_torch.models import (RuntimeCfg, init_params, lm,  # noqa: E402
+                                param_axes)
 from repro_torch.serve import Engine, Request  # noqa: E402
 from repro_torch.train import (OptCfg, init_opt_state,  # noqa: E402
                                make_train_step)
@@ -175,7 +191,7 @@ TOL = {torch.float32: dict(absolute=2e-5, rms_share=0.0, relative=2e-5),
        torch.bfloat16: dict(absolute=0.0, rms_share=1e-2, relative=2.0 ** -7)}
 
 PHASES = ("build", "kernels", "serve", "sweep", "api", "parity", "analysis",
-          "train")
+          "train", "ckpt")
 # the kernels' wrapper modules, each with its launch count, and their sources
 COUNTERS = {"flash_attention": fa, "wkv6": wkv, "cost_reduce": cr}
 SOURCES = {"flash_attention": "src/repro_torch/kernels/csrc/flash_attention.cu",
@@ -2690,6 +2706,234 @@ def check_refusals() -> dict:
     return {"refused": sorted(out), "refused_launches": refused_launches}
 
 
+# the ckpt phase's cell: deepseek-moe-16b at published widths (d_model
+# 2048, 16 x 128, 64 routed experts top-6 + 2 shared of 1408, vocab
+# 102400) cut to depth 2 of 28, its dense prefix layer and one MoE layer:
+# 1.09 B parameters, a prefix list, a stacked slot with the "layers" and
+# experts axes and the fp32 router beside bf16 leaves.  A checkpoint is
+# 10 B a parameter (bf16 parameters, fp32 m and v): 10.9 GB.  The launcher's
+# own runtime and optimizer (chunked attention, lr 1e-3, warmup 5)
+CKPT = dict(arch="deepseek-moe-16b", widths=(28, 2048, 10944, 102400),
+            layers=2, batch=2, seq=2048, steps=12, save_at=10)
+CKPT_GAP = 1e-3               # resumed losses vs run A's, relative
+CKPT_BYTES_PER_PARAM = 10
+CKPT_SPACE = 1.25             # free space asked for, x the checkpoint
+
+
+def leaf_digest(t: torch.Tensor) -> tuple:
+    """(bytes, sum of the bytes, sum of byte x (position mod 65521 + 1)) of
+    a tensor's bytes, computed on its device in chunks: a Fletcher-style
+    check that a copy holds the same bits in the same places."""
+    b = t.detach().contiguous().view(-1).view(torch.uint8)
+    s1 = s2 = 0
+    step = 1 << 26
+    for c0 in range(0, b.numel(), step):
+        c = b[c0:c0 + step].to(torch.int64)
+        pos = torch.arange(c0, c0 + c.numel(), device=c.device) % 65521 + 1
+        s1 += int(c.sum())
+        s2 += int((c * pos).sum())
+    return (b.numel(), s1, s2)
+
+
+def axes_paths(tree, path: str = "") -> dict:
+    """{checkpoint path: list of axis names} of an axes tree."""
+    if isinstance(tree, dict):
+        return {p: a for k in sorted(tree)
+                for p, a in axes_paths(tree[k], f"{path}/{k}").items()}
+    if isinstance(tree, list):
+        return {p: a for i, v in enumerate(tree)
+                for p, a in axes_paths(v, f"{path}/{i}").items()}
+    return {path: list(tree)}
+
+
+def mount_of(path: str) -> dict:
+    """The mount point and file system type that hold ``path``."""
+    real, best = os.path.realpath(path), ("/", "unknown")
+    with open("/proc/mounts") as f:
+        for line in f:
+            _, mnt, fstype = line.split()[:3]
+            if (real == mnt or real.startswith(mnt.rstrip("/") + "/")) \
+                    and len(mnt) >= len(best[0]):
+                best = (mnt, fstype)
+    return {"mount": best[0], "fstype": best[1]}
+
+
+def dir_bytes(path: str) -> int:
+    return sum(os.path.getsize(os.path.join(path, f))
+               for f in os.listdir(path))
+
+
+def run_launcher(spec, ckpt_dir: str, steps: int) -> tuple:
+    """``launch.train.train`` on the card: (its result, its printed lines).
+    What it printed goes to standard error if it raises."""
+    import io
+    from repro_torch.launch import train as train_launcher
+    out = io.StringIO()
+    try:
+        with contextlib.redirect_stdout(out):
+            res = train_launcher.train(spec, steps=steps,
+                                       batch=CKPT["batch"], seq=CKPT["seq"],
+                                       ckpt_dir=ckpt_dir, device=DEV)
+    except BaseException:
+        sys.stderr.write(out.getvalue())
+        raise
+    return res, out.getvalue().splitlines()
+
+
+def phase_ckpt() -> dict:
+    """The training launcher's loop and the checkpoint module on the card
+    (``CKPT``): run A trains 12 steps, saving at 10; run B trains to 10 in a
+    fresh directory, its saved state is restored and held leaf by leaf
+    against the state it saved (digests of the bytes, on the card), and a
+    second launcher call resumes at 10 and trains to 12.  Each directory is
+    deleted once read, so one checkpoint at most is on disk; free space is
+    checked before each write and a shortage raises."""
+    import shutil
+    import tempfile
+    from repro_torch.ckpt import restore
+    spec = get_arch(CKPT["arch"]).spec
+    require((spec.n_layers, spec.d_model, spec.d_ff, spec.vocab)
+            == CKPT["widths"], "not the published deepseek-moe-16b")
+    published_layers = spec.n_layers
+    spec = dataclasses.replace(spec, n_layers=CKPT["layers"])
+    require(lm.layer_pattern(spec) == (1, 1),
+            "depth 2: the dense prefix layer and one stacked MoE slot")
+    steps, save_at = CKPT["steps"], CKPT["save_at"]
+    want_axes = axes_paths({"params": param_axes(spec)})
+    need = CKPT_SPACE * CKPT_BYTES_PER_PARAM * spec.params()
+    root = tempfile.mkdtemp(prefix="chip_smoke_ckpt_")
+    where = mount_of(root)
+
+    def check_space():
+        free = shutil.disk_usage(root).free
+        require(free >= need, f"{root} ({where}): {free / 1e9:.2f} GB free, "
+                f"a checkpoint needs {need / 1e9:.2f} GB")
+        return free
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    # what earlier phases still hold: the peaks below include it
+    before_gb = torch.cuda.memory_allocated() / 1e9
+    peaks = {}
+
+    def mark(key):
+        """The peak since the last mark; a new window starts."""
+        torch.cuda.synchronize()
+        peaks[key] = torch.cuda.max_memory_allocated() / 1e9
+        torch.cuda.reset_peak_memory_stats()
+
+    reset_counts()
+    try:
+        # ---- run A: uninterrupted, saving at 10 ----
+        free = check_space()
+        a_dir = os.path.join(root, "a")
+        t0 = time.perf_counter()
+        run_a, lines_a = run_launcher(spec, a_dir, steps)
+        wall_a = time.perf_counter() - t0
+        mark("run A")
+        step_dir = os.path.join(a_dir, f"step_{save_at:08d}")
+        require(os.listdir(a_dir) == [f"step_{save_at:08d}"],
+                f"run A left {os.listdir(a_dir)}")
+        ckpt_bytes = dir_bytes(step_dir)
+        with open(os.path.join(step_dir, "manifest.json")) as f:
+            manifest = json.load(f)
+        got_axes = {e["path"]: e["axes"] for e in manifest["entries"]
+                    if e.get("axes") is not None}
+        require(got_axes == want_axes, "the manifest's axes are not "
+                "param_axes(spec)")
+        require(all(e["path"].startswith("/params/") or e["axes"] is None
+                    for e in manifest["entries"]),
+                "axes recorded outside the parameters")
+        n_params = sum(t.numel() for t in leaves(run_a["params"]))
+        losses_a = run_a["losses"]
+        save_a = run_a["save_s"][save_at]
+        step_s_a = run_a["step_s"]
+        del run_a
+        shutil.rmtree(a_dir)
+        gc.collect()
+        between_gb = torch.cuda.memory_allocated() / 1e9
+
+        # ---- run B: to 10, restore, then resume to 12 ----
+        check_space()
+        b_dir = os.path.join(root, "b")
+        run_b, lines_b = run_launcher(spec, b_dir, save_at)
+        mark("run B to 10")
+        saved = {"params": run_b["params"], "opt": run_b["opt"]}
+        digests = [leaf_digest(t) for t in leaves(saved)]
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        restored, at = restore(b_dir, saved, device=DEV)
+        torch.cuda.synchronize()
+        restore_s = time.perf_counter() - t0
+        require(at == save_at, f"restored step {at}")
+        require(all(t.device == DEV for t in leaves(restored)),
+                "a restored leaf off the card")
+        require([t.dtype for t in leaves(restored)]
+                == [t.dtype for t in leaves(saved)], "a restored dtype")
+        bad = [i for i, (t, d) in enumerate(zip(leaves(restored), digests))
+               if leaf_digest(t) != d]
+        require(not bad, f"restored leaves {bad[:5]} differ from the saved")
+        mark("restore")
+        save_b = run_b["save_s"][save_at]
+        losses_b0 = run_b["losses"]
+        del restored, saved, run_b
+        gc.collect()
+        run_c, lines_c = run_launcher(spec, b_dir, steps)
+        mark("resume to 12")
+        require(f"resumed at step {save_at}" in lines_c,
+                f"the rerun did not resume at {save_at}: {lines_c[:4]}")
+        require(run_c["start"] == save_at and sorted(run_c["losses"])
+                == list(range(save_at, steps)), "the resumed steps")
+        losses_c = run_c["losses"]
+        resume_s = run_c["resume_s"]
+        del run_c
+        shutil.rmtree(b_dir)
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    counts = {k: module.launches for k, module in COUNTERS.items()}
+
+    every = list(losses_a.values()) + list(losses_b0.values()) \
+        + list(losses_c.values())
+    require(all(np.isfinite(every)), f"a loss not finite: {every}")
+    require(all(n == 0 for n in counts.values()),
+            f"the launcher launched a kernel: {counts}")
+    gap = max(abs(losses_c[s] - losses_a[s]) / abs(losses_a[s])
+              for s in losses_c)
+    require(gap <= CKPT_GAP, f"resumed losses {losses_c} vs {losses_a}: "
+            f"gap {gap}")
+    # the first step is the warm-up; the rest are timed, each ending in a
+    # sync (launch.train)
+    timed = [step_s_a[s] for s in sorted(step_s_a) if s > 0]
+    return {
+        "model": spec.name, "layers": spec.n_layers,
+        "published_layers": published_layers,
+        "reduced": [f"depth {spec.n_layers} of {published_layers} layers"],
+        "params": n_params, "batch": [CKPT["batch"], CKPT["seq"]],
+        "dir": where, "free_bytes_before": free,
+        "checkpoint_bytes": ckpt_bytes,
+        "save_s": [save_a, save_b],
+        "save_gb_per_s": [ckpt_bytes / 1e9 / save_a,
+                          ckpt_bytes / 1e9 / save_b],
+        "restore_s": restore_s,
+        "restore_gb_per_s": ckpt_bytes / 1e9 / restore_s,
+        "resume_s": resume_s,
+        "run_a_s": wall_a, "first_step_ms": step_s_a[0] * 1e3,
+        "ms_per_step": 1e3 * sum(timed) / len(timed),
+        "tokens_per_s": CKPT["batch"] * CKPT["seq"] * len(timed) / sum(timed),
+        "peak_memory_gb": max(peaks.values()), "peak_gb_by_step": peaks,
+        "allocated_before_gb": before_gb,
+        "allocated_between_runs_gb": between_gb,
+        "losses_a": [losses_a[s] for s in sorted(losses_a)],
+        "losses_resumed": {s: losses_c[s] for s in sorted(losses_c)},
+        "resume_gap": gap, "resume_tolerance": CKPT_GAP,
+        "bit_equal": all(losses_c[s] == losses_a[s] for s in losses_c),
+        "run_b_equals_a_to_10": all(losses_b0[s] == losses_a[s]
+                                    for s in losses_b0),
+        "launches": counts, "printed": lines_c[2:4],
+    }
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--phases", default=",".join(PHASES),
@@ -2789,6 +3033,8 @@ def main(argv=None) -> int:
             gc.collect()                 # free one model before the next
             torch.cuda.empty_cache()
         emit("train-parity", **phase_train_parity())
+    if "ckpt" in phases:
+        emit("ckpt", **phase_ckpt())
 
     if set(phases) != set(PHASES) or models != list(SERVED):
         print(json.dumps({"ok": False, "partial": phases, "models": models}),

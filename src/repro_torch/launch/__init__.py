@@ -1,1 +1,1 @@
-"""Launchers of the port (serving so far)."""
+"""Launchers of the port: serving and training."""

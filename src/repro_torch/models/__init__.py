@@ -4,8 +4,9 @@ vision prefix (internvl2): all ten architectures of ``configs``."""
 from . import layers, lm
 from .common import Initializer, RuntimeCfg
 from .convert import params_from_reference
-from .lm import decode_step, forward, init_cache, init_params, loss_fn
+from .lm import (decode_step, forward, init_cache, init_params, loss_fn,
+                 param_axes)
 
 __all__ = ["layers", "lm", "Initializer", "RuntimeCfg", "decode_step",
-           "forward", "init_cache", "init_params", "loss_fn",
+           "forward", "init_cache", "init_params", "loss_fn", "param_axes",
            "params_from_reference"]

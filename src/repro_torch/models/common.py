@@ -3,8 +3,11 @@ parameter initializer.
 
 Parameters are plain ``torch.Tensor`` leaves in nested dicts/lists with the
 same keys and shapes as the JAX package's tree, so weights carry across leaf
-by leaf (``models/convert.py``).  Logical sharding axes (``Param.axes``,
-``AxisRules``, ``constrain``) wait for the sharding slice.
+by leaf (``models/convert.py``).  Every leaf is created with its logical
+axes, as in the JAX package; the port keeps them apart from the tensors, in
+a tree of the same structure (``lm.param_axes``, built by running the same
+init functions through ``AxesInitializer``).  ``AxisRules`` and
+``constrain`` wait for the sharding slice.
 """
 from __future__ import annotations
 
@@ -43,11 +46,29 @@ def dt(name) -> torch.dtype:
     return torch_dtype(name)
 
 
+def _tree_map(fn, tree, *rest):
+    """``fn`` over the leaves of nested dicts and lists/tuples (lists out)."""
+    if isinstance(tree, dict):
+        return {k: _tree_map(fn, v, *(r[k] for r in rest))
+                for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return [_tree_map(fn, v, *(r[i] for r in rest))
+                for i, v in enumerate(tree)]
+    return fn(tree, *rest)
+
+
+def _check_axes(name: str, shape: tuple, axes: tuple) -> None:
+    if len(axes) != len(shape):
+        raise ValueError(f"{name}: {len(shape)} dimensions {shape} but axes "
+                         f"{axes}")
+
+
 class Initializer:
     """Deterministic fan-in-scaled normal init on an explicit
     ``torch.Generator``.  Leaves of one dimension are ones (norm scales).
     Normals are drawn in fp32 on the generator's device and cast, so no
-    leaf ever exists on the host."""
+    leaf ever exists on the host.  ``axes`` (one logical name per
+    dimension) is checked and not stored: ``AxesInitializer`` collects it."""
 
     def __init__(self, generator: torch.Generator, dtype,
                  device: Optional[torch.device] = None):
@@ -56,8 +77,9 @@ class Initializer:
         self.device = torch.device(device if device is not None
                                    else generator.device)
 
-    def __call__(self, name: str, shape: tuple, scale: Optional[float] = None,
-                 dtype=None) -> torch.Tensor:
+    def __call__(self, name: str, shape: tuple, axes: tuple,
+                 scale: Optional[float] = None, dtype=None) -> torch.Tensor:
+        _check_axes(name, shape, axes)
         out_dtype = dt(dtype) if dtype is not None else self.dtype
         if len(shape) <= 1:
             return torch.ones(shape, dtype=out_dtype, device=self.device)
@@ -66,3 +88,44 @@ class Initializer:
         val = torch.randn(shape, generator=self.generator,
                           dtype=torch.float32, device=self.device)
         return val.mul_(std).to(out_dtype)
+
+    @staticmethod
+    def stack(init_one, n_rep: int) -> dict:
+        """``n_rep`` subtrees ``init_one(r)`` stacked ``[n_rep, ...]``,
+        filled one layer at a time so that the fp32 draw of only one layer
+        is alive beside the stack."""
+        stack: dict = {}
+        for r in range(n_rep):
+            rep = init_one(r)
+            if r == 0:
+                stack = _tree_map(
+                    lambda t: torch.empty((n_rep,) + tuple(t.shape),
+                                          dtype=t.dtype, device=t.device),
+                    rep)
+            _tree_map(lambda dst, src: dst[r].copy_(src), stack, rep)
+        return stack
+
+
+class AxesInitializer:
+    """``Initializer``'s stand-in that builds no tensor: each call returns
+    the leaf's logical axes, and ``stack`` prepends ``"layers"`` to every
+    leaf of a stacked subtree, as the JAX package's ``lm._stack`` does.  Run
+    through the init functions that build the parameter tree, it builds the
+    tree of axes, so the two trees cannot drift apart."""
+
+    def __call__(self, name: str, shape: tuple, axes: tuple,
+                 scale: Optional[float] = None, dtype=None) -> tuple:
+        _check_axes(name, shape, axes)
+        return tuple(axes)
+
+    @staticmethod
+    def stack(init_one, n_rep: int) -> dict:
+        return _prepend_layers(init_one(0)) if n_rep else {}
+
+
+def _prepend_layers(node):
+    if isinstance(node, dict):
+        return {k: _prepend_layers(v) for k, v in node.items()}
+    if isinstance(node, list):
+        return [_prepend_layers(v) for v in node]
+    return ("layers",) + node

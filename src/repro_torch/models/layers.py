@@ -36,6 +36,10 @@ from torch.utils.checkpoint import checkpoint
 
 from .common import Initializer, RuntimeCfg, dt
 
+# logical axis names of the parameters' dimensions, the JAX package's
+EMB, HEADS, KV, QGRP, HDIM = "embed", "heads", "kv_heads", "q_grp", "head_dim"
+FFN, VOCAB, EXP, LORA = "ffn", "vocab", "experts", "lora"
+
 
 def cast(x: torch.Tensor, rt: RuntimeCfg) -> torch.Tensor:
     return x.to(dt(rt.compute_dtype))
@@ -218,15 +222,16 @@ def init_gqa(ini: Initializer, spec, prefix: str = "") -> dict:
     nkv = max(1, spec.n_kv_heads)
     g = max(1, spec.n_heads // nkv)
     p = {
-        "ln": ini(prefix + "ln", (H,)),
-        "w_q": ini(prefix + "w_q", (H, nkv, g, DHd)),
-        "w_k": ini(prefix + "w_k", (H, nkv, DHd)),
-        "w_v": ini(prefix + "w_v", (H, nkv, DHd)),
-        "w_o": ini(prefix + "w_o", (nkv, g, DHd, H), scale=1.0 / math.sqrt(H)),
+        "ln": ini(prefix + "ln", (H,), (EMB,)),
+        "w_q": ini(prefix + "w_q", (H, nkv, g, DHd), (EMB, KV, QGRP, HDIM)),
+        "w_k": ini(prefix + "w_k", (H, nkv, DHd), (EMB, KV, HDIM)),
+        "w_v": ini(prefix + "w_v", (H, nkv, DHd), (EMB, KV, HDIM)),
+        "w_o": ini(prefix + "w_o", (nkv, g, DHd, H), (KV, QGRP, HDIM, EMB),
+                   scale=1.0 / math.sqrt(H)),
     }
     if spec.qk_norm:
-        p["qn"] = ini(prefix + "qn", (DHd,))
-        p["kn"] = ini(prefix + "kn", (DHd,))
+        p["qn"] = ini(prefix + "qn", (DHd,), (HDIM,))
+        p["kn"] = ini(prefix + "kn", (DHd,), (HDIM,))
     return p
 
 
@@ -326,17 +331,22 @@ def init_mla(ini: Initializer, spec, prefix: str = "") -> dict:
     m = spec.mla
     H, N = spec.d_model, spec.n_heads
     return {
-        "ln": ini(prefix + "ln", (H,)),
-        "w_dq": ini(prefix + "w_dq", (H, m.q_lora)),
-        "ln_q": ini(prefix + "ln_q", (m.q_lora,)),
-        "w_uq_n": ini(prefix + "w_uq_n", (m.q_lora, N, m.nope_dim)),
-        "w_uq_r": ini(prefix + "w_uq_r", (m.q_lora, N, m.rope_dim)),
-        "w_dkv": ini(prefix + "w_dkv", (H, m.kv_lora)),
-        "ln_kv": ini(prefix + "ln_kv", (m.kv_lora,)),
-        "w_kr": ini(prefix + "w_kr", (H, m.rope_dim)),
-        "w_uk": ini(prefix + "w_uk", (m.kv_lora, N, m.nope_dim)),
-        "w_uv": ini(prefix + "w_uv", (m.kv_lora, N, m.v_dim)),
-        "w_o": ini(prefix + "w_o", (N, m.v_dim, H), scale=1.0 / math.sqrt(H)),
+        "ln": ini(prefix + "ln", (H,), (EMB,)),
+        "w_dq": ini(prefix + "w_dq", (H, m.q_lora), (EMB, LORA)),
+        "ln_q": ini(prefix + "ln_q", (m.q_lora,), (LORA,)),
+        "w_uq_n": ini(prefix + "w_uq_n", (m.q_lora, N, m.nope_dim),
+                      (LORA, HEADS, HDIM)),
+        "w_uq_r": ini(prefix + "w_uq_r", (m.q_lora, N, m.rope_dim),
+                      (LORA, HEADS, HDIM)),
+        "w_dkv": ini(prefix + "w_dkv", (H, m.kv_lora), (EMB, LORA)),
+        "ln_kv": ini(prefix + "ln_kv", (m.kv_lora,), (LORA,)),
+        "w_kr": ini(prefix + "w_kr", (H, m.rope_dim), (EMB, HDIM)),
+        "w_uk": ini(prefix + "w_uk", (m.kv_lora, N, m.nope_dim),
+                    (LORA, HEADS, HDIM)),
+        "w_uv": ini(prefix + "w_uv", (m.kv_lora, N, m.v_dim),
+                    (LORA, HEADS, HDIM)),
+        "w_o": ini(prefix + "w_o", (N, m.v_dim, H), (HEADS, HDIM, EMB),
+                   scale=1.0 / math.sqrt(H)),
     }
 
 
@@ -408,12 +418,13 @@ def init_ffn(ini: Initializer, spec, width: Optional[int] = None,
     f = width or spec.d_ff
     gated = spec.gated_ffn if gated is None else gated
     p = {
-        "ln": ini(prefix + "ln_f", (H,)),
-        "w_up": ini(prefix + "w_up", (H, f)),
-        "w_down": ini(prefix + "w_down", (f, H), scale=1.0 / math.sqrt(f)),
+        "ln": ini(prefix + "ln_f", (H,), (EMB,)),
+        "w_up": ini(prefix + "w_up", (H, f), (EMB, FFN)),
+        "w_down": ini(prefix + "w_down", (f, H), (FFN, EMB),
+                      scale=1.0 / math.sqrt(f)),
     }
     if gated:
-        p["w_gate"] = ini(prefix + "w_gate", (H, f))
+        p["w_gate"] = ini(prefix + "w_gate", (H, f), (EMB, FFN))
     return p
 
 
@@ -437,13 +448,15 @@ def init_moe(ini: Initializer, spec, prefix: str = "") -> dict:
     H = spec.d_model
     mo = spec.moe
     p = {
-        "ln": ini(prefix + "ln_moe", (H,)),
+        "ln": ini(prefix + "ln_moe", (H,), (EMB,)),
         "w_router": ini(prefix + "w_router", (H, mo.n_experts),
-                        dtype=torch.float32),
-        "w_egate": ini(prefix + "w_egate", (mo.n_experts, H, mo.d_expert)),
-        "w_eup": ini(prefix + "w_eup", (mo.n_experts, H, mo.d_expert)),
+                        (EMB, "router"), dtype=torch.float32),
+        "w_egate": ini(prefix + "w_egate", (mo.n_experts, H, mo.d_expert),
+                       (EXP, EMB, FFN)),
+        "w_eup": ini(prefix + "w_eup", (mo.n_experts, H, mo.d_expert),
+                     (EXP, EMB, FFN)),
         "w_edown": ini(prefix + "w_edown", (mo.n_experts, mo.d_expert, H),
-                       scale=1.0 / math.sqrt(mo.d_expert)),
+                       (EXP, FFN, EMB), scale=1.0 / math.sqrt(mo.d_expert)),
     }
     if mo.n_shared:
         sw = mo.n_shared * mo.d_expert
@@ -567,15 +580,17 @@ def init_mamba(ini: Initializer, spec, prefix: str = "") -> dict:
     din = ss.expand * H
     dtr = ss.dt_rank or H // 16
     return {
-        "ln": ini(prefix + "ln_ssm", (H,)),
-        "w_in": ini(prefix + "w_in", (H, 2 * din)),
-        "conv": ini(prefix + "conv", (4, din), scale=0.5),
-        "w_xdb": ini(prefix + "w_xdb", (din, dtr + 2 * ss.d_state)),
-        "w_dt": ini(prefix + "w_dt", (dtr, din)),
-        "A_log": ini(prefix + "A_log", (din, ss.d_state), scale=1.0,
-                     dtype=torch.float32),
-        "D": ini(prefix + "D", (din,)),
-        "w_out": ini(prefix + "w_out", (din, H), scale=1.0 / math.sqrt(din)),
+        "ln": ini(prefix + "ln_ssm", (H,), (EMB,)),
+        "w_in": ini(prefix + "w_in", (H, 2 * din), (EMB, FFN)),
+        "conv": ini(prefix + "conv", (4, din), ("conv", FFN), scale=0.5),
+        "w_xdb": ini(prefix + "w_xdb", (din, dtr + 2 * ss.d_state),
+                     (FFN, LORA)),
+        "w_dt": ini(prefix + "w_dt", (dtr, din), (LORA, FFN)),
+        "A_log": ini(prefix + "A_log", (din, ss.d_state), (FFN, "state"),
+                     scale=1.0, dtype=torch.float32),
+        "D": ini(prefix + "D", (din,), (FFN,)),
+        "w_out": ini(prefix + "w_out", (din, H), (FFN, EMB),
+                     scale=1.0 / math.sqrt(din)),
     }
 
 
@@ -709,24 +724,25 @@ def init_rwkv6(ini: Initializer, spec, prefix: str = "") -> dict:
     H = spec.d_model
     nh, dh = spec.n_heads, spec.head_dim
     rk = spec.rwkv_decay_rank
-    p = {"ln": ini(prefix + "ln_tm", (H,)),
-         "u": ini(prefix + "u", (nh, dh), scale=1.0)}
+    p = {"ln": ini(prefix + "ln_tm", (H,), (EMB,)),
+         "u": ini(prefix + "u", (nh, dh), (HEADS, HDIM), scale=1.0)}
     for nm in ("r", "k", "v", "g"):
-        p[f"mu_{nm}"] = ini(prefix + f"mu_{nm}", (H,), scale=1.0)
-        p[f"w_{nm}"] = ini(prefix + f"w_{nm}", (H, nh, dh))
-    p["mu_w"] = ini(prefix + "mu_w", (H,), scale=1.0)
-    p["w_dec1"] = ini(prefix + "w_dec1", (H, rk))
-    p["w_dec2"] = ini(prefix + "w_dec2", (rk, nh, dh))
-    p["gn"] = ini(prefix + "gn", (dh,))
-    p["w_tmo"] = ini(prefix + "w_tmo", (nh, dh, H), scale=1.0 / math.sqrt(H))
+        p[f"mu_{nm}"] = ini(prefix + f"mu_{nm}", (H,), (EMB,), scale=1.0)
+        p[f"w_{nm}"] = ini(prefix + f"w_{nm}", (H, nh, dh), (EMB, HEADS, HDIM))
+    p["mu_w"] = ini(prefix + "mu_w", (H,), (EMB,), scale=1.0)
+    p["w_dec1"] = ini(prefix + "w_dec1", (H, rk), (EMB, LORA))
+    p["w_dec2"] = ini(prefix + "w_dec2", (rk, nh, dh), (LORA, HEADS, HDIM))
+    p["gn"] = ini(prefix + "gn", (dh,), (HDIM,))
+    p["w_tmo"] = ini(prefix + "w_tmo", (nh, dh, H), (HEADS, HDIM, EMB),
+                     scale=1.0 / math.sqrt(H))
     # channel mix
-    p["ln_cm"] = ini(prefix + "ln_cm", (H,))
-    p["mu_ck"] = ini(prefix + "mu_ck", (H,), scale=1.0)
-    p["mu_cr"] = ini(prefix + "mu_cr", (H,), scale=1.0)
-    p["w_ck"] = ini(prefix + "w_ck", (H, spec.d_ff))
-    p["w_cv"] = ini(prefix + "w_cv", (spec.d_ff, H),
+    p["ln_cm"] = ini(prefix + "ln_cm", (H,), (EMB,))
+    p["mu_ck"] = ini(prefix + "mu_ck", (H,), (EMB,), scale=1.0)
+    p["mu_cr"] = ini(prefix + "mu_cr", (H,), (EMB,), scale=1.0)
+    p["w_ck"] = ini(prefix + "w_ck", (H, spec.d_ff), (EMB, FFN))
+    p["w_cv"] = ini(prefix + "w_cv", (spec.d_ff, H), (FFN, EMB),
                     scale=1.0 / math.sqrt(spec.d_ff))
-    p["w_cr"] = ini(prefix + "w_cr", (H, H))
+    p["w_cr"] = ini(prefix + "w_cr", (H, H), (EMB, EMB))
     return p
 
 

@@ -14,6 +14,7 @@ loops over views of it.
 
 API:
   init_params(spec, rt, generator, device=)    -> parameter tree
+  param_axes(spec)                             -> its logical axes
   forward(params, tokens, spec, rt, frames=, vision=) -> logits (train /
                                                  prefill; differentiable)
   loss_fn(params, batch, spec, rt)             -> scalar (mean token CE)
@@ -41,7 +42,8 @@ from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
 
 from . import layers as L
 from .._device import resolve_device
-from .common import Initializer, RuntimeCfg, dt
+from .common import (AxesInitializer, Initializer, RuntimeCfg,
+                     _tree_map, dt)
 
 # ---------------------------------------------------------------------------
 # Layer pattern
@@ -137,29 +139,32 @@ def _init_slot(ini: Initializer, spec, kind: dict, prefix: str) -> dict:
     return p
 
 
-def _tree_map(fn, tree, *rest):
-    if isinstance(tree, dict):
-        return {k: _tree_map(fn, v, *(r[k] for r in rest))
-                for k, v in tree.items()}
-    if isinstance(tree, (list, tuple)):
-        return [_tree_map(fn, v, *(r[i] for r in rest))
-                for i, v in enumerate(tree)]
-    return fn(tree, *rest)
-
-
-def _init_stack(init_one, n_rep: int) -> dict:
-    """``n_rep`` subtrees ``init_one(r)`` stacked ``[n_rep, ...]``, filled one
-    layer at a time so that the fp32 draw of only one layer is alive beside
-    the stack."""
-    stack: dict = {}
-    for r in range(n_rep):
-        rep = init_one(r)
-        if r == 0:
-            stack = _tree_map(
-                lambda t: torch.empty((n_rep,) + tuple(t.shape), dtype=t.dtype,
-                                      device=t.device), rep)
-        _tree_map(lambda dst, src: dst[r].copy_(src), stack, rep)
-    return stack
+def _build(ini, spec) -> dict:
+    """The parameter tree, each leaf what ``ini`` gives for it: a tensor
+    (``Initializer``) or its logical axes (``AxesInitializer``)."""
+    H, V = spec.d_model, spec.vocab
+    params: dict = {
+        "embed": ini("embed", (V, H), (L.VOCAB, L.EMB), scale=1.0),
+        "ln_f": ini("ln_f", (H,), (L.EMB,)),
+        "lm_head": ini("lm_head", (H, V), (L.EMB, L.VOCAB)),
+    }
+    if spec.encoder_layers:
+        params["encoder"] = ini.stack(
+            lambda i: _init_slot(ini, spec, ENC_KIND, f"enc{i}_"),
+            spec.encoder_layers)
+        params["ln_enc"] = ini("ln_enc", (H,), (L.EMB,))
+        # decoder cross-attention, one per decoder layer
+        params["cross"] = ini.stack(
+            lambda i: L.init_gqa(ini, spec, f"x{i}_"), spec.n_layers)
+    prefix_n, period = layer_pattern(spec)
+    params["prefix"] = [_init_slot(ini, spec, _slot_kind(spec, l), f"pl{l}_")
+                        for l in range(prefix_n)]
+    n_rep = _n_rep(spec)
+    params["slots"] = [
+        ini.stack(lambda r, kind=_slot_kind(spec, prefix_n + s), s=s:
+                  _init_slot(ini, spec, kind, f"l{r}s{s}_"), n_rep)
+        for s in range(period)]
+    return params
 
 
 def init_params(spec, rt: RuntimeCfg, generator: Optional[torch.Generator] = None,
@@ -171,30 +176,17 @@ def init_params(spec, rt: RuntimeCfg, generator: Optional[torch.Generator] = Non
     if generator is None:
         generator = torch.Generator(device=device)
         generator.manual_seed(seed)
-    ini = Initializer(generator, rt.param_dtype, device)
-    H, V = spec.d_model, spec.vocab
-    params: dict = {
-        "embed": ini("embed", (V, H), scale=1.0),
-        "ln_f": ini("ln_f", (H,)),
-        "lm_head": ini("lm_head", (H, V)),
-    }
-    if spec.encoder_layers:
-        params["encoder"] = _init_stack(
-            lambda i: _init_slot(ini, spec, ENC_KIND, f"enc{i}_"),
-            spec.encoder_layers)
-        params["ln_enc"] = ini("ln_enc", (H,))
-        # decoder cross-attention, one per decoder layer
-        params["cross"] = _init_stack(
-            lambda i: L.init_gqa(ini, spec, f"x{i}_"), spec.n_layers)
-    prefix_n, period = layer_pattern(spec)
-    params["prefix"] = [_init_slot(ini, spec, _slot_kind(spec, l), f"pl{l}_")
-                        for l in range(prefix_n)]
-    n_rep = _n_rep(spec)
-    params["slots"] = [
-        _init_stack(lambda r, kind=_slot_kind(spec, prefix_n + s), s=s:
-                    _init_slot(ini, spec, kind, f"l{r}s{s}_"), n_rep)
-        for s in range(period)]
-    return params
+    return _build(Initializer(generator, rt.param_dtype, device), spec)
+
+
+def param_axes(spec, rt: Optional[RuntimeCfg] = None) -> dict:
+    """The logical axes of every leaf of ``init_params(spec, rt)``: a tree
+    of the same structure with tuples of axis names as leaves, ``"layers"``
+    first on stacked leaves; equal to the JAX package's
+    ``paxes(init_params(...))``.  Builds no tensor; the axes do not depend
+    on ``rt``."""
+    _require_ported(spec)
+    return _build(AxesInitializer(), spec)
 
 
 def _index(tree, i: int):

@@ -12,7 +12,8 @@ import torch
 ROOT = Path(__file__).resolve().parents[1]
 PKG = ROOT / "src" / "repro_torch"
 FILES = sorted(PKG.rglob("*.py")) + [ROOT / "chip_smoke.py"]
-FORBIDDEN = {"jax", "jaxlib", "repro", "flax", "optax"}
+# ml_dtypes comes with jax: an install of torch alone has none
+FORBIDDEN = {"jax", "jaxlib", "repro", "flax", "optax", "ml_dtypes"}
 
 
 def _imported_roots(path: Path) -> set:
@@ -49,10 +50,12 @@ def test_import_leaves_jax_out_of_the_process():
             "repro_torch.core.dse, repro_torch.core.batched, "
             "repro_torch.obs, repro_torch.obs.__main__, "
             "repro_torch.analysis, repro_torch.analysis.__main__, "
-            "repro_torch.train, repro_torch.data; "
+            "repro_torch.train, repro_torch.data, repro_torch.ckpt, "
+            "repro_torch.launch.train; "
             "repro_torch.configs.all_archs(); "
             "bad = [m for m in sys.modules if m.split('.')[0] in "
-            "('jax', 'jaxlib', 'repro')]; print(bad); sys.exit(bool(bad))")
+            "('jax', 'jaxlib', 'repro', 'ml_dtypes')]; print(bad); "
+            "sys.exit(bool(bad))")
     r = subprocess.run([sys.executable, "-c", code], capture_output=True,
                        text=True, env={"PYTHONPATH": str(ROOT / "src"),
                                        "PATH": "/usr/bin:/bin"})
