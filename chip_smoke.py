@@ -122,6 +122,30 @@ Phases, one JSON line each on standard output:
            every loss finite; no kernel launched; free space checked before
            each write (short: raise); each directory deleted once read.
            Bytes, save and restore seconds and GB/s, ms/step, peak GB
+  shard    the ported sharding (parallel.sharding, launch.mesh, AxisRules
+           and constrain, ZeRO-1, restore with shardings=) on a one-rank
+           NCCL DeviceMesh (1, 1) ("data", "model") of the card, built by
+           launch.mesh.make_mesh, with the rules the JAX package's dry run
+           picks per arch (FSDP for an MoE model; sequence parallelism on).
+           Training: deepseek-moe-16b at published widths, depth 2 of 28
+           (the ckpt phase's model), the training launcher's runtime: six
+           make_train_step steps on TokenPipeline batch 0 [2, 2048] with
+           plain parameters, then the same six from the same seed with
+           parameters placed by param_shardings, ZeRO-1 moments placed by
+           opt_state_shardings and the rules: ms/step of each (the first a
+           warm-up), peak GB, the largest relative gap of the losses (limit
+           1e-6; bit-equal or not); the placed state saved and restored
+           with shardings= (DTensors on the mesh, every leaf's bytes equal
+           on the card).  Serving: qwen3-14b at published width and depth,
+           attention through the kernel: the serve phase's 16 requests and
+           [2, 2048] prefill, by the plain engine and by Engine(rules=)
+           over the placed parameters; the same greedy tokens, and the
+           same flash launches (counts set to 0 before each, 5520: the
+           kernel ran on the local shards); decode ms/step and prefill ms
+           of both.  The process group is destroyed at the phase's end.
+           Multi-rank behaviour (expert parallelism, real collectives) is
+           held on gloo ranks on the CPU (tests/test_torch_multirank.py):
+           NCCL takes one rank per device
 
 ``--profile`` adds to each serve line a trace of four decode steps and of
 one warm prefill: device-busy time, idle share, top kernels, and the device
@@ -191,7 +215,7 @@ TOL = {torch.float32: dict(absolute=2e-5, rms_share=0.0, relative=2e-5),
        torch.bfloat16: dict(absolute=0.0, rms_share=1e-2, relative=2.0 ** -7)}
 
 PHASES = ("build", "kernels", "serve", "sweep", "api", "parity", "analysis",
-          "train", "ckpt")
+          "train", "ckpt", "shard")
 # the kernels' wrapper modules, each with its launch count, and their sources
 COUNTERS = {"flash_attention": fa, "wkv6": wkv, "cost_reduce": cr}
 SOURCES = {"flash_attention": "src/repro_torch/kernels/csrc/flash_attention.cu",
@@ -2934,6 +2958,249 @@ def phase_ckpt() -> dict:
     }
 
 
+# ---------------------------------------------------------------------------
+# shard: the ported sharding on a one-rank mesh of the card
+# ---------------------------------------------------------------------------
+
+SHARD = dict(train_arch=CKPT["arch"], train_widths=CKPT["widths"],
+             train_layers=CKPT["layers"], batch=2, seq=2048, steps=6,
+             serve_arch="qwen3-14b", serve_launches=5520)
+SHARD_LOSS_REL = 1e-6         # mesh vs plain losses, relative, each step
+
+
+def mesh_rules(spec, mesh, sp: bool = True) -> dict:
+    """The logical rules the JAX package's dry run picks for ``spec``
+    (``launch/dryrun.py:arch_rules``): kv heads over ``model`` where they
+    divide (not MLA), FSDP for an MoE model or where attention cannot shard
+    over ``model``."""
+    from repro_torch.launch.mesh import data_axes_of
+    from repro_torch.parallel import logical_rules
+    model = mesh.size(mesh.mesh_dim_names.index("model"))
+    kv_ok = spec.n_kv_heads % model == 0 and spec.block not in ("mla",)
+    grp_ok = max(1, spec.n_heads // max(1, spec.n_kv_heads)) % model == 0
+    fsdp = spec.moe is not None or not (
+        kv_ok or grp_ok or spec.block in ("mla", "rwkv6"))
+    return logical_rules(sp=sp, fsdp=fsdp, shard_kv_heads=kv_ok,
+                         data_axes=data_axes_of(mesh))
+
+
+def shard_train(mesh) -> dict:
+    """Six steps plain, then six on the mesh from the same seed; then the
+    placed state through save and ``restore(shardings=)``."""
+    import shutil
+    import tempfile
+    from torch.distributed.tensor import DTensor
+    from repro_torch.ckpt import restore, save
+    from repro_torch.launch.mesh import data_axes_of
+    from repro_torch.models import AxisRules
+    from repro_torch.parallel import distribute, param_shardings
+    from repro_torch.train import opt_state_shardings
+    spec = get_arch(SHARD["train_arch"]).spec
+    require((spec.n_layers, spec.d_model, spec.d_ff, spec.vocab)
+            == SHARD["train_widths"], "not the published deepseek-moe-16b")
+    published_layers = spec.n_layers
+    spec = dataclasses.replace(spec, n_layers=SHARD["train_layers"])
+    # the training launcher's runtime and optimizer (launch/train.py)
+    rt = RuntimeCfg(attention_impl="chunked", attn_chunk=SHARD["seq"])
+    opt_cfg = OptCfg(lr=1e-3, warmup=5)
+    rules_d = mesh_rules(spec, mesh)
+    axes = param_axes(spec)
+    pipe = TokenPipeline(DataCfg(global_batch=SHARD["batch"],
+                                 seq_len=SHARD["seq"], vocab=spec.vocab,
+                                 seed=0))
+    batch = {k: torch.from_numpy(v).to(DEV) for k, v in pipe.batch(0).items()}
+
+    def run(placed: bool) -> tuple:
+        gc.collect()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        params = init_params(spec, rt, torch.Generator(device=DEV)
+                             .manual_seed(0), device=DEV)
+        shardings = None
+        if placed:
+            shardings = {
+                "params": param_shardings(params, axes, rules_d, mesh),
+                "opt": opt_state_shardings(params, axes, rules_d, mesh,
+                                           zero1=True,
+                                           data_axes=data_axes_of(mesh))}
+            params = distribute(params, shardings["params"])
+            opt = distribute(init_opt_state(params), shardings["opt"])
+            step = make_train_step(spec, rt, opt_cfg,
+                                   AxisRules(rules_d, mesh))
+        else:
+            opt = init_opt_state(params)
+            step = make_train_step(spec, rt, opt_cfg)
+        losses = []
+        t0 = time.perf_counter()
+        params, opt, m = step(params, opt, batch)          # warm-up
+        losses.append(m["loss"])
+        torch.cuda.synchronize()
+        first_ms = (time.perf_counter() - t0) * 1e3
+        t0 = time.perf_counter()
+        for _ in range(SHARD["steps"] - 1):
+            params, opt, m = step(params, opt, batch)
+            losses.append(m["loss"])
+        torch.cuda.synchronize()
+        ms = (time.perf_counter() - t0) * 1e3 / (SHARD["steps"] - 1)
+        return {"params": params, "opt": opt}, shardings, {
+            "ms_per_step": ms, "first_step_ms": first_ms,
+            "peak_memory_gb": torch.cuda.max_memory_allocated() / 1e9,
+            "losses": [float(x) for x in losses]}
+
+    state, _, plain = run(False)
+    n_params = sum(t.numel() for t in leaves(state["params"]))
+    del state
+    state, shardings, placed = run(True)
+    require(all(isinstance(t, DTensor) and t.device_mesh == mesh
+                for t in leaves(state)), "a trained leaf off the mesh")
+    gaps = [abs(a - b) / abs(b) for a, b in zip(placed["losses"],
+                                                 plain["losses"])]
+    require(all(np.isfinite(placed["losses"])) and max(gaps)
+            <= SHARD_LOSS_REL, f"losses on the mesh {placed['losses']} "
+            f"vs plain {plain['losses']}: gap {max(gaps)}")
+
+    digests = [leaf_digest(t.to_local()) for t in leaves(state)]
+    root = tempfile.mkdtemp(prefix="chip_smoke_shard_")
+    try:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        save(root, SHARD["steps"], state)
+        save_s = time.perf_counter() - t0
+        ckpt_bytes = dir_bytes(os.path.join(root,
+                                            f"step_{SHARD['steps']:08d}"))
+        t0 = time.perf_counter()
+        back, at = restore(root, state, device=DEV, shardings=shardings)
+        torch.cuda.synchronize()
+        restore_s = time.perf_counter() - t0
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    require(at == SHARD["steps"], f"restored step {at}")
+    require(all(isinstance(t, DTensor) and tuple(t.placements)
+                == tuple(w.placements) for t, w in zip(leaves(back),
+                                                       leaves(state))),
+            "a restored leaf is not placed as saved")
+    bad = [i for i, (t, d) in enumerate(zip(leaves(back), digests))
+           if leaf_digest(t.to_local()) != d]
+    require(not bad, f"restored leaves {bad[:5]} differ from the saved")
+    zero1 = sorted({str(t.placements) for t in leaves(state["opt"]["m"])})
+    del back, state
+    return {
+        "model": spec.name, "layers": spec.n_layers,
+        "published_layers": published_layers,
+        "reduced": [f"depth {spec.n_layers} of {published_layers} layers"],
+        "params": n_params, "batch": [SHARD["batch"], SHARD["seq"]],
+        "rules": {k: v for k, v in rules_d.items() if v is not None},
+        "plain": plain, "mesh": placed,
+        "loss_gap_rel": max(gaps), "loss_tolerance": SHARD_LOSS_REL,
+        "bit_equal": placed["losses"] == plain["losses"],
+        "moment_placements": zero1, "checkpoint_bytes": ckpt_bytes,
+        "save_s": save_s, "restore_s": restore_s,
+        "restored_bit_equal": True,
+    }
+
+
+def shard_serve(mesh) -> dict:
+    """The serve phase's requests and prefill for ``SHARD["serve_arch"]``,
+    by the plain engine and by ``Engine(rules=)`` over placed parameters;
+    counts set to 0 before each run and read after it."""
+    from torch.distributed.tensor import DTensor
+    from repro_torch.models import AxisRules
+    from repro_torch.parallel import distribute, param_shardings
+    name = SHARD["serve_arch"]
+    spec = get_arch(name).spec
+    require((spec.n_layers, spec.d_model, spec.d_ff, spec.vocab)
+            == SERVED[name]["widths"], f"not the published {name}")
+    rt = RuntimeCfg()                    # bf16, attention through the kernel
+    rules_d = mesh_rules(spec, mesh)
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    params = init_params(spec, rt, torch.Generator(device=DEV).manual_seed(0),
+                         device=DEV)
+    slots, n_req, max_new, kv_len = 8, 16, 16, 2048
+    rng = np.random.RandomState(0)
+    prompts = [rng.randint(1, spec.vocab, size=rng.randint(16, 65))
+               for _ in range(n_req)]
+    tokens = torch.from_numpy(rng.randint(0, spec.vocab, size=(2, 2048))) \
+        .to(DEV)
+
+    def serve(p, rules) -> dict:
+        engine = Engine(spec, rt, p, batch_slots=slots, kv_len=kv_len,
+                        device=DEV, rules=rules)
+        for rid, prompt in enumerate(prompts):
+            engine.submit(Request(rid=rid, prompt=prompt, max_new=max_new))
+
+        def prefill(pp, tok):
+            return lm.forward(pp, tok, spec, rt, rules)
+        reset_counts()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        done = engine.run(max_steps=kv_len)
+        torch.cuda.synchronize()
+        decode_s = time.perf_counter() - t0
+        logits, first = timed_prefill(prefill, p, tokens)
+        counts = {k: module.launches for k, module in COUNTERS.items()}
+        placed = isinstance(logits, DTensor)
+        last = (logits.full_tensor() if placed else logits)[:, -1].float()
+        del logits
+        warm = [timed_prefill(prefill, p, tokens)[1]["ms"] for _ in range(3)]
+        require(len(done) == n_req and all(len(r.out) == max_new
+                                           for r in done),
+                f"served {len(done)}/{n_req}")
+        require(bool(torch.isfinite(last).all()), "prefill logits not finite")
+        return {"tokens": {r.rid: r.out for r in done},
+                "decode_steps": engine.steps,
+                "decode_ms_per_step": decode_s * 1e3 / engine.steps,
+                "prefill_first_ms": first["ms"],
+                "prefill_ms": float(np.median(warm)),
+                "prefill_warm_ms_readings": warm, "launches": counts,
+                "logits_are_dtensors": placed, "last_logits": last}
+
+    plain = serve(params, None)
+    placed_params = distribute(params, param_shardings(
+        params, param_axes(spec), rules_d, mesh))
+    placed = serve(placed_params, AxisRules(rules_d, mesh))
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    require(placed["logits_are_dtensors"], "the mesh's logits are plain")
+    require(placed["tokens"] == plain["tokens"],
+            "greedy tokens on the mesh differ from the plain engine's")
+    for run in (plain, placed):
+        require(run["launches"]["flash_attention"] == SHARD["serve_launches"]
+                and run["launches"]["wkv6"] == run["launches"][
+                    "cost_reduce"] == 0,
+                f"launches {run['launches']}, expected "
+                f"{SHARD['serve_launches']} flash")
+    logit_gap = float((placed.pop("last_logits")
+                       - plain.pop("last_logits")).abs().max())
+    del placed_params, params
+    for run in (plain, placed):
+        run.pop("tokens")
+        run.pop("logits_are_dtensors")
+    return {"model": spec.name, "layers": spec.n_layers,
+            "rules": {k: v for k, v in rules_d.items() if v is not None},
+            "requests": n_req, "slots": slots, "kv_len": kv_len,
+            "plain": plain, "mesh": placed, "tokens_equal": True,
+            "last_logits_max_abs_gap": logit_gap,
+            "peak_memory_gb": peak_gb}
+
+
+def phase_shard() -> dict:
+    import torch.distributed as dist
+    from repro_torch.launch.mesh import make_mesh
+    mesh = make_mesh((1, 1), ("data", "model"))
+    try:
+        require(dist.get_backend() == "nccl", "the mesh is not on NCCL")
+        train = shard_train(mesh)
+        gc.collect()
+        torch.cuda.empty_cache()
+        serve = shard_serve(mesh)
+    finally:
+        dist.destroy_process_group()
+    return {"mesh": {"shape": [1, 1], "names": ["data", "model"],
+                     "backend": "nccl"},
+            "train": train, "serve": serve}
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--phases", default=",".join(PHASES),
@@ -3035,6 +3302,10 @@ def main(argv=None) -> int:
         emit("train-parity", **phase_train_parity())
     if "ckpt" in phases:
         emit("ckpt", **phase_ckpt())
+    if "shard" in phases:
+        gc.collect()
+        torch.cuda.empty_cache()
+        emit("shard", **phase_shard())
 
     if set(phases) != set(PHASES) or models != list(SERVED):
         print(json.dumps({"ok": False, "partial": phases, "models": models}),

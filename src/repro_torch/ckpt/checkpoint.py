@@ -16,9 +16,12 @@ The port's parameter trees are plain tensors: the logical axes that the JAX
 package keeps in each ``Param`` come to ``save`` as a separate tree
 (``axes=``, e.g. ``{"params": models.param_axes(spec)}``); leaves it does
 not cover are recorded with ``"axes": null``, as the JAX package records
-its raw arrays (optimizer moments, ``step``, ``ef``).  ``restore`` places
-the leaves on one device; placement on a mesh waits for the sharding
-slice.
+its raw arrays (optimizer moments, ``step``, ``ef``).  ``save`` takes
+DTensor leaves (a state placed on a mesh) and writes each whole, the same
+bytes as for the plain state; every rank of the mesh must call it.
+``restore`` places the leaves on one device, or, where ``shardings`` (a
+tree of ``parallel.NamedSharding``) has an entry, as DTensors with those
+placements, as ``jax.device_put`` does.
 """
 from __future__ import annotations
 
@@ -32,6 +35,7 @@ import numpy as np
 import torch
 
 from .._device import resolve_device
+from ..models.common import whole
 
 
 class CheckpointError(Exception):
@@ -80,8 +84,9 @@ def _dtype_name(dtype: torch.dtype) -> str:
 
 
 def _to_storable(t: torch.Tensor) -> np.ndarray:
-    """The leaf on the host as the numpy array the npz holds."""
-    t = t.detach().cpu().contiguous()
+    """The leaf on the host as the numpy array the npz holds (a DTensor
+    whole, gathered from its shards)."""
+    t = whole(t).detach().cpu().contiguous()
     view = _NPZ_VIEW.get(_dtype_name(t.dtype))
     return (t.view(view) if view is not None else t).numpy()
 
@@ -125,7 +130,12 @@ def _unflatten_into(node, values: dict, device: torch.device,
     except KeyError:
         raise TemplateMismatchError(
             path, "present in template, absent from checkpoint") from None
-    return value.to(device)
+    return value if _is_dtensor(value) else value.to(device)
+
+
+def _is_dtensor(t) -> bool:
+    from torch.distributed.tensor import DTensor
+    return isinstance(t, DTensor)
 
 
 def save(ckpt_dir: str, step: int, state: dict, *, axes=None,
@@ -178,11 +188,14 @@ def save(ckpt_dir: str, step: int, state: dict, *, axes=None,
 
 
 def restore(ckpt_dir: str, template: dict, *, step: Optional[int] = None,
-            host_id: int = 0, device=None) -> tuple[dict, int]:
+            host_id: int = 0, device=None,
+            shardings=None) -> tuple[dict, int]:
     """Load into the structure of ``template``; returns (state, step).
     Leaves keep the dtype they were saved in and land on ``device`` (the
-    card unless ``"cpu"``).  Paths the template lacks are not read into
-    the state."""
+    card unless ``"cpu"``), or, where ``shardings`` has a ``NamedSharding``
+    at their path, on its mesh as DTensors with its placements (each rank
+    keeps its own shard).  Paths the template lacks are not read into the
+    state."""
     device = resolve_device(device)
     step = step if step is not None else latest_step(ckpt_dir)
     if step is None:
@@ -201,6 +214,11 @@ def restore(ckpt_dir: str, template: dict, *, step: Optional[int] = None,
             path = k.replace("|", "/")
             values[path] = _from_storable(data[k], dtypes.get(path, ""))
     _validate_manifest(d, values)
+    if shardings is not None:
+        from ..parallel.sharding import NamedSharding, place
+        for k, sh in _flatten(shardings, seq=list):
+            if isinstance(sh, NamedSharding) and k in values:
+                values[k] = place(values[k], sh)
     return _unflatten_into(template, values, device), step
 
 

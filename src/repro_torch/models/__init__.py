@@ -2,11 +2,12 @@
 RWKV6, the Mamba hybrid (jamba), the encoder-decoder (whisper) and the
 vision prefix (internvl2): all ten architectures of ``configs``."""
 from . import layers, lm
-from .common import Initializer, RuntimeCfg
+from .common import AxisRules, Initializer, RuntimeCfg, constrain
 from .convert import params_from_reference
 from .lm import (decode_step, forward, init_cache, init_params, loss_fn,
                  param_axes)
 
-__all__ = ["layers", "lm", "Initializer", "RuntimeCfg", "decode_step",
+__all__ = ["layers", "lm", "AxisRules", "Initializer", "RuntimeCfg",
+           "constrain", "decode_step",
            "forward", "init_cache", "init_params", "loss_fn", "param_axes",
            "params_from_reference"]

@@ -21,8 +21,20 @@ Shapes follow the JAX package so weights carry across leaf by leaf:
   an input that requires grad (``kernels/ops.py``).
 * The Mamba scan (``_ssm_scan``) is plain PyTorch, as the JAX package's is
   plain JAX (``lax.associative_scan``, no Pallas kernel).
+* Every layer takes ``rules`` (``AxisRules``) and constrains its
+  activations by logical axes at the JAX package's places: on DTensors
+  (parameters placed on a ``DeviceMesh`` by ``parallel.sharding``) each
+  ``constrain`` is a redistribute, on plain tensors nothing.  The MoE FFN
+  has the JAX package's expert-parallel branch (all-to-all over the expert
+  axis, ZeRO-3 gathers of the expert weights).
 
-Not ported yet: the expert-parallel (all-to-all) branch of the MoE FFN.
+Where the layers meet DTensor's limits (each costs a gather on a real
+mesh): the MoE routing runs replicated outside the expert-parallel branch
+(no sharding rule for ``searchsorted``); the attention and wkv6 kernels
+replicate the sequence, key and head dims (``kernels/ops.py``); and the
+plain tensors the layers make (mask and position aranges, RoPE
+frequencies, fp32 floors, the online softmax's zeros) are taken as
+replicated (``models.common.on_mesh``).
 """
 from __future__ import annotations
 
@@ -34,11 +46,14 @@ import torch
 import torch.nn.functional as F
 from torch.utils.checkpoint import checkpoint
 
-from .common import Initializer, RuntimeCfg, dt
+from .common import (AxisRules, Initializer, RuntimeCfg, constrain, dt,
+                     einsum, matmul, mesh_of)
 
-# logical axis names of the parameters' dimensions, the JAX package's
+# logical axis names (mapped to mesh axes by parallel.sharding's rules), the
+# JAX package's
 EMB, HEADS, KV, QGRP, HDIM = "embed", "heads", "kv_heads", "q_grp", "head_dim"
 FFN, VOCAB, EXP, LORA = "ffn", "vocab", "experts", "lora"
+BATCH, SEQ, KVSEQ = "act_batch", "act_seq", "act_kv"
 
 
 def cast(x: torch.Tensor, rt: RuntimeCfg) -> torch.Tensor:
@@ -101,13 +116,13 @@ def attn_naive(q, k, v, *, causal: bool, window: Optional[int],
                softcap: Optional[float], q_offset: int = 0) -> torch.Tensor:
     """q [B,Sq,N,G,D], k [B,Sk,N,D], v [B,Sk,N,Dv] -> [B,Sq,N,G,Dv]."""
     scale = 1.0 / math.sqrt(q.shape[-1])
-    s = torch.einsum("bsngd,bknd->bngsk", q, k).float() * scale
+    s = einsum("bsngd,bknd->bngsk", q, k).float() * scale
     if softcap:
         s = softcap * torch.tanh(s / softcap)
     mask = _mask(q.shape[1], k.shape[1], causal, window, q_offset, q.device)
     s = torch.where(mask, s, torch.full_like(s, -1e30))
     p = torch.softmax(s, dim=-1).to(q.dtype)
-    return torch.einsum("bngsk,bknd->bsngd", p, v)
+    return einsum("bngsk,bknd->bsngd", p, v)
 
 
 def attn_chunked(q, k, v, *, causal: bool, window: Optional[int],
@@ -135,7 +150,7 @@ def _flash_chunk(m, l, acc, q, kci, vci, kpos, qpos, sk: int, causal: bool,
                  scale: float) -> tuple:
     """One kv chunk of the online softmax: (m, l, acc) -> their update.
     Masked scores are -1e30 (not -inf), as in the JAX package."""
-    s = torch.einsum("bsngd,bknd->bngsk", q, kci).float() * scale
+    s = einsum("bsngd,bknd->bngsk", q, kci).float() * scale
     if softcap:
         s = softcap * torch.tanh(s / softcap)
     mask = kpos[None, :] < sk
@@ -150,7 +165,7 @@ def _flash_chunk(m, l, acc, q, kci, vci, kpos, qpos, sk: int, causal: bool,
     corr = torch.exp(m - m_new)
     l_new = l * corr + p.sum(-1)
     acc_new = acc * corr[..., None] \
-        + torch.einsum("bngsk,bknd->bngsd", p.to(q.dtype), vci)
+        + einsum("bngsk,bknd->bngsd", p.to(q.dtype), vci)
     return m_new, l_new, acc_new
 
 
@@ -238,16 +253,17 @@ def init_gqa(ini: Initializer, spec, prefix: str = "") -> dict:
 def _kv(p: dict, src: torch.Tensor, rt: RuntimeCfg) -> tuple:
     """k and v projected from ``src`` [B,T,H] (k normed where the layer has
     ``kn``)."""
-    k = torch.einsum("bth,hnd->btnd", src, cast(p["w_k"], rt))
-    v = torch.einsum("bth,hnd->btnd", src, cast(p["w_v"], rt))
+    k = einsum("bth,hnd->btnd", src, cast(p["w_k"], rt))
+    v = einsum("bth,hnd->btnd", src, cast(p["w_v"], rt))
     if p.get("kn") is not None:
         k = rms_norm(p["kn"], k)
     return k, v
 
 
-def gqa_attention(p: dict, x: torch.Tensor, spec, rt: RuntimeCfg, *,
-                  positions=None, window: Optional[int] = None,
-                  causal: bool = True, cross_kv: Optional[torch.Tensor] = None,
+def gqa_attention(p: dict, x: torch.Tensor, spec, rt: RuntimeCfg,
+                  rules: Optional[AxisRules] = None, *, positions=None,
+                  window: Optional[int] = None, causal: bool = True,
+                  cross_kv: Optional[torch.Tensor] = None,
                   cache: Optional[dict] = None) -> tuple:
     """Attention with residual: x [B,S,H] -> (x + attn(x), new cache).
 
@@ -264,9 +280,11 @@ def gqa_attention(p: dict, x: torch.Tensor, spec, rt: RuntimeCfg, *,
     cache that has no ``pos``, q attends to its k and v, unmasked, and the
     cache comes back unchanged."""
     h = rms_norm(p["ln"], x)
-    q = torch.einsum("bsh,hngd->bsngd", h, cast(p["w_q"], rt))
+    h = constrain(h, rules, (BATCH, SEQ, EMB))
+    q = einsum("bsh,hngd->bsngd", h, cast(p["w_q"], rt))
     if p.get("qn") is not None:
         q = rms_norm(p["qn"], q)
+    q = constrain(q, rules, (BATCH, SEQ, KV, QGRP, HDIM))
 
     if cache is not None and "pos" not in cache:  # cached cross-attention
         new_cache = cache
@@ -319,8 +337,8 @@ def gqa_attention(p: dict, x: torch.Tensor, spec, rt: RuntimeCfg, *,
         new_cache = None
         out5 = attn_core(q, k, v, rt, causal=causal, window=window,
                          softcap=spec.attn_softcap)
-    out = torch.einsum("bsngd,ngdh->bsh", out5, cast(p["w_o"], rt))
-    return x + out, new_cache
+    out = einsum("bsngd,ngdh->bsh", out5, cast(p["w_o"], rt))
+    return x + constrain(out, rules, (BATCH, SEQ, EMB)), new_cache
 
 
 # ---------------------------------------------------------------------------
@@ -350,8 +368,9 @@ def init_mla(ini: Initializer, spec, prefix: str = "") -> dict:
     }
 
 
-def mla_attention(p: dict, x: torch.Tensor, spec, rt: RuntimeCfg, *,
-                  positions=None, cache: Optional[dict] = None) -> tuple:
+def mla_attention(p: dict, x: torch.Tensor, spec, rt: RuntimeCfg,
+                  rules: Optional[AxisRules] = None, *, positions=None,
+                  cache: Optional[dict] = None) -> tuple:
     """Multi-head latent attention with residual: x [B,S,H] -> (x + attn(x),
     new cache).
 
@@ -365,11 +384,12 @@ def mla_attention(p: dict, x: torch.Tensor, spec, rt: RuntimeCfg, *,
     (JAX clamps the write instead)."""
     m = spec.mla
     h = rms_norm(p["ln"], x)
-    cq = rms_norm(p["ln_q"], h @ cast(p["w_dq"], rt))
-    qn = torch.einsum("bsr,rnd->bsnd", cq, cast(p["w_uq_n"], rt))
-    qr = torch.einsum("bsr,rnd->bsnd", cq, cast(p["w_uq_r"], rt))
-    ckv_new = rms_norm(p["ln_kv"], h @ cast(p["w_dkv"], rt))
-    kr_new = h @ cast(p["w_kr"], rt)                           # [B,S,rope]
+    h = constrain(h, rules, (BATCH, SEQ, EMB))
+    cq = rms_norm(p["ln_q"], matmul(h, cast(p["w_dq"], rt)))
+    qn = einsum("bsr,rnd->bsnd", cq, cast(p["w_uq_n"], rt))
+    qr = einsum("bsr,rnd->bsnd", cq, cast(p["w_uq_r"], rt))
+    ckv_new = rms_norm(p["ln_kv"], matmul(h, cast(p["w_dkv"], rt)))
+    kr_new = matmul(h, cast(p["w_kr"], rt))                   # [B,S,rope]
     if cache is not None:
         pos = int(cache["pos"])
         s_new = x.shape[1]
@@ -397,15 +417,15 @@ def mla_attention(p: dict, x: torch.Tensor, spec, rt: RuntimeCfg, *,
         new_cache = None
         q_offset = 0
 
-    kn = torch.einsum("btr,rnd->btnd", ckv, cast(p["w_uk"], rt))
-    vv = torch.einsum("btr,rnd->btnd", ckv, cast(p["w_uv"], rt))
+    kn = einsum("btr,rnd->btnd", ckv, cast(p["w_uk"], rt))
+    vv = einsum("btr,rnd->btnd", ckv, cast(p["w_uv"], rt))
     n = kn.shape[2]
     qq = torch.cat([qn, qr], dim=-1)[:, :, :, None, :]        # [B,S,N,1,D]
     kk = torch.cat([kn, kr[:, :, None].expand(-1, -1, n, m.rope_dim)],
                    dim=-1)                                    # [B,T,N,D]
     out5 = attn_core(qq, kk, vv, rt, causal=True, q_offset=q_offset)
-    out = torch.einsum("bsnd,ndh->bsh", out5[:, :, :, 0], cast(p["w_o"], rt))
-    return x + out, new_cache
+    out = einsum("bsnd,ndh->bsh", out5[:, :, :, 0], cast(p["w_o"], rt))
+    return x + constrain(out, rules, (BATCH, SEQ, EMB)), new_cache
 
 
 # ---------------------------------------------------------------------------
@@ -428,14 +448,18 @@ def init_ffn(ini: Initializer, spec, width: Optional[int] = None,
     return p
 
 
-def ffn(p: dict, x: torch.Tensor, spec, rt: RuntimeCfg) -> torch.Tensor:
+def ffn(p: dict, x: torch.Tensor, spec, rt: RuntimeCfg,
+        rules: Optional[AxisRules] = None) -> torch.Tensor:
     h = rms_norm(p["ln"], x)
-    up = h @ cast(p["w_up"], rt)
+    h = constrain(h, rules, (BATCH, SEQ, EMB))
+    up = matmul(h, cast(p["w_up"], rt))
     if "w_gate" in p:
-        act = F.silu(h @ cast(p["w_gate"], rt)) * up
+        act = F.silu(matmul(h, cast(p["w_gate"], rt))) * up
     else:
         act = F.gelu(up, approximate="tanh")     # jax.nn.gelu's default form
-    return x + act @ cast(p["w_down"], rt)
+    act = constrain(act, rules, (BATCH, SEQ, FFN))
+    down = matmul(act, cast(p["w_down"], rt))
+    return x + constrain(down, rules, (BATCH, SEQ, EMB))
 
 
 # ---------------------------------------------------------------------------
@@ -491,7 +515,7 @@ def moe_dispatch(h: torch.Tensor, wr: torch.Tensor, *, E: int, Kk: int,
     entries' expert ``se``, token ``st``, ``rank``, ``keep`` and gate, and
     C."""
     b, s, H = h.shape
-    logits = torch.einsum("bsh,he->bse", h.float(), wr)
+    logits = einsum("bsh,he->bse", h.float(), wr)
     probs = torch.softmax(logits, dim=-1)
     gates, idx = top_k_lowest_first(probs, Kk)
     # maximum, not clamp: at a tie it splits the gradient as JAX does (the
@@ -543,29 +567,176 @@ def moe_combine(eo: torch.Tensor, route: dict, T: int, Kk: int) -> torch.Tensor:
     return out
 
 
-def moe_ffn(p: dict, x: torch.Tensor, spec, rt: RuntimeCfg, *,
+def _experts(dispatched: torch.Tensor, wg, wu, wd) -> torch.Tensor:
+    """The experts' gated FFN over their slots: [E, C, H] -> [E, C, H]."""
+    ea = F.silu(torch.bmm(dispatched, wg)) * torch.bmm(dispatched, wu)
+    return torch.bmm(ea, wd)
+
+
+def _route_and_compute(h, wr, wg, wu, wd, *, E: int, Kk: int,
+                       capacity_factor: float, ep_group=None, ep: int = 1,
+                       gather_groups: tuple = ()) -> torch.Tensor:
+    """Routing, dispatch, the expert products and the combine of the tokens
+    ``h [b, s, H]`` this rank holds: plain tensors, the body the JAX package
+    runs under ``shard_map``.  With ``ep_group`` the expert weights are this
+    rank's ``E / ep`` experts and an all-to-all pair over the group carries
+    every expert's slots to its owner and the outputs back (the EP pattern
+    the STG matcher predicts, Table IV).  ``gather_groups`` (minor mesh axis
+    first) all-gather the weights' dim 1 just in time: ZeRO-3 inside the EP
+    block.  Both collectives are differentiable.  The capacity comes from
+    the local token count."""
+    from torch.distributed import _functional_collectives as fc
+    b, s, H = h.shape
+    for g in gather_groups:
+        wg, wu, wd = (fc.all_gather_tensor_autograd(w, 1, g)
+                      for w in (wg, wu, wd))
+    route = moe_dispatch(h, wr, E=E, Kk=Kk, capacity_factor=capacity_factor)
+    dispatched = route["dispatched"]
+    C = route["C"]
+    if ep_group is not None:
+        # expert group j's slots go to the rank at ep-coordinate j, and come
+        # back from it in the same order
+        e_loc = E // ep
+        recv = fc.all_to_all_single_autograd(
+            dispatched.reshape(ep, e_loc * C * H).contiguous(), None, None,
+            ep_group)
+        dispatched = recv.reshape(ep, e_loc, C, H).transpose(0, 1) \
+            .reshape(e_loc, ep * C, H)
+    eo = _experts(dispatched, wg, wu, wd)
+    if ep_group is not None:
+        send = eo.reshape(e_loc, ep, C, H).transpose(0, 1).contiguous()
+        eo = fc.all_to_all_single_autograd(
+            send.reshape(ep, e_loc * C * H), None, None, ep_group) \
+            .reshape(E, C, H)
+    return moe_combine(eo, route, b * s, Kk).reshape(b, s, H)
+
+
+class _ScaleGrad(torch.autograd.Function):
+    """Identity forward; the backward scales the gradient by ``c``."""
+
+    @staticmethod
+    def forward(ctx, x, c: float):
+        ctx.c = c
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, g):
+        return g * ctx.c, None
+
+
+def _local_block(fn, mesh, args: tuple, in_specs: tuple, out_spec: tuple):
+    """``fn`` over this rank's shards of the DTensors ``args``, laid out by
+    ``in_specs``, its result a DTensor laid out by ``out_spec``: the JAX
+    package's ``shard_map`` with ``check_vma=False``, gradients included.
+    A mesh axis an output spec leaves out claims a replicated result, so
+    the output's gradient is divided by its size on each rank, and an input
+    spec's left-out axes sum their ranks' gradients: shard_map's
+    transpose."""
+    from torch.distributed.tensor import DTensor, Partial
+    from ..parallel.sharding import spec_placements
+    from .common import settle, whole_on_single
+
+    def free(spec):
+        return [(i, n) for i, n in enumerate(mesh.mesh_dim_names)
+                if n not in {a for e in spec if e is not None
+                             for a in (e if isinstance(e, tuple) else (e,))}]
+    locs = []
+    for a, spec in zip(args, in_specs):
+        placements = spec_placements(spec, mesh)
+        grad_pl = list(placements)
+        for i, _ in free(spec):
+            grad_pl[i] = Partial()
+        a = settle(a, placements)
+        for i in range(mesh.ndim):
+            if mesh.size(i) == 1:
+                grad_pl[i] = a.placements[i]
+        locs.append(a.to_local(grad_placements=grad_pl))
+    out = fn(*locs)
+    rep = math.prod(mesh.size(i) for i, _ in free(out_spec))
+    if rep > 1:
+        out = _ScaleGrad.apply(out, 1.0 / rep)
+    return DTensor.from_local(
+        out, mesh, whole_on_single(spec_placements(out_spec, mesh), mesh),
+        run_check=False)
+
+
+def moe_ffn(p: dict, x: torch.Tensor, spec, rt: RuntimeCfg,
+            rules: Optional[AxisRules] = None, *,
             capacity_factor: float = 0.0) -> torch.Tensor:
     """Sort-based top-k MoE with static expert capacity, plus the shared
-    experts, with residual: x [B,S,H] -> x'.  The single-device path of the
-    JAX package's ``moe_ffn``; the expert products are batched matrix
-    products (the JAX package leaves them to XLA as einsums)."""
+    experts, with residual: x [B,S,H] -> x'.  The expert products are
+    batched matrix products (the JAX package leaves them to XLA as einsums).
+
+    On a mesh (DTensor activations), as in the JAX package: where
+    ``rules.mesh`` is set, its expert axis (``rules["experts"]``) has more
+    than one rank and divides E, the block runs on local shards (the JAX
+    package's ``shard_map``): tokens stay on their data shard (and split
+    their sequence over the expert axis where it divides and S > 1; at
+    decode every expert-axis peer routes the same tokens), the experts are
+    sharded over the expert axis, ZeRO-3 over the data axes where H
+    divides, and dispatch and combine are all-to-alls.  Otherwise the
+    routing runs on every rank over all tokens, replicated: DTensor has no
+    sharding rule for ``searchsorted``, so the tokens and the expert
+    weights are gathered there."""
+    from torch.distributed.tensor import DTensor
     mo = spec.moe
     capacity_factor = capacity_factor or rt.moe_capacity
     b, s, H = x.shape
     h = rms_norm(p["ln"], x)
+    h = constrain(h, rules, (BATCH, SEQ, EMB))
+    wr = p["w_router"]
     wg, wu, wd = (cast(p[k], rt) for k in ("w_egate", "w_eup", "w_edown"))
-    route = moe_dispatch(h, p["w_router"], E=mo.n_experts, Kk=mo.top_k,
-                         capacity_factor=capacity_factor)
-    dispatched = route["dispatched"]
-    ea = F.silu(torch.bmm(dispatched, wg)) * torch.bmm(dispatched, wu)
-    eo = torch.bmm(ea, wd)
-    out = moe_combine(eo, route, b * s, mo.top_k).reshape(b, s, H)
-    if "shared" in p:
-        sh = p["shared"]
-        so = (F.silu(h @ cast(sh["w_gate"], rt)) * (h @ cast(sh["w_up"], rt))) \
-            @ cast(sh["w_down"], rt)
-        out = out + so
-    return x + out
+    body = functools.partial(_route_and_compute, E=mo.n_experts, Kk=mo.top_k,
+                             capacity_factor=capacity_factor)
+    mesh = getattr(rules, "mesh", None) if rules is not None else None
+    ep_axis = rules.rules.get("experts") if rules is not None else None
+    sizes = dict(zip(mesh.mesh_dim_names, mesh.shape)) if mesh is not None \
+        else {}
+    shared = [cast(p["shared"][k], rt) for k in ("w_gate", "w_up", "w_down")] \
+        if "shared" in p else []
+
+    def with_shared(h, *w):
+        """The routed experts, then the shared ones added (plain tensors)."""
+        out = body(h, *w[:4])
+        if w[4:]:
+            wsg, wsu, wsd = w[4:]
+            out = out + matmul(F.silu(matmul(h, wsg)) * matmul(h, wsu), wsd)
+        return out
+    if not isinstance(h, DTensor):
+        out = with_shared(h, wr, wg, wu, wd, *shared)
+    elif ep_axis in sizes and mo.n_experts % sizes[ep_axis] == 0 \
+            and sizes[ep_axis] > 1:
+        da = rules.rules.get("act_batch") or ()
+        da = tuple(a for a in (da if isinstance(da, (tuple, list)) else (da,))
+                   if a in sizes)
+        deg = math.prod(sizes[a] for a in da)
+        ep = sizes[ep_axis]
+        da_e = da if len(da) != 1 else da[0]
+        if da and b % deg == 0 and s % ep == 0 and s > 1:
+            bspec = (da_e, ep_axis)
+        elif da and b % deg == 0:
+            bspec = (da_e,)
+        else:
+            bspec = ()
+        gather = da if da and all(w.shape[1] % deg == 0 for w in (wg, wu)) \
+            else ()
+        wspec = (ep_axis, da_e if gather else None)
+        out = _local_block(
+            functools.partial(body, ep_group=mesh.get_group(ep_axis), ep=ep,
+                              gather_groups=tuple(mesh.get_group(a)
+                                                  for a in reversed(gather))),
+            mesh, (h, wr, wg, wu, wd), (bspec, (), wspec, wspec, wspec),
+            bspec)
+        if shared:                     # outside shard_map, as in JAX
+            wsg, wsu, wsd = shared
+            out = out + matmul(F.silu(matmul(h, wsg)) * matmul(h, wsu), wsd)
+    else:
+        # the shared experts run in the same replicated block, so that h's
+        # gradient is summed in the order of the plain path
+        args = (h, wr, wg, wu, wd, *shared)
+        out = _local_block(with_shared, h.device_mesh, args,
+                           ((),) * len(args), ())
+    return x + constrain(out, rules, (BATCH, SEQ, EMB))
 
 
 # ---------------------------------------------------------------------------
@@ -636,9 +807,10 @@ def _ssm_scan(dA: torch.Tensor, dBx: torch.Tensor, h0: torch.Tensor,
     if s % chunk != 0:
         chunk = s
     # a write through ``out=`` has no backward: where autograd records, the
-    # chunks (the same sums) are joined instead
-    joined = torch.is_grad_enabled() and any(
-        t.requires_grad for t in (dA, dBx, h0))
+    # chunks (the same sums) are joined instead, as they are on a mesh,
+    # where a view of a DTensor cannot take a result of other placements
+    joined = (torch.is_grad_enabled() and any(
+        t.requires_grad for t in (dA, dBx, h0))) or mesh_of(dBx) is not None
     hs = None if joined else torch.empty_like(dBx)
     parts = []
     h = h0
@@ -671,7 +843,8 @@ def _softplus(x: torch.Tensor) -> torch.Tensor:
     return torch.logaddexp(x, torch.zeros((), dtype=x.dtype, device=x.device))
 
 
-def mamba_layer(p: dict, x: torch.Tensor, spec, rt: RuntimeCfg, *,
+def mamba_layer(p: dict, x: torch.Tensor, spec, rt: RuntimeCfg,
+                rules: Optional[AxisRules] = None, *,
                 cache: Optional[dict] = None) -> tuple:
     """Selective-SSM mixer with residual: x [B,S,H] -> (x', new cache).
 
@@ -686,17 +859,18 @@ def mamba_layer(p: dict, x: torch.Tensor, spec, rt: RuntimeCfg, *,
     din = ss.expand * H
     dtr = ss.dt_rank or H // 16
     h = rms_norm(p["ln"], x)
-    xz = h @ cast(p["w_in"], rt)
+    h = constrain(h, rules, (BATCH, SEQ, EMB))
+    xz = matmul(h, cast(p["w_in"], rt))
     xs, z = xz[..., :din], xz[..., din:]
 
     prev = cache["conv"] if cache is not None else xs.new_zeros((b, 3, din))
     xpad = torch.cat([prev, xs], dim=1)
     xc = F.silu(_causal_conv(xpad, cast(p["conv"], rt)))
 
-    xdb = xc @ cast(p["w_xdb"], rt)
+    xdb = matmul(xc, cast(p["w_xdb"], rt))
     dt0, Bt, Ct = (xdb[..., :dtr], xdb[..., dtr:dtr + ss.d_state],
                    xdb[..., dtr + ss.d_state:])
-    dtt = _softplus((dt0 @ cast(p["w_dt"], rt)).float())       # [B,S,Din]
+    dtt = _softplus(matmul(dt0, cast(p["w_dt"], rt)).float())       # [B,S,Din]
     A = -torch.exp(p["A_log"].float())                         # [Din, P]
     dA = torch.exp_(dtt[..., None] * A)                        # [B,S,Din,P]
     dBx = (dtt * xc.float())[..., None] * Bt[:, :, None, :].float()
@@ -704,16 +878,16 @@ def mamba_layer(p: dict, x: torch.Tensor, spec, rt: RuntimeCfg, *,
         torch.zeros((b, din, ss.d_state), dtype=torch.float32,
                     device=x.device)
     hs, h_last = _ssm_scan(dA, dBx, h0, chunk=min(s, 256))
-    y = torch.einsum("bsip,bsp->bsi", hs, Ct.float()).to(x.dtype)
+    y = einsum("bsip,bsp->bsi", hs, Ct.float()).to(x.dtype)
     y = y + xc * cast(p["D"], rt)
     y = y * F.silu(z)
-    out = y @ cast(p["w_out"], rt)
+    out = matmul(y, cast(p["w_out"], rt))
     new_cache = None
     if cache is not None:
         cache["conv"].copy_(xpad[:, -3:])
         cache["ssm"].copy_(h_last)
         new_cache = {"conv": cache["conv"], "ssm": cache["ssm"]}
-    return x + out, new_cache
+    return x + constrain(out, rules, (BATCH, SEQ, EMB)), new_cache
 
 
 # ---------------------------------------------------------------------------
@@ -770,27 +944,28 @@ def _wkv_chunk(r, k, v, w, u, state) -> tuple:
     cum = torch.cumsum(lw, dim=1)                          # inclusive
     cum_excl = cum - lw
     # inter-chunk: r_t . (decay-to-t o state), exponent <= 0
-    inter = torch.einsum("bcnd,bnde->bcne", r * torch.exp(cum_excl), state)
+    inter = einsum("bcnd,bnde->bcne", r * torch.exp(cum_excl), state)
     # intra-chunk: s_tj = sum_d r_td k_jd exp(cum_excl_t - cum_j), j < t
     lwc = torch.maximum(lw, lw.new_full((), -80.0 / C))
     cumc = torch.cumsum(lwc, dim=1)
     rt_ = r * torch.exp(cumc - lwc)
     kt = k * torch.exp(-cumc)
-    s = torch.einsum("bcnd,bjnd->bncj", rt_, kt)
+    s = einsum("bcnd,bjnd->bncj", rt_, kt)
     cix = torch.arange(C, device=r.device)
     s = s.masked_fill(cix[:, None] <= cix[None, :], 0.0)
-    intra = torch.einsum("bncj,bjne->bcne", s, v)
+    intra = einsum("bncj,bjne->bcne", s, v)
     # current-token bonus
-    bonus = torch.einsum("bcnd,bcnd,bcne->bcne", r, u[None, None] * k, v)
+    bonus = einsum("bcnd,bcnd,bcne->bcne", r, u[None, None] * k, v)
     out = inter + intra + bonus
     # state update: S' = decay_total o S + sum_j (k_j decay_{j->end})^T v_j
     total = cum[:, -1]                                     # [B,N,D]
     kdec = k * torch.exp(total[:, None] - cum)
-    upd = torch.einsum("bjnd,bjne->bnde", kdec, v)
+    upd = einsum("bjnd,bjne->bnde", kdec, v)
     return out, state * torch.exp(total)[..., None] + upd
 
 
-def rwkv6_layer(p: dict, x: torch.Tensor, spec, rt: RuntimeCfg, *,
+def rwkv6_layer(p: dict, x: torch.Tensor, spec, rt: RuntimeCfg,
+                rules: Optional[AxisRules] = None, *,
                 cache: Optional[dict] = None) -> tuple:
     """Time mix + channel mix with residuals: x [B,S,H] -> (x', new cache).
 
@@ -807,18 +982,19 @@ def rwkv6_layer(p: dict, x: torch.Tensor, spec, rt: RuntimeCfg, *,
     b, s, _ = x.shape
     nh, dh = spec.n_heads, spec.head_dim
     h = rms_norm(p["ln"], x)
+    h = constrain(h, rules, (BATCH, SEQ, EMB))
     shifted = _token_shift(h, cache["shift_tm"] if cache is not None else None)
 
     def mix(nm):
         return h + (shifted - h) * cast(p[f"mu_{nm}"], rt)
 
     def heads(nm):
-        return torch.einsum("bsh,hnd->bsnd", mix(nm), cast(p[f"w_{nm}"], rt))
+        return einsum("bsh,hnd->bsnd", mix(nm), cast(p[f"w_{nm}"], rt))
 
     r, k, v = (heads(nm) for nm in ("r", "k", "v"))
     g = heads("g")
-    d1 = mix("w") @ cast(p["w_dec1"], rt)
-    dec = torch.einsum("bsr,rnd->bsnd", d1, cast(p["w_dec2"], rt)).float()
+    d1 = matmul(mix("w"), cast(p["w_dec1"], rt))
+    dec = einsum("bsr,rnd->bsnd", d1, cast(p["w_dec2"], rt)).float()
     w = torch.exp(-torch.exp(dec))                       # (0,1) decay
 
     cs = min(WKV_CHUNK, s)
@@ -848,7 +1024,8 @@ def rwkv6_layer(p: dict, x: torch.Tensor, spec, rt: RuntimeCfg, *,
             cache["wkv"].copy_(state)
     out = rms_norm(p["gn"], out.to(x.dtype))             # per-head groupnorm
     out = out * F.silu(g)
-    x = x + torch.einsum("bsnd,ndh->bsh", out, cast(p["w_tmo"], rt))
+    tm = einsum("bsnd,ndh->bsh", out, cast(p["w_tmo"], rt))
+    x = x + constrain(tm, rules, (BATCH, SEQ, EMB))
 
     # channel mix
     hc = rms_norm(p["ln_cm"], x)
@@ -856,9 +1033,10 @@ def rwkv6_layer(p: dict, x: torch.Tensor, spec, rt: RuntimeCfg, *,
                              else None)
     mk = hc + (shifted_c - hc) * cast(p["mu_ck"], rt)
     mr = hc + (shifted_c - hc) * cast(p["mu_cr"], rt)
-    kk = torch.square(F.relu(mk @ cast(p["w_ck"], rt)))
-    rr = torch.sigmoid(mr @ cast(p["w_cr"], rt))
-    x = x + (kk @ cast(p["w_cv"], rt)) * rr
+    kk = torch.square(F.relu(matmul(mk, cast(p["w_ck"], rt))))
+    rr = torch.sigmoid(matmul(mr, cast(p["w_cr"], rt)))
+    x = x + constrain(matmul(kk, cast(p["w_cv"], rt)) * rr, rules,
+                      (BATCH, SEQ, EMB))
 
     new_cache = None
     if cache is not None:

@@ -42,8 +42,8 @@ from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
 
 from . import layers as L
 from .._device import resolve_device
-from .common import (AxesInitializer, Initializer, RuntimeCfg,
-                     _tree_map, dt)
+from .common import (AxesInitializer, AxisRules, Initializer, RuntimeCfg,
+                     _tree_map, dt, mesh_of, on_mesh, replicated)
 
 # ---------------------------------------------------------------------------
 # Layer pattern
@@ -199,30 +199,33 @@ def _index(tree, i: int):
 # ---------------------------------------------------------------------------
 
 
-def _apply_slot(p: dict, x, spec, rt, kind: dict, *, positions=None,
+def _apply_slot(p: dict, x, spec, rt, rules, kind: dict, *, positions=None,
                 cache=None, cross_kv=None, cross_p=None, cross_cache=None):
     name = kind["mixer"]
     layer_cache = None if cache is None else cache.get(name)
     if name == "rwkv":
-        x, c = L.rwkv6_layer(p["rwkv"], x, spec, rt, cache=layer_cache)
+        x, c = L.rwkv6_layer(p["rwkv"], x, spec, rt, rules,
+                             cache=layer_cache)
     elif name == "mamba":
-        x, c = L.mamba_layer(p["mamba"], x, spec, rt, cache=layer_cache)
+        x, c = L.mamba_layer(p["mamba"], x, spec, rt, rules,
+                             cache=layer_cache)
     elif spec.block == "mla":
-        x, c = L.mla_attention(p["attn"], x, spec, rt, positions=positions,
-                               cache=layer_cache)
+        x, c = L.mla_attention(p["attn"], x, spec, rt, rules,
+                               positions=positions, cache=layer_cache)
     else:
-        x, c = L.gqa_attention(p["attn"], x, spec, rt, positions=positions,
-                               window=kind["window"], cache=layer_cache)
+        x, c = L.gqa_attention(p["attn"], x, spec, rt, rules,
+                               positions=positions, window=kind["window"],
+                               cache=layer_cache)
     new_cache = {name: c} if c is not None else {}
     if cross_p is not None:
-        x, cc = L.gqa_attention(cross_p, x, spec, rt, cross_kv=cross_kv,
-                                cache=cross_cache)
+        x, cc = L.gqa_attention(cross_p, x, spec, rt, rules,
+                                cross_kv=cross_kv, cache=cross_cache)
         if cache is not None:
             new_cache["cross"] = cc
     if kind["ffn"] == "moe":
-        x = L.moe_ffn(p["moe"], x, spec, rt)
+        x = L.moe_ffn(p["moe"], x, spec, rt, rules)
     elif kind["ffn"] == "ffn":
-        x = L.ffn(p["ffn"], x, spec, rt)
+        x = L.ffn(p["ffn"], x, spec, rt, rules)
     return x, new_cache or None
 
 
@@ -254,12 +257,12 @@ def _remat(fn, rt: RuntimeCfg):
     raise ValueError(f"remat {rt.remat!r}: one of none | full | dots")
 
 
-def _run_encoder(params: dict, frames, spec, rt: RuntimeCfg):
+def _run_encoder(params: dict, frames, spec, rt: RuntimeCfg, rules=None):
     """The encoder over frame embeddings [B, T, H]: unmasked self-attention
     and a dense FFN per layer, then ``ln_enc``."""
     def enc_block(x, p):
-        x, _ = L.gqa_attention(p["attn"], x, spec, rt, causal=False)
-        return L.ffn(p["ffn"], x, spec, rt)
+        x, _ = L.gqa_attention(p["attn"], x, spec, rt, rules, causal=False)
+        return L.ffn(p["ffn"], x, spec, rt, rules)
 
     x = L.cast(frames, rt)
     for i in range(spec.encoder_layers):
@@ -267,16 +270,19 @@ def _run_encoder(params: dict, frames, spec, rt: RuntimeCfg):
     return L.rms_norm(params["ln_enc"], x)
 
 
-def _logits(params: dict, x, spec, rt: RuntimeCfg):
+def _logits(params: dict, x, spec, rt: RuntimeCfg, rules=None):
     x = L.rms_norm(params["ln_f"], x)
-    logits = x @ L.cast(params["lm_head"], rt)
+    x = L.constrain(x, rules, (L.BATCH, L.SEQ, L.EMB))
+    logits = L.matmul(x, L.cast(params["lm_head"], rt))
+    logits = L.constrain(logits, rules, (L.BATCH, L.SEQ, L.VOCAB))
     if spec.final_softcap:
         logits = L._softcap(logits.float(), spec.final_softcap)
     return logits
 
 
-def forward(params: dict, tokens, spec, rt: RuntimeCfg, *, frames=None,
-            vision=None, positions=None) -> torch.Tensor:
+def forward(params: dict, tokens, spec, rt: RuntimeCfg,
+            rules: Optional[AxisRules] = None, *, frames=None, vision=None,
+            positions=None) -> torch.Tensor:
     """Training / prefill forward: tokens [B, S] (on the parameters' device)
     -> logits [B, Sv + S, V].
 
@@ -284,9 +290,23 @@ def forward(params: dict, tokens, spec, rt: RuntimeCfg, *, frames=None,
     dtype and prepended to the token embeddings.  ``frames`` [B, T, H] (an
     encoder's frame embeddings) are required when the spec has an encoder:
     the encoder runs over them and every decoder layer cross-attends to its
-    output."""
+    output.
+
+    Parameters placed on a mesh (DTensors) take plain inputs as
+    replicated, and ``rules`` constrain the activations; the logits are a
+    DTensor then."""
     _require_ported(spec)
+    mesh = mesh_of(params)
+    with on_mesh(mesh):
+        tokens, frames, vision, positions = (
+            replicated(t, mesh) for t in (tokens, frames, vision, positions))
+        return _forward(params, tokens, spec, rt, rules, frames, vision,
+                        positions)
+
+
+def _forward(params, tokens, spec, rt, rules, frames, vision, positions):
     x = L.cast(params["embed"][tokens], rt)
+    x = L.constrain(x, rules, (L.BATCH, L.SEQ, L.EMB))
     if vision is not None:
         x = torch.cat([vision.to(x.dtype), x], dim=1)
     cross_kv = None
@@ -294,11 +314,12 @@ def forward(params: dict, tokens, spec, rt: RuntimeCfg, *, frames=None,
         if frames is None:
             raise ValueError(f"{spec.name!r} has an encoder: forward needs "
                              "frames [B, T, H]")
-        cross_kv = _run_encoder(params, frames, spec, rt)
+        cross_kv = _run_encoder(params, frames, spec, rt, rules)
     prefix_n, period = layer_pattern(spec)
     for l, p in enumerate(params["prefix"]):
         def prefix_block(xc, pc, kind=_slot_kind(spec, l)):
-            return _apply_slot(pc, xc, spec, rt, kind, positions=positions)[0]
+            return _apply_slot(pc, xc, spec, rt, rules, kind,
+                               positions=positions)[0]
         x = _remat(prefix_block, rt)(x, p)
     kinds = [_slot_kind(spec, prefix_n + s) for s in range(period)]
 
@@ -308,26 +329,34 @@ def forward(params: dict, tokens, spec, rt: RuntimeCfg, *, frames=None,
         cross_p = _index(params["cross"], r) if spec.encoder_layers else None
         for s in range(period):
             xc, _ = _apply_slot(_index(params["slots"][s], r), xc, spec, rt,
-                                kinds[s], positions=positions,
+                                rules, kinds[s], positions=positions,
                                 cross_kv=cross_kv, cross_p=cross_p)
         return xc
 
     for r in range(_n_rep(spec)):
         x = _remat(group, rt)(x, r)
-    return _logits(params, x, spec, rt)
+    return _logits(params, x, spec, rt, rules)
 
 
-def loss_fn(params: dict, batch: dict, spec, rt: RuntimeCfg) -> torch.Tensor:
+def loss_fn(params: dict, batch: dict, spec, rt: RuntimeCfg,
+            rules: Optional[AxisRules] = None) -> torch.Tensor:
     """Mean next-token cross entropy of ``batch`` (``tokens`` and ``labels``
     [B, S]; ``frames`` / ``vision`` where the spec takes them): fp32
     ``logsumexp`` minus the gold logit.  A VLM's logits are cut to the
     labelled positions (the vision prefix has no labels).  With
     ``rt.loss_chunk`` dividing S (and shorter), the sum runs over sequence
     chunks in order, each under ``checkpoint``, so that only one chunk's
-    [B, chunk, V] fp32 working set is alive, as the JAX package's scan."""
-    logits = forward(params, batch["tokens"], spec, rt,
+    [B, chunk, V] fp32 working set is alive, as the JAX package's scan.
+    On a mesh the loss is a DTensor; its backward must run under
+    ``models.common.on_mesh`` too (``train.value_and_grad`` does)."""
+    logits = forward(params, batch["tokens"], spec, rt, rules,
                      frames=batch.get("frames"), vision=batch.get("vision"))
-    labels = batch["labels"]
+    mesh = mesh_of(params)
+    with on_mesh(mesh):
+        return _loss(logits, replicated(batch["labels"], mesh), rt)
+
+
+def _loss(logits, labels, rt: RuntimeCfg) -> torch.Tensor:
     if logits.shape[1] != labels.shape[1]:       # VLM: vision positions
         logits = logits[:, -labels.shape[1]:]
     b, s = labels.shape
@@ -342,10 +371,15 @@ def loss_fn(params: dict, batch: dict, spec, rt: RuntimeCfg) -> torch.Tensor:
 
 
 def _ce_sum(logits, labels) -> torch.Tensor:
-    """Sum over [B, S] of logsumexp(logits) - logits[label], in fp32."""
+    """Sum over [B, S] of logsumexp(logits) - logits[label], in fp32.  On
+    a DTensor the gold logits stay [B, S, 1] up to the sum: with the vocab
+    sharded DTensor gathers them as a masked partial sum whose mask has the
+    gather's shape, and a select would drop a dimension from under it."""
     lf = logits.float()
-    gold = torch.gather(lf, -1, labels[..., None].long())[..., 0]
-    return torch.sum(torch.logsumexp(lf, dim=-1) - gold)
+    gold = torch.gather(lf, -1, labels[..., None].long())
+    if mesh_of(logits) is not None:
+        return torch.sum(torch.logsumexp(lf, dim=-1, keepdim=True) - gold)
+    return torch.sum(torch.logsumexp(lf, dim=-1) - gold[..., 0])
 
 
 # ---------------------------------------------------------------------------
@@ -414,8 +448,8 @@ def init_cache(spec, rt: RuntimeCfg, batch: int, kv_len: int, *,
 
 
 @torch.no_grad()
-def decode_step(params: dict, cache: dict, tokens, spec,
-                rt: RuntimeCfg) -> tuple:
+def decode_step(params: dict, cache: dict, tokens, spec, rt: RuntimeCfg,
+                rules: Optional[AxisRules] = None) -> tuple:
     """One decode step: tokens [B, S_new] -> (logits [B, S_new, V], cache).
 
     The cache's tensors (k and v; the RWKV6 and Mamba states) are **updated
@@ -424,13 +458,48 @@ def decode_step(params: dict, cache: dict, tokens, spec,
     repeats before slot s+1 starts (for period 1 that is plain layer order;
     jamba's period of 8 at 16 layers runs layers 0, 8, 1, 9, ...).  With an
     encoder, layer r of a slot cross-attends with ``params["cross"][r]``
-    to its cached cross k and v."""
+    to its cached cross k and v.
+
+    On a mesh (DTensor parameters) the cache must be DTensors on it too,
+    with the layers dimension of a stacked leaf unsharded: a layer's cache
+    is written through a view of its row, and a row of a sharded dimension
+    is a gathered copy (this raises for such a cache)."""
     _require_ported(spec)
+    mesh = mesh_of(params)
+    if mesh is not None:
+        _check_rows_writable(cache["slots"])
+    with on_mesh(mesh):
+        return _decode(params, cache, replicated(tokens, mesh), spec, rt,
+                       rules)
+
+
+def _check_rows_writable(stacks) -> None:
+    from torch.distributed.tensor import DTensor, Shard
+    for t in _leaves(stacks):
+        if isinstance(t, DTensor) and any(
+                isinstance(pl, Shard) and pl.dim == 0 for pl in t.placements):
+            raise ValueError(
+                "decode_step writes each layer's cache through a view of its "
+                "row, and this stacked cache leaf is sharded over its layers "
+                f"dimension ({t.placements}): place it with that dimension "
+                "replicated")
+
+
+def _leaves(tree) -> list:
+    if isinstance(tree, dict):
+        return [t for v in tree.values() for t in _leaves(v)]
+    if isinstance(tree, (list, tuple)):
+        return [t for v in tree for t in _leaves(v)]
+    return [tree]
+
+
+def _decode(params, cache, tokens, spec, rt, rules) -> tuple:
     x = L.cast(params["embed"][tokens], rt)
     prefix_n, period = layer_pattern(spec)
     new_cache: dict = {"prefix": [], "slots": []}
     for l, (p, c) in enumerate(zip(params["prefix"], cache["prefix"])):
-        x, nc = _apply_slot(p, x, spec, rt, _slot_kind(spec, l), cache=c)
+        x, nc = _apply_slot(p, x, spec, rt, rules, _slot_kind(spec, l),
+                            cache=c)
         new_cache["prefix"].append(nc)
 
     for s in range(period):
@@ -446,7 +515,8 @@ def decode_step(params: dict, cache: dict, tokens, spec,
             cross_p = _index(params["cross"], r) if spec.encoder_layers \
                 else None
             x, nc = _apply_slot(_index(params["slots"][s], r), x, spec, rt,
-                                kind, cache=layer_cache, cross_p=cross_p,
+                                rules, kind, cache=layer_cache,
+                                cross_p=cross_p,
                                 cross_cache=layer_cache.get("cross"))
         # the stacked tensors were written in place; ``pos`` (attention)
         # is the last layer's

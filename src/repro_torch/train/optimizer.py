@@ -5,8 +5,11 @@ copy of ``repro.train.optimizer`` in PyTorch.
 Functional, as the JAX package's: ``adamw_update`` returns new parameters
 and a new state and leaves its arguments as they were.  Each leaf's
 temporaries are updated in place, so only about two fp32 copies of the
-largest leaf are alive beside the new state.  ``opt_state_shardings``
-(ZeRO-1) waits for the sharding slice."""
+largest leaf are alive beside the new state.  On a mesh the leaves are
+DTensors and ``opt_state_shardings`` places the moments ZeRO-1 (each
+parameter's spec plus the data axes on its first free dimension that
+divides); the update then runs on the moments' shards, and each new
+parameter is gathered back to its own placements."""
 from __future__ import annotations
 
 import math
@@ -14,6 +17,8 @@ from dataclasses import dataclass
 
 import torch
 
+from ..models.common import _tree_map
+from ..parallel.sharding import NamedSharding, mesh_sizes, param_pspec
 from .tree import leaves, unflatten
 
 
@@ -42,10 +47,12 @@ def schedule(cfg: OptCfg, step) -> torch.Tensor:
 
 
 def init_opt_state(params) -> dict:
-    """fp32 zeros ``m`` and ``v`` shaped like ``params``, and ``step``, an
-    int32 0 on the parameters' device."""
+    """fp32 zeros ``m`` and ``v`` shaped (and, for DTensors, placed) like
+    ``params``, and ``step``, an int32 0 on the parameters' device (a plain
+    tensor: ``parallel.distribute`` places it by ``opt_state_shardings``)."""
     def zeros(p):
-        return torch.zeros(p.shape, dtype=torch.float32, device=p.device)
+        return torch.zeros_like(p, dtype=torch.float32,
+                                memory_format=torch.contiguous_format)
     flat = leaves(params)
     return {"m": unflatten(params, [zeros(p) for p in flat]),
             "v": unflatten(params, [zeros(p) for p in flat]),
@@ -53,8 +60,40 @@ def init_opt_state(params) -> dict:
                                 device=flat[0].device)}
 
 
+def opt_state_shardings(params, axes, rules: dict, mesh, *,
+                        zero1: bool = True,
+                        data_axes: tuple = ("pod", "data")) -> dict:
+    """Moments sharded like params (``param_pspec`` over ``params``' shapes
+    and the logical ``axes``), plus (ZeRO-1) the data axes on the first
+    free dimension that divides by them, where no data axis shards the
+    parameter yet.  The JAX package's specs: padded to the leaf's rank,
+    not trimmed.  Returns ``{"m", "v", "step"}`` of ``NamedSharding``;
+    ``step`` is replicated."""
+    sizes = mesh_sizes(mesh)
+    deg = int(math.prod(sizes[n] for n in data_axes))
+    data_entry = data_axes if len(data_axes) != 1 else data_axes[0]
+
+    def one(p, ax):
+        ndim = len(p.shape)
+        spec = (list(param_pspec(tuple(p.shape), ax, rules, mesh))
+                + [None] * ndim)[:ndim]
+        if zero1:
+            flat_data = [a for e in spec if e
+                         for a in (e if isinstance(e, tuple) else (e,))]
+            if not any(a in flat_data for a in data_axes):
+                for d in range(ndim):
+                    if spec[d] is None and p.shape[d] % deg == 0:
+                        spec[d] = data_entry
+                        break
+        return NamedSharding(mesh, tuple(spec))
+
+    m = _tree_map(one, params, axes)
+    return {"m": m, "v": m, "step": NamedSharding(mesh, ())}
+
+
 def global_norm(grads) -> torch.Tensor:
-    """sqrt of the sum of every leaf's squares, in fp32."""
+    """sqrt of the sum of every leaf's squares, in fp32 (on a mesh each
+    leaf's sum is reduced over its shards)."""
     return torch.sqrt(sum(torch.sum(torch.square(g.float()))
                           for g in leaves(grads)))
 
