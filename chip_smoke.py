@@ -146,6 +146,22 @@ Phases, one JSON line each on standard output:
            Multi-rank behaviour (expert parallelism, real collectives) is
            held on gloo ranks on the CPU (tests/test_torch_multirank.py):
            NCCL takes one rank per device
+  dryrun   the multi-pod dry run (launch/dryrun.py), which runs no kernel:
+           four cells, each ``python -m repro_torch.launch.dryrun`` in a
+           subprocess of its own (each owns a fake process group of 256 or
+           512 ranks), all started together: qwen3-14b train_4k on 16x16
+           (FSDP), deepseek-moe-16b train_4k on 2x16x16 (the
+           expert-parallel all-to-all), minitron-8b decode_32k (the cache
+           sharded over its layers dimension), qwen3-14b prefill_32k
+           (counted at two shallower depths and extrapolated); each record
+           OK with finite counts, printed with its trace seconds.
+           Meanwhile the card check: one training step of the train
+           phase's qwen3-14b (published width, 4 layers, [2, 2048],
+           TRAIN_RT) through the dry run's helper on a one-rank NCCL mesh,
+           under fake tensors and then for real under the same counting
+           mode: FLOPs and bytes equal, the predicted peak within
+           CARD_PEAK_REL of torch.cuda.max_memory_allocated(), and the
+           roofline time beside the measured ms/step
 
 ``--profile`` adds to each serve line a trace of four decode steps and of
 one warm prefill: device-busy time, idle share, top kernels, and the device
@@ -192,6 +208,7 @@ from repro_torch.kernels import ref  # noqa: E402
 from repro_torch.kernels import rwkv6_scan as wkv  # noqa: E402
 from repro_torch.data import DataCfg, TokenPipeline  # noqa: E402
 from repro_torch.kernels import ops  # noqa: E402
+from repro_torch.launch.dryrun import arch_rules  # noqa: E402
 from repro_torch.models import (RuntimeCfg, init_params, lm,  # noqa: E402
                                 param_axes)
 from repro_torch.serve import Engine, Request  # noqa: E402
@@ -215,7 +232,7 @@ TOL = {torch.float32: dict(absolute=2e-5, rms_share=0.0, relative=2e-5),
        torch.bfloat16: dict(absolute=0.0, rms_share=1e-2, relative=2.0 ** -7)}
 
 PHASES = ("build", "kernels", "serve", "sweep", "api", "parity", "analysis",
-          "train", "ckpt", "shard")
+          "train", "ckpt", "shard", "dryrun")
 # the kernels' wrapper modules, each with its launch count, and their sources
 COUNTERS = {"flash_attention": fa, "wkv6": wkv, "cost_reduce": cr}
 SOURCES = {"flash_attention": "src/repro_torch/kernels/csrc/flash_attention.cu",
@@ -2968,22 +2985,6 @@ SHARD = dict(train_arch=CKPT["arch"], train_widths=CKPT["widths"],
 SHARD_LOSS_REL = 1e-6         # mesh vs plain losses, relative, each step
 
 
-def mesh_rules(spec, mesh, sp: bool = True) -> dict:
-    """The logical rules the JAX package's dry run picks for ``spec``
-    (``launch/dryrun.py:arch_rules``): kv heads over ``model`` where they
-    divide (not MLA), FSDP for an MoE model or where attention cannot shard
-    over ``model``."""
-    from repro_torch.launch.mesh import data_axes_of
-    from repro_torch.parallel import logical_rules
-    model = mesh.size(mesh.mesh_dim_names.index("model"))
-    kv_ok = spec.n_kv_heads % model == 0 and spec.block not in ("mla",)
-    grp_ok = max(1, spec.n_heads // max(1, spec.n_kv_heads)) % model == 0
-    fsdp = spec.moe is not None or not (
-        kv_ok or grp_ok or spec.block in ("mla", "rwkv6"))
-    return logical_rules(sp=sp, fsdp=fsdp, shard_kv_heads=kv_ok,
-                         data_axes=data_axes_of(mesh))
-
-
 def shard_train(mesh) -> dict:
     """Six steps plain, then six on the mesh from the same seed; then the
     placed state through save and ``restore(shardings=)``."""
@@ -3003,7 +3004,8 @@ def shard_train(mesh) -> dict:
     # the training launcher's runtime and optimizer (launch/train.py)
     rt = RuntimeCfg(attention_impl="chunked", attn_chunk=SHARD["seq"])
     opt_cfg = OptCfg(lr=1e-3, warmup=5)
-    rules_d = mesh_rules(spec, mesh)
+    rules_d = arch_rules(dataclasses.replace(get_arch(SHARD["train_arch"]),
+                                             spec=spec), mesh)
     axes = param_axes(spec)
     pipe = TokenPipeline(DataCfg(global_batch=SHARD["batch"],
                                  seq_len=SHARD["seq"], vocab=spec.vocab,
@@ -3111,7 +3113,7 @@ def shard_serve(mesh) -> dict:
     require((spec.n_layers, spec.d_model, spec.d_ff, spec.vocab)
             == SERVED[name]["widths"], f"not the published {name}")
     rt = RuntimeCfg()                    # bf16, attention through the kernel
-    rules_d = mesh_rules(spec, mesh)
+    rules_d = arch_rules(get_arch(name), mesh)
     gc.collect()
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
@@ -3199,6 +3201,165 @@ def phase_shard() -> dict:
     return {"mesh": {"shape": [1, 1], "names": ["data", "model"],
                      "backend": "nccl"},
             "train": train, "serve": serve}
+
+
+# ---------------------------------------------------------------------------
+# dryrun: the multi-pod dry run's cells, and its accounting against a real
+# step on the card
+# ---------------------------------------------------------------------------
+
+# (arch, shape, multi-pod): FSDP on 16x16; the expert-parallel all-to-all
+# on 2x16x16; the cache sharded over its layers dimension (the JAX
+# package's heuristic: minitron's 32 layers divide the data degree 16); a
+# prefill at 32k tokens (counted by two shallower runs, dryrun.REPEATS)
+DRYRUN_CELLS = (("qwen3-14b", "train_4k", False),
+                ("deepseek-moe-16b", "train_4k", True),
+                ("minitron-8b", "decode_32k", False),
+                ("qwen3-14b", "prefill_32k", False))
+DRYRUN_TIMEOUT_S = 900
+# the card check: the train phase's qwen3-14b (published width, its depth,
+# TRAIN_RT), one step of [TRAIN_BATCH, TRAIN_SEQ]; the dry run's predicted
+# peak within this share of torch.cuda.max_memory_allocated()
+CARD_PEAK_REL = 0.05
+
+
+def dryrun_cells(out_dir: str) -> list:
+    """Start one ``python -m repro_torch.launch.dryrun`` per cell, all at
+    once (each owns its fake process group), writing under ``out_dir``;
+    returns [(cell, process, output path)]."""
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"), OMP_NUM_THREADS="1")
+    started = []
+    for arch, shape, multipod in DRYRUN_CELLS:
+        out = os.path.join(out_dir, f"{arch}_{shape}_{int(multipod)}.jsonl")
+        cmd = [sys.executable, "-m", "repro_torch.launch.dryrun", "--arch",
+               arch, "--shape", shape, "--out", out] \
+            + (["--multipod"] if multipod else [])
+        started.append(((arch, shape, multipod), subprocess.Popen(
+            cmd, env=env, cwd=ROOT, stdout=subprocess.DEVNULL,
+            stderr=subprocess.PIPE, text=True), out))
+    return started
+
+
+def dryrun_records(started: list) -> list:
+    """Each started cell's record, once its process ended: status OK, and
+    the counts positive and finite."""
+    records = []
+    for (arch, shape, multipod), proc, out in started:
+        try:
+            _, err = proc.communicate(timeout=DRYRUN_TIMEOUT_S)
+        except subprocess.TimeoutExpired:
+            proc.kill()
+            proc.communicate()
+            raise
+        require(proc.returncode == 0,
+                f"dryrun {arch} {shape}: exit {proc.returncode}: "
+                f"{err[-2000:]}")
+        with open(out) as f:
+            rec = json.loads(f.read().splitlines()[-1])
+        require(rec["status"] == "OK",
+                f"dryrun {arch} {shape}: {rec['status']} "
+                f"{rec.get('error')} {rec.get('trace', '')[-1500:]}")
+        for key in ("flops_per_dev", "bytes_per_dev",
+                    "peak_memory_per_dev_gb"):
+            require(np.isfinite(rec[key]) and rec[key] > 0,
+                    f"dryrun {arch} {shape}: {key} {rec[key]}")
+        records.append({k: rec[k] for k in (
+            "arch", "shape", "mesh", "chips", "flops_per_dev",
+            "bytes_per_dev", "collective_bytes_per_dev", "collectives",
+            "peak_memory_per_dev_gb", "args_gb", "temp_gb", "t_compute_s",
+            "t_memory_s", "t_collective_s", "dominant", "useful_flops_ratio",
+            "trace_wall_s")} | {"repeats": rec.get("repeats"),
+                               "stage_step_ms":
+                               rec["stage_predict"].get("step_ms"),
+                               "stage_peak_gb":
+                               rec["stage_predict"].get("peak_gb")})
+    return records
+
+
+def card_check() -> dict:
+    """One training step of the train phase's model through the dry run's
+    helper on a one-rank mesh of the card: under fake tensors, then for
+    real under the same counting mode.  FLOPs and bytes must be equal, the
+    predicted peak within ``CARD_PEAK_REL`` of the allocator's; the
+    roofline time beside the measured ms/step (the step again, uncounted,
+    one warm-up and three timed)."""
+    import torch.distributed as dist
+    from repro_torch.configs import ShapeSpec
+    from repro_torch.launch import dryrun
+    from repro_torch.launch.mesh import make_mesh
+    name = "qwen3-14b"
+    arch = get_arch(name)
+    require((arch.spec.n_layers, arch.spec.d_model, arch.spec.d_ff,
+             arch.spec.vocab) == TRAINED[name]["widths"],
+            f"not the published {name}")
+    arch = dataclasses.replace(arch, spec=dataclasses.replace(
+        arch.spec, n_layers=TRAINED[name]["layers"]))
+    shape = ShapeSpec("card_check", TRAIN_SEQ, TRAIN_BATCH, "train")
+    rt = RuntimeCfg(**TRAIN_RT)
+    mesh = make_mesh((1, 1), ("data", "model"))
+    try:
+        fake, _ = dryrun.lower_on(arch, shape, mesh, rt=rt)
+        gc.collect()
+        torch.cuda.empty_cache()
+        base = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        cell = dryrun.prepare(arch, shape, mesh, rt=rt, fake=False)
+        real = dryrun.count(cell)
+        measured = torch.cuda.max_memory_allocated() - base
+        cell.step(*cell.args)                      # warm-up, uncounted
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(3):
+            cell.step(*cell.args)
+        torch.cuda.synchronize()
+        ms = (time.perf_counter() - t0) * 1e3 / 3
+        del cell
+    finally:
+        dist.destroy_process_group()
+    for key in ("flops", "bytes", "collectives"):
+        require(fake[key] == real[key],
+                f"card check: {key} fake {fake[key]} != real {real[key]}")
+    peak_rel = abs(fake["peak_bytes"] - measured) / measured
+    require(peak_rel <= CARD_PEAK_REL,
+            f"card check: predicted peak {fake['peak_bytes']} B vs "
+            f"measured {measured} B ({peak_rel:.4f} > {CARD_PEAK_REL})")
+    t_compute = fake["flops"] / dryrun.PEAK_FLOPS
+    t_memory = fake["bytes"] / dryrun.HBM_BW
+    roofline_ms = max(t_compute, t_memory) * 1e3
+    return {"arch": name, "layers": TRAINED[name]["layers"],
+            "batch": [TRAIN_BATCH, TRAIN_SEQ], "runtime": TRAIN_RT,
+            "flops": fake["flops"], "bytes": fake["bytes"],
+            "flops_equal": True, "bytes_equal": True,
+            "predicted_peak_bytes": fake["peak_bytes"],
+            "args_bytes": fake["args_bytes"],
+            "counted_real_peak_bytes": real["peak_bytes"],
+            "measured_peak_bytes": measured,
+            "peak_rel_err": peak_rel, "peak_limit": CARD_PEAK_REL,
+            "t_compute_ms": t_compute * 1e3, "t_memory_ms": t_memory * 1e3,
+            "roofline_ms": roofline_ms, "ms_per_step": ms,
+            "ms_over_roofline": ms / roofline_ms,
+            "fake_trace_s": fake["trace_wall_s"],
+            "real_counted_s": real["trace_wall_s"]}
+
+
+def phase_dryrun() -> dict:
+    """The dry run's cells in subprocesses (started first, on the host's
+    cores), the card check on the card meanwhile, then the cells'
+    records."""
+    import tempfile
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory(prefix="dryrun_") as out_dir:
+        started = dryrun_cells(out_dir)
+        try:
+            check = card_check()
+            records = dryrun_records(started)
+        finally:
+            for _, proc, _ in started:    # stop what is left after a failure
+                if proc.poll() is None:
+                    proc.kill()
+                    proc.wait()
+    return {"cells": records, "card_check": check,
+            "seconds": time.perf_counter() - t0}
 
 
 def main(argv=None) -> int:
@@ -3306,6 +3467,10 @@ def main(argv=None) -> int:
         gc.collect()
         torch.cuda.empty_cache()
         emit("shard", **phase_shard())
+    if "dryrun" in phases:
+        gc.collect()
+        torch.cuda.empty_cache()
+        emit("dryrun", **phase_dryrun())
 
     if set(phases) != set(PHASES) or models != list(SERVED):
         print(json.dumps({"ok": False, "partial": phases, "models": models}),

@@ -78,4 +78,8 @@ def make_production_mesh(*, multi_pod: bool = False, device=None):
 
 
 def data_axes_of(mesh) -> tuple:
-    return tuple(a for a in mesh.mesh_dim_names if a in ("pod", "data"))
+    """The data axes of a ``DeviceMesh``, or of a mapping of axis name to
+    size (a mesh no process group backs)."""
+    names = mesh.mesh_dim_names if hasattr(mesh, "mesh_dim_names") \
+        else tuple(mesh)
+    return tuple(a for a in names if a in ("pod", "data"))

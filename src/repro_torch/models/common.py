@@ -28,10 +28,13 @@ PyTree = Any
 
 @dataclass(frozen=True)
 class RuntimeCfg:
-    """Runtime knobs orthogonal to the architecture itself.  The JAX
-    package's fields that only sharding and the dry run read (``scan_layers``,
-    ``sp``, ``zero1``, ``grad_accum``, ``logical_rules``) come back with
-    those slices; ``train.make_train_step`` takes ``grad_accum`` itself."""
+    """Runtime knobs orthogonal to the architecture itself; the JAX
+    package's fields under its names.  ``sp``, ``zero1`` and ``grad_accum``
+    are read by the dry run (``launch.dryrun``), which passes them to the
+    sharding rules, ``train.opt_state_shardings`` and
+    ``train.make_train_step``.  ``scan_layers`` and ``logical_rules`` are
+    read by nothing, in the JAX package as here: the port loops over the
+    layers of a stack."""
     param_dtype: str = "bfloat16"
     compute_dtype: str = "bfloat16"
     # "cuda": the hand-written kernels, forward only (their plain versions
@@ -42,8 +45,13 @@ class RuntimeCfg:
     attn_chunk: int = 1024              # kv-chunk for online-softmax attention
     attn_q_block: bool = True           # block queries by attn_chunk too
     remat: str = "none"                 # none | full | dots
+    scan_layers: bool = True
+    sp: bool = True                     # sequence-parallel activation layout
+    zero1: bool = True                  # shard optimizer state over data axes
+    grad_accum: int = 1
     loss_chunk: int = 0                 # >0: CE loss over seq chunks
     moe_capacity: float = 1.25          # expert capacity factor
+    logical_rules: tuple = ()           # overrides for logical->mesh mapping
 
 
 def dt(name) -> torch.dtype:
@@ -244,6 +252,25 @@ def as_global(local: torch.Tensor, mesh, placements, shape):
                               stride=tuple(reversed(stride)))
 
 
+def local_shape_and_offset(shape, mesh, placements) -> tuple:
+    """(shape, offset) of this rank's shard of a tensor of global ``shape``
+    laid out on ``mesh`` by ``placements``: DTensor's even split (chunks of
+    ceil(n / ranks), the last ones shorter or empty), nested in mesh order.
+    Plain Python on the mesh coordinate, so it runs under
+    ``FakeTensorMode`` too."""
+    from torch.distributed.tensor import Shard
+    shape, offset = list(shape), [0] * len(shape)
+    coord = mesh.get_coordinate()
+    for i, pl in enumerate(placements):
+        if isinstance(pl, Shard):
+            n, k = shape[pl.dim], mesh.size(i)
+            step = -(-n // k)
+            lo = min(step * coord[i], n)
+            shape[pl.dim] = min(lo + step, n) - lo
+            offset[pl.dim] += lo
+    return tuple(shape), tuple(offset)
+
+
 def replicated(t, mesh):
     """A plain tensor ``t`` (tokens, labels, positions, frames, which every
     rank holds whole) as a replicated DTensor on ``mesh``; a DTensor, None,
@@ -254,6 +281,89 @@ def replicated(t, mesh):
         return t
     return DTensor.from_local(t, mesh, [Replicate()] * mesh.ndim,
                               run_check=False)
+
+
+def embed_rows(table: torch.Tensor, ids: torch.Tensor) -> torch.Tensor:
+    """``table[ids]``: the rows of a [V, H] table for integer ids.  On a mesh
+    the lookup runs on local shards, as Megatron's vocab-parallel
+    embedding, and not through DTensor's rules for indexing by a sharded
+    index (torch 2.11's fail: the backward's ``index_put`` where the ids are
+    sharded over one mesh axis, the lookup itself where over two).  The
+    table keeps its vocab shards and gathers the rest (FSDP's embed dim);
+    each rank looks up the ids in its vocab range and gives zeros for the
+    others, so the result is a partial sum over the vocab's mesh axes and
+    is sharded as the ids elsewhere; the table's gradient is summed over
+    the ids' mesh axes."""
+    from torch.distributed.tensor import DTensor, Partial, Replicate, Shard
+    if not isinstance(table, DTensor):
+        return table[ids]
+    mesh = table.device_mesh
+    ids = replicated(ids, mesh)
+    t_pl, i_pl, grad_pl, out_pl = [], [], [], []
+    for i, (tp, ip) in enumerate(zip(table.placements, ids.placements)):
+        if mesh.size(i) == 1:          # every layout is the whole tensor
+            t_pl.append(tp)
+            i_pl.append(ip)
+            grad_pl.append(tp)
+            out_pl.append(Replicate())
+        elif isinstance(tp, Shard) and tp.dim == 0:          # vocab
+            t_pl.append(tp)
+            i_pl.append(Replicate())
+            grad_pl.append(tp)
+            out_pl.append(Partial())
+        else:
+            t_pl.append(Replicate())
+            i_pl.append(ip)
+            grad_pl.append(Partial() if isinstance(ip, Shard)
+                           else Replicate())
+            out_pl.append(ip)
+    table, ids = settle(table, t_pl), settle(ids, i_pl)
+    local, idx = table.to_local(grad_placements=grad_pl), ids.to_local()
+    if local.shape[0] == table.shape[0]:                     # all the vocab
+        out = local[idx]
+    else:
+        _, offset = local_shape_and_offset(table.shape, mesh,
+                                           table.placements)
+        rel = idx - offset[0]
+        inside = (rel >= 0) & (rel < local.shape[0])
+        out = local[rel.clamp(0, local.shape[0] - 1)] \
+            .masked_fill(~inside[..., None], 0)
+    return as_global(out, mesh, out_pl,
+                     tuple(ids.shape) + tuple(table.shape[1:]))
+
+
+def _along(t: torch.Tensor, dim: int, fn, size: int) -> torch.Tensor:
+    """``fn`` of the DTensor ``t``'s local shard, ``dim`` gathered first, as
+    a DTensor whose ``dim`` has ``size`` entries (differentiable: the
+    backward runs on the local shards too)."""
+    from torch.distributed.tensor import Replicate, Shard
+    t = settle(t, [Replicate() if isinstance(pl, Shard) and pl.dim == dim
+                   else pl for pl in t.placements])
+    shape = list(t.shape)
+    shape[dim] = size
+    return as_global(fn(t.to_local()), t.device_mesh, t.placements, shape)
+
+
+def pad_end(t: torch.Tensor, dim: int, n: int) -> torch.Tensor:
+    """``t`` with ``n`` zeros appended along ``dim``.  On a mesh the pad runs
+    on local shards, ``dim`` gathered first (torch 2.11's sharding rule for
+    a pad of a sharded DTensor fails)."""
+    from torch.distributed.tensor import DTensor
+    widths = (0, 0) * (t.dim() - 1 - dim) + (0, n)
+    if not isinstance(t, DTensor):
+        return torch.nn.functional.pad(t, widths)
+    return _along(t, dim, lambda x: torch.nn.functional.pad(x, widths),
+                  t.shape[dim] + n)
+
+
+def cumsum(t: torch.Tensor, dim: int) -> torch.Tensor:
+    """``torch.cumsum``.  On a mesh on local shards, ``dim`` gathered first
+    (the backward flips, and torch 2.11 has no sharding rule for
+    ``flip``)."""
+    from torch.distributed.tensor import DTensor
+    if not isinstance(t, DTensor):
+        return torch.cumsum(t, dim=dim)
+    return _along(t, dim, lambda x: torch.cumsum(x, dim=dim), t.shape[dim])
 
 
 _ON_MESH = [0]          # depth of on_mesh scopes entered with a mesh

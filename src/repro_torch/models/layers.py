@@ -46,8 +46,8 @@ import torch
 import torch.nn.functional as F
 from torch.utils.checkpoint import checkpoint
 
-from .common import (AxisRules, Initializer, RuntimeCfg, constrain, dt,
-                     einsum, matmul, mesh_of)
+from .common import (AxisRules, Initializer, RuntimeCfg, constrain, cumsum,
+                     dt, einsum, matmul, mesh_of, pad_end)
 
 # logical axis names (mapped to mesh axes by parallel.sharding's rules), the
 # JAX package's
@@ -183,8 +183,7 @@ def _attn_flash(q, k, v, *, causal: bool, window: Optional[int],
     nchunks = -(-sk // chunk)
     pad = nchunks * chunk - sk
     if pad:
-        k = F.pad(k, (0, 0, 0, 0, 0, pad))
-        v = F.pad(v, (0, 0, 0, 0, 0, pad))
+        k, v = pad_end(k, 1, pad), pad_end(v, 1, pad)
     dv = v.shape[-1]
     scale = 1.0 / math.sqrt(d)
     qpos = torch.arange(sq, device=q.device) + q_offset
@@ -941,13 +940,13 @@ def _wkv_chunk(r, k, v, w, u, state) -> tuple:
     for the factorisation only.  The state's decay uses the true value."""
     C = r.shape[1]
     lw = torch.log(torch.maximum(w, w.new_full((), 1e-30)))  # [B,C,N,D], true
-    cum = torch.cumsum(lw, dim=1)                          # inclusive
+    cum = cumsum(lw, 1)                                    # inclusive
     cum_excl = cum - lw
     # inter-chunk: r_t . (decay-to-t o state), exponent <= 0
     inter = einsum("bcnd,bnde->bcne", r * torch.exp(cum_excl), state)
     # intra-chunk: s_tj = sum_d r_td k_jd exp(cum_excl_t - cum_j), j < t
     lwc = torch.maximum(lw, lw.new_full((), -80.0 / C))
-    cumc = torch.cumsum(lwc, dim=1)
+    cumc = cumsum(lwc, 1)
     rt_ = r * torch.exp(cumc - lwc)
     kt = k * torch.exp(-cumc)
     s = einsum("bcnd,bjnd->bncj", rt_, kt)

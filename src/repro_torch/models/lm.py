@@ -43,7 +43,8 @@ from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
 from . import layers as L
 from .._device import resolve_device
 from .common import (AxesInitializer, AxisRules, Initializer, RuntimeCfg,
-                     _tree_map, dt, mesh_of, on_mesh, replicated)
+                     _tree_map, dt, embed_rows, local_shape_and_offset,
+                     mesh_of, on_mesh, replicated)
 
 # ---------------------------------------------------------------------------
 # Layer pattern
@@ -305,7 +306,7 @@ def forward(params: dict, tokens, spec, rt: RuntimeCfg,
 
 
 def _forward(params, tokens, spec, rt, rules, frames, vision, positions):
-    x = L.cast(params["embed"][tokens], rt)
+    x = L.cast(embed_rows(params["embed"], tokens), rt)
     x = L.constrain(x, rules, (L.BATCH, L.SEQ, L.EMB))
     if vision is not None:
         x = torch.cat([vision.to(x.dtype), x], dim=1)
@@ -460,41 +461,65 @@ def decode_step(params: dict, cache: dict, tokens, spec, rt: RuntimeCfg,
     encoder, layer r of a slot cross-attends with ``params["cross"][r]``
     to its cached cross k and v.
 
-    On a mesh (DTensor parameters) the cache must be DTensors on it too,
-    with the layers dimension of a stacked leaf unsharded: a layer's cache
-    is written through a view of its row, and a row of a sharded dimension
-    is a gathered copy (this raises for such a cache)."""
+    On a mesh (DTensor parameters) the cache must be DTensors on it too.  A
+    layer's cache is a view of its row of each stacked leaf, except where
+    the leaf is sharded over its layers dimension (the JAX package's cache
+    heuristic does that where the depth divides the data degree): there a
+    row is not a view but a copy, broadcast from the ranks that hold it,
+    and after the layer those ranks write it back into their shard.  The
+    stack is still updated in place, through its local shards."""
     _require_ported(spec)
     mesh = mesh_of(params)
-    if mesh is not None:
-        _check_rows_writable(cache["slots"])
     with on_mesh(mesh):
         return _decode(params, cache, replicated(tokens, mesh), spec, rt,
                        rules)
 
 
-def _check_rows_writable(stacks) -> None:
+def _layer_sharded(t) -> bool:
+    """Whether ``t`` is a DTensor sharded over its dimension 0."""
     from torch.distributed.tensor import DTensor, Shard
-    for t in _leaves(stacks):
-        if isinstance(t, DTensor) and any(
-                isinstance(pl, Shard) and pl.dim == 0 for pl in t.placements):
-            raise ValueError(
-                "decode_step writes each layer's cache through a view of its "
-                "row, and this stacked cache leaf is sharded over its layers "
-                f"dimension ({t.placements}): place it with that dimension "
-                "replicated")
+    return isinstance(t, DTensor) and any(
+        isinstance(pl, Shard) and pl.dim == 0 for pl in t.placements)
 
 
-def _leaves(tree) -> list:
-    if isinstance(tree, dict):
-        return [t for v in tree.values() for t in _leaves(v)]
-    if isinstance(tree, (list, tuple)):
-        return [t for v in tree for t in _leaves(v)]
-    return [tree]
+def _local_rows(t) -> tuple:
+    """(this rank's shard of the layer-sharded ``t``, its first row)."""
+    _, offset = local_shape_and_offset(t.shape, t.device_mesh, t.placements)
+    return t.to_local(), offset[0]
+
+
+def _row(t, r: int):
+    """Row ``r`` of a stacked cache leaf: a view, or for a leaf sharded over
+    its layers dimension a copy, replicated where the stack was sharded:
+    the ranks that hold the row contribute it and the others zeros to a
+    sum over those mesh dimensions."""
+    if not _layer_sharded(t):
+        return t[r]
+    from torch.distributed.tensor import DTensor, Partial, Replicate, Shard
+    local, lo = _local_rows(t)
+    row = local[r - lo] if lo <= r < lo + local.shape[0] else \
+        local.new_zeros(local.shape[1:])
+    pl = [Partial() if isinstance(p, Shard) and p.dim == 0 else
+          Shard(p.dim - 1) if isinstance(p, Shard) else p
+          for p in t.placements]
+    row = DTensor.from_local(row, t.device_mesh, pl, run_check=False,
+                             shape=t.shape[1:], stride=t.stride()[1:])
+    return row.redistribute(t.device_mesh, [
+        Replicate() if isinstance(p, Partial) else p for p in pl])
+
+
+def _put_row(t, r: int, row) -> None:
+    """Write the layer-sharded leaf ``t``'s row ``r`` back from ``row``
+    (``_row``'s copy, updated by the layer) on the ranks that hold it."""
+    if not _layer_sharded(t):
+        return
+    local, lo = _local_rows(t)
+    if lo <= r < lo + local.shape[0]:
+        local[r - lo].copy_(row.to_local())
 
 
 def _decode(params, cache, tokens, spec, rt, rules) -> tuple:
-    x = L.cast(params["embed"][tokens], rt)
+    x = L.cast(embed_rows(params["embed"], tokens), rt)
     prefix_n, period = layer_pattern(spec)
     new_cache: dict = {"prefix": [], "slots": []}
     for l, (p, c) in enumerate(zip(params["prefix"], cache["prefix"])):
@@ -511,13 +536,17 @@ def _decode(params, cache, tokens, spec, rt, rules) -> tuple:
         nc = stack
         for r in range(_n_rep(spec)):
             layer_cache = _tree_map(
-                lambda t: t[r] if isinstance(t, torch.Tensor) else t, stack)
+                lambda t: _row(t, r) if isinstance(t, torch.Tensor) else t,
+                stack)
             cross_p = _index(params["cross"], r) if spec.encoder_layers \
                 else None
             x, nc = _apply_slot(_index(params["slots"][s], r), x, spec, rt,
                                 rules, kind, cache=layer_cache,
                                 cross_p=cross_p,
                                 cross_cache=layer_cache.get("cross"))
+            _tree_map(lambda t, row: _put_row(t, r, row)
+                      if isinstance(t, torch.Tensor) else None,
+                      stack, layer_cache)
         # the stacked tensors were written in place; ``pos`` (attention)
         # is the last layer's
         new_cache["slots"].append(_tree_map(

@@ -100,8 +100,16 @@ def test_checkpoint_of_a_placed_state(results):
 
 
 def test_what_must_raise_on_the_mesh(results):
+    """The production mesh on 8 ranks and a spec out of mesh order raise;
+    a decode cache sharded over its layers dimension (the JAX package's
+    heuristic where the depth divides the data degree) no longer does: six
+    greedy steps through it give the replicated cache's tokens, logits and
+    cache, bit for bit."""
     d = _ok(results, "refusals")
     assert "needs a process group of 256 ranks; this one has 8" \
         in d["production"], d
     assert "out of the mesh's axis order" in d["order"], d
-    assert "sharded over its layers dimension" in d["rows"], d
+    rows = d["rows"]
+    assert rows["layer_sharded_leaves"] == 2, rows      # k and v
+    assert rows["tokens_equal"] and rows["logits_equal"], rows
+    assert rows["cache_equal"], rows

@@ -305,16 +305,13 @@ def check_checkpoint(mesh, tmp: str, rank: int):
 
 
 def check_refusals(mesh):
-    """What must raise on a real mesh: the production mesh on a world of 8,
-    a spec tuple out of mesh order, and decode through a cache whose stack
-    is sharded over its layers dimension (the reference's cache heuristic
-    does that where the depth divides)."""
-    import dataclasses
-    from repro_torch.configs import get
+    """What must raise on a real mesh: the production mesh on a world of 8
+    and a spec tuple out of mesh order.  And what decodes: a cache whose
+    stacks the JAX package's heuristic shards over their layers dimension
+    (``dryrun._cache_shardings(buggy=True)``, which does that where the
+    depth divides the data degree)."""
     from repro_torch.launch.mesh import make_production_mesh
-    from repro_torch.models import RuntimeCfg, init_cache, init_params, lm
-    from repro_torch.parallel import cache_shardings, distribute, \
-        spec_placements
+    from repro_torch.parallel import spec_placements
     out = {}
     try:
         make_production_mesh()
@@ -326,26 +323,58 @@ def check_refusals(mesh):
         out["order"] = "accepted"
     except ValueError as e:
         out["order"] = str(e)
-    # 2 layers: a stack whose depth divides over data = 2
+    out["rows"] = check_layer_sharded_decode(mesh)
+    return out
+
+
+def check_layer_sharded_decode(mesh):
+    """Six greedy decode steps through a cache whose stacks are sharded over
+    their layers dimension (2 layers over data = 2) against the same steps
+    through a replicated cache: the same tokens, logits and cache."""
+    import dataclasses
+    from repro_torch.configs import get
+    from repro_torch.launch.dryrun import _cache_shardings
+    from repro_torch.models import (RuntimeCfg, init_cache, init_params, lm,
+                                    param_axes)
+    from repro_torch.models.common import _tree_map
+    from repro_torch.parallel import (NamedSharding, distribute,
+                                      logical_rules, param_shardings)
+    from repro_torch.train.tree import leaves
     spec = dataclasses.replace(get("qwen3-14b").smoke, n_layers=2)
     rt = RuntimeCfg(attention_impl="naive", param_dtype="float32",
                     compute_dtype="float32")
-    from repro_torch.parallel import logical_rules, param_shardings
-    from repro_torch.models import param_axes
     params = init_params(spec, rt, device="cpu", seed=0)
     rules_d = logical_rules(data_axes=("data",))
     dparams = distribute(params, param_shardings(params, param_axes(spec),
                                                  rules_d, mesh))
-    cache = init_cache(spec, rt, 4, 16, device="cpu")
-    cache = distribute(cache, cache_shardings(cache, mesh,
-                                              data_axes=("data",)))
-    try:
-        lm.decode_step(dparams, cache, torch.zeros(4, 1, dtype=torch.long),
-                       spec, rt)
-        out["rows"] = "decoded"
-    except ValueError as e:
-        out["rows"] = str(e)
-    return out
+    empty = init_cache(spec, rt, 4, 16, device="cpu")
+    by_layers = _cache_shardings(empty, mesh, batch=4, buggy=True)
+    whole_cache = _tree_map(lambda _: NamedSharding(mesh, ()), empty)
+    start = torch.from_numpy(np.random.default_rng(3)
+                             .integers(0, spec.vocab, (4, 1)))
+
+    def greedy(shardings):
+        cache = distribute(init_cache(spec, rt, 4, 16, device="cpu"),
+                           shardings)
+        tok, toks, logits = start, [], []
+        for _ in range(6):
+            out, cache = lm.decode_step(dparams, cache, tok, spec, rt)
+            out = _full(out)
+            tok = out[:, -1].argmax(-1, keepdim=True)
+            toks.append(tok.flatten().tolist())
+            logits.append(out)
+        return toks, logits, [_full(t) for t in leaves(cache)
+                              if isinstance(t, torch.Tensor)]
+    sharded = greedy(by_layers)
+    replicated = greedy(whole_cache)
+    return {"layer_sharded_leaves": sum(
+                s.spec[:1] == (("data",),) for s in _sh_leaves(by_layers)),
+            "tokens_equal": sharded[0] == replicated[0],
+            "logits_equal": all(torch.equal(a, b) for a, b in
+                                zip(sharded[1], replicated[1])),
+            "cache_equal": len(sharded[2]) == len(replicated[2]) > 0 and all(
+                torch.equal(a, b) for a, b in zip(sharded[2], replicated[2])),
+            "tokens": sharded[0]}
 
 
 CHECKS = {
