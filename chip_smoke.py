@@ -146,15 +146,37 @@ Phases, one JSON line each on standard output:
            Multi-rank behaviour (expert parallelism, real collectives) is
            held on gloo ranks on the CPU (tests/test_torch_multirank.py):
            NCCL takes one rank per device
+  examples the twins of the examples that reach the card
+           (examples_torch/), run in this process (runpy, sys.argv set),
+           each its own main path, counts set to 0 just before each run
+           and read just after: serve_batched (8 requests of 12 new
+           tokens on 4 slots, attention through the flash kernel: launches
+           = 4 layers x the engine's steps, worked out from the prompts;
+           each launch held against the plain version on its inputs, TOL;
+           then again with --attention-impl naive: the first step's logits
+           within TOL, the tokens equal but at a near-tie);
+           pareto_search (its batched sweep one cost_reduce launch per
+           class call; then with --device cpu: the same printed lines, as
+           many class calls, the batched points within 1e-10); train_lm at
+           its docstring's hardware setting (--d-model 768 --layers 12
+           --steps 300), once whole and once crashed at step 20 and rerun:
+           the rerun resumes at 20 and its losses are the whole run's
+           (within 1e-3 relative; bit for bit reported), no kernel
+           launched; quickstart.  The seconds of each
   dryrun   the multi-pod dry run (launch/dryrun.py), which runs no kernel:
-           four cells, each ``python -m repro_torch.launch.dryrun`` in a
+           six cells, each ``python -m repro_torch.launch.dryrun`` in a
            subprocess of its own (each owns a fake process group of 256 or
-           512 ranks), all started together: qwen3-14b train_4k on 16x16
-           (FSDP), deepseek-moe-16b train_4k on 2x16x16 (the
-           expert-parallel all-to-all), minitron-8b decode_32k (the cache
-           sharded over its layers dimension), qwen3-14b prefill_32k
-           (counted at two shallower depths and extrapolated); each record
-           OK with finite counts, printed with its trace seconds.
+           512 ranks), all started together before the examples phase and
+           pinned to the host's cores but two (those two are left to this
+           process, whose examples are host-bound): qwen3-14b train_4k on 16x16 (FSDP),
+           deepseek-moe-16b train_4k on 2x16x16 (the expert-parallel
+           all-to-all), minitron-8b decode_32k (the cache sharded over its
+           layers dimension), qwen3-14b prefill_32k (counted at two
+           shallower depths and extrapolated), and minitron-8b decode_32k
+           as the JAX package's variants m1 (the cache by batch) and m2 (by
+           batch, its kv-sequence over model: --variant m1 / m2); each
+           record OK with finite counts,
+           printed with its trace seconds, m1 and m2 side by side.
            Meanwhile the card check: one training step of the train
            phase's qwen3-14b (published width, 4 layers, [2, 2048],
            TRAIN_RT) through the dry run's helper on a one-rank NCCL mesh,
@@ -208,7 +230,7 @@ from repro_torch.kernels import ref  # noqa: E402
 from repro_torch.kernels import rwkv6_scan as wkv  # noqa: E402
 from repro_torch.data import DataCfg, TokenPipeline  # noqa: E402
 from repro_torch.kernels import ops  # noqa: E402
-from repro_torch.launch.dryrun import arch_rules  # noqa: E402
+from repro_torch.launch.dryrun import VARIANTS, arch_rules  # noqa: E402
 from repro_torch.models import (RuntimeCfg, init_params, lm,  # noqa: E402
                                 param_axes)
 from repro_torch.serve import Engine, Request  # noqa: E402
@@ -232,7 +254,7 @@ TOL = {torch.float32: dict(absolute=2e-5, rms_share=0.0, relative=2e-5),
        torch.bfloat16: dict(absolute=0.0, rms_share=1e-2, relative=2.0 ** -7)}
 
 PHASES = ("build", "kernels", "serve", "sweep", "api", "parity", "analysis",
-          "train", "ckpt", "shard", "dryrun")
+          "train", "ckpt", "shard", "examples", "dryrun")
 # the kernels' wrapper modules, each with its launch count, and their sources
 COUNTERS = {"flash_attention": fa, "wkv6": wkv, "cost_reduce": cr}
 SOURCES = {"flash_attention": "src/repro_torch/kernels/csrc/flash_attention.cu",
@@ -2083,12 +2105,13 @@ def _drop_recv(src: Path, dst: Path) -> tuple:
     return victim
 
 
-def _batched_stats(scenario) -> dict:
-    """The process-wide batched engine of ``scenario`` on the card: its
-    cumulative points and class calls (an earlier phase may have used it)."""
+def _batched_stats(scenario, device=None) -> dict:
+    """The process-wide batched engine of ``scenario`` on ``device`` (the
+    card): its cumulative points and class calls (an earlier phase may
+    have used it)."""
     from repro_torch.api import _batched_engines
     st = _batched_engines.engine(scenario.spec, scenario.mode, scenario.env(),
-                                 DEV).stats()
+                                 device or DEV).stats()
     return {"points": st["points"], "calls": len(st["batch_sizes"])}
 
 
@@ -3204,18 +3227,365 @@ def phase_shard() -> dict:
 
 
 # ---------------------------------------------------------------------------
+# examples: the twins of the examples that reach the card (examples_torch/),
+# run in this process so that the launch counts can be read
+# ---------------------------------------------------------------------------
+
+EXAMPLES = ROOT / "examples_torch"
+# train_lm at its docstring's setting for real hardware, crashed at step 20
+# (its first checkpoint: CheckpointManager(keep=2, every=20)) and rerun
+TRAIN_LM_ARGS = ["--d-model", "768", "--layers", "12", "--steps", "300"]
+TRAIN_LM_CRASH = 20
+# the resumed losses against the uninterrupted run's, relative (bit for bit
+# expected: the bf16 step on the card is deterministic run to run, as the
+# ckpt phase's resume shows)
+RESUME_REL = 1e-3
+# the pareto twin's batched sweep on the card against the same twin with
+# --device cpu, as the api phase holds the card against the CPU
+PARETO_REL = 1e-10
+
+
+def run_twin(name: str, argv: list, patch=None) -> dict:
+    """``examples_torch/<name>.py`` in this process with ``sys.argv`` set:
+    its module-level code runs as the script's does, then, where it has
+    one, its ``main(argv)`` (``patch(globals)`` first).  Every launch count
+    is set to 0 just before and read just after.  Returns its globals,
+    ``main``'s result, its printed lines (to standard error if it raises),
+    the launches and the seconds."""
+    import io
+    import runpy
+    path = EXAMPLES / f"{name}.py"
+    out = io.StringIO()
+    argv_before = sys.argv
+    sys.argv = [str(path), *argv]
+    reset_counts()
+    t0 = time.perf_counter()
+    try:
+        with contextlib.redirect_stdout(out):
+            g = runpy.run_path(str(path), run_name=f"examples_torch.{name}")
+            if patch is not None:
+                patch(g)
+            result = g["main"](argv) if "main" in g else None
+        torch.cuda.synchronize()
+    except BaseException:
+        sys.stderr.write(out.getvalue())
+        raise
+    finally:
+        sys.argv = argv_before
+    seconds = time.perf_counter() - t0
+    return {"globals": g, "result": result, "lines": out.getvalue()
+            .splitlines(), "seconds": seconds,
+            "launches": {k: m.launches for k, m in COUNTERS.items()}}
+
+
+def slot_makespan(durations: list, slots: int) -> int:
+    """Steps of an Engine that admits requests in order into its lowest
+    free slot at the end of a step: each holds its slot for its
+    duration."""
+    free = [0] * slots
+    for d in durations:
+        i = min(range(slots), key=lambda j: (free[j], j))
+        free[i] += d
+    return max(free)
+
+
+# serve_batched on the card against itself with --attention-impl naive: a
+# request's tokens may part where the two picks are within this many bf16
+# ulps of the naive run's best logit.  The two cores round differently (the
+# kernel keeps fp32 probabilities and rounds once, naive rounds scores and
+# probabilities to bf16): on the CPU the two runs' logits rows differ by up
+# to 3 ulps, so a parting's gap is at most about 6
+TIE_ULPS = 8
+
+
+def _recording_engine(engines: list, steps: list, picks: dict):
+    """An Engine that appends itself to ``engines``, each step's tokens and
+    fp32 logits (copied to the host) to ``steps``, and to ``picks[rid]``
+    (step, slot, logits row) for each token it picks for a request."""
+    class Recording(Engine):
+        def __init__(self, *args, **kw):
+            super().__init__(*args, **kw)
+            engines.append(self)
+            step = self.step_fn
+
+            def recorded(p, cache, tokens):
+                out, cache = step(p, cache, tokens)
+                host = out.float().cpu()
+                steps.append((tokens.cpu(), host))
+                for i, req in enumerate(self.slots):
+                    if req is not None and req._fed >= len(req.prompt):
+                        picks.setdefault(req.rid, []).append(
+                            (len(steps) - 1, i, host[i, 0]))
+                return out, cache
+            self.step_fn = recorded
+    return Recording
+
+
+def example_serve_batched() -> dict:
+    """The serve_batched twin on the card, attention through the flash
+    kernel: 8 requests of 12 new tokens on 4 slots.  The engine feeds a
+    prompt one token a step and emits from its last prompt token on, so a
+    request holds its slot len(prompt) + max_new - 1 steps; every step runs
+    the kernel once a layer (no prefill: the engine fills its cache token
+    by token).  Each of those launches is held against the kernel's plain
+    version on the inputs the path gave it (TOL).  Then the twin again with
+    --attention-impl naive (no launch): the first step's logits of every
+    slot within TOL of the flash run's, and a request's tokens equal unless
+    the runs part at a near-tie (TIE_ULPS of the naive run's best logit)
+    or where the slot's earlier tokens already differ."""
+    engines: list = []
+    steps: list = []
+    calls: list = []
+    picks: dict = {}
+    entry = ops.flash_attention
+
+    def recorded_entry(q, k, v, **kw):
+        out = entry(q, k, v, **kw)
+        calls.append((q.clone(), k.clone(), v.clone(), kw, out.clone()))
+        return out
+
+    def patch(g):
+        # run_path hands back a copy of the twin's globals: patch main's own
+        g["main"].__globals__["Engine"] = _recording_engine(engines, steps,
+                                                            picks)
+    ops.flash_attention = recorded_entry
+    try:
+        run = run_twin("serve_batched", [], patch=patch)
+    finally:
+        ops.flash_attention = entry
+    done = sorted(run["result"], key=lambda r: r.rid)
+    spec = run["globals"]["spec"]
+    require(len(done) == 8 and all(len(r.out) == 12 for r in done),
+            f"serve_batched: {[len(r.out) for r in done]}")
+    n_steps = slot_makespan([len(r.prompt) + r.max_new - 1 for r in done], 4)
+    require(len(engines) == 1 and engines[0].steps == n_steps,
+            f"serve_batched: {[e.steps for e in engines]} engine steps, "
+            f"{n_steps} worked out")
+    want = {"flash_attention": spec.n_layers * n_steps, "wkv6": 0,
+            "cost_reduce": 0}
+    require(run["launches"] == want,
+            f"serve_batched: launches {run['launches']}, want {want}")
+    vocab_ok = all(0 <= t < spec.vocab for r in done for t in r.out)
+    require(vocab_ok, "serve_batched: a token outside the vocab")
+
+    # every launch of the path against the plain version on its inputs
+    require(len(calls) == want["flash_attention"],
+            f"serve_batched: {len(calls)} flash calls recorded")
+    kernel_err, shapes = 0.0, set()
+    for q, k, v, kw, got in calls:
+        plain = fa.flash_attention_plain(q, k, v, **kw)
+        err = (got.float() - plain.float()).abs()
+        require(torch.isfinite(got).all() and not (err > tolerance(plain))
+                .any(), f"serve_batched: the kernel disagrees with its plain "
+                f"version at q {tuple(q.shape)} k {tuple(k.shape)} {kw}: "
+                f"max abs err {err.max().item():.3e}, {TOL[plain.dtype]}")
+        kernel_err = max(kernel_err, err.max().item())
+        shapes.add((tuple(q.shape), tuple(k.shape), str(q.dtype)))
+
+    # the same twin with naive attention on the card
+    naive_engines: list = []
+    naive_steps: list = []
+    naive_picks: dict = {}
+    naive = run_twin("serve_batched", ["--attention-impl", "naive"],
+                     patch=lambda g: g["main"].__globals__.__setitem__(
+                         "Engine", _recording_engine(
+                             naive_engines, naive_steps, naive_picks)))
+    require(all(v == 0 for v in naive["launches"].values()),
+            f"serve_batched naive launched {naive['launches']}")
+    require(len(naive_engines) == 1 and len(naive_steps) == n_steps,
+            f"serve_batched naive: {len(naive_steps)} steps, {n_steps} "
+            "worked out")
+    (t0, first), (t1, first_naive) = steps[0], naive_steps[0]
+    require(torch.equal(t0, t1), "serve_batched: first steps' tokens differ")
+    first_err = (first - first_naive).abs()
+    require(not (first_err > tolerance(first_naive)).any(),
+            f"serve_batched: first step's logits {first_err.max().item():.3e}"
+            f" from the naive run's, {TOL[torch.bfloat16]}")
+    # the logits of every slot whose tokens so far are the naive run's
+    same = torch.ones(len(steps[0][0]), dtype=torch.bool)
+    rows_err = 0.0
+    for (t_a, o_a), (t_b, o_b) in zip(steps, naive_steps):
+        same &= (t_a == t_b).all(-1)
+        if same.any():
+            rows_err = max(rows_err, (o_a - o_b)[same].abs().max().item())
+    # a slot keeps its cache when a new request takes it, so a request
+    # reads its slot's earlier requests: it may part where an earlier one
+    # parted (inherited), else only at a near-tie
+    by_rid = {r.rid: r for r in done}
+    parted = {}
+    for r in sorted(naive["result"], key=lambda r: r.rid):
+        mine = by_rid[r.rid].out
+        k = next((i for i, (a, b) in enumerate(zip(mine, r.out)) if a != b),
+                 None)
+        if k is None:
+            continue
+        step, slot, row = naive_picks[r.rid][k]
+        require(picks[r.rid][k][:2] == (step, slot),
+                f"serve_batched: request {r.rid} in another step or slot")
+        inherited = not all(torch.equal(steps[t][0][slot],
+                                        naive_steps[t][0][slot])
+                            for t in range(step + 1))
+        best = float(row.max())
+        ulp = 2.0 ** (np.floor(np.log2(abs(best))) - 7)
+        gap = (best - float(row[mine[k]])) / ulp
+        require(inherited or gap <= TIE_ULPS, f"serve_batched: request "
+                f"{r.rid} parts from the naive run at token {k}, {gap} bf16 "
+                "ulps below its best")
+        parted[r.rid] = {"token": k, "gap_ulps": gap, "inherited": inherited}
+    return {"seconds": run["seconds"], "requests": len(done),
+            "tokens": sum(len(r.out) for r in done), "engine_steps": n_steps,
+            "layers": spec.n_layers, "launches": run["launches"],
+            "launches_worked_out": want, "last_line": run["lines"][-1],
+            "kernel_vs_plain": {"calls": len(calls), "max_abs_err":
+                                kernel_err, "shapes": sorted(shapes),
+                                "tolerance": TOL[torch.bfloat16]},
+            "naive_seconds": naive["seconds"],
+            "first_step_max_abs_err_vs_naive": first_err.max().item(),
+            "same_tokens_max_abs_err_vs_naive": rows_err,
+            "parted_from_naive": parted,
+            "equal_to_naive": 8 - len(parted)}
+
+
+def _engine_stats_masked(lines: list) -> list:
+    """``lines`` without the engines' counts, which add up over the runs of
+    one process: the compiled engine's cache counts, the batched engine's
+    points and calls (held apart)."""
+    import re
+    return [re.sub(r"batched: \d+ point\(s\) in \d+ kernel call\(s\)",
+                   "batched: <counts>",
+                   re.sub(r"engine: [^;]*hit ratio\)", "engine: <counts>", x))
+            for x in lines]
+
+
+def example_pareto_search() -> dict:
+    """The pareto_search twin on the card (its batched sweep one
+    cost_reduce launch per class call, read from the process-wide batched
+    engine, new to this spec), then with --device cpu: the same printed
+    lines (the compiled engine's cumulative cache counts aside), as many
+    class calls, and the batched points within PARETO_REL."""
+    card = run_twin("pareto_search", [])
+    g = card["globals"]
+    batched = g["sc"].with_backend("batched")
+    calls = _batched_stats(batched)["calls"]
+    want = {"flash_attention": 0, "wkv6": 0, "cost_reduce": calls}
+    require(calls > 0 and card["launches"] == want,
+            f"pareto_search: launches {card['launches']}, want {want}")
+    cpu_before = _batched_stats(batched, "cpu")["calls"]
+    cpu = run_twin("pareto_search", ["--device", "cpu"])
+    require(all(v == 0 for v in cpu["launches"].values()),
+            f"pareto_search --device cpu launched {cpu['launches']}")
+    cpu_calls = _batched_stats(batched, "cpu")["calls"] - cpu_before
+    require(cpu_calls == calls, f"pareto_search: {calls} class calls on the "
+            f"card, {cpu_calls} on the CPU")
+    require(_engine_stats_masked(card["lines"])
+            == _engine_stats_masked(cpu["lines"]),
+            "pareto_search: the card's lines differ from the CPU's")
+    cpu_g = cpu["globals"]
+    require([p.label for p in g["front"]] == [p.label for p in cpu_g["front"]],
+            "pareto_search: fronts differ")
+    worst = _worst(list(g["bat"]), {p.label: p for p in cpu_g["bat"]})
+    require(len(g["bat"]) == len(cpu_g["bat"]) > 0 and worst <= PARETO_REL,
+            f"pareto_search: batched points {worst} from the CPU's")
+    return {"seconds": card["seconds"], "cpu_seconds": cpu["seconds"],
+            "front": len(g["front"]), "batched_points": len(g["bat"]),
+            "class_calls": calls, "launches": card["launches"],
+            "worst_rel_vs_cpu": worst, "lines_equal_cpu": True,
+            "bnb_visited": g["bnb"].visited, "total": g["bnb"].total}
+
+
+def example_train_lm() -> dict:
+    """The train_lm twin on the card at TRAIN_LM_ARGS: one uninterrupted
+    run, and one crashed at TRAIN_LM_CRASH and rerun in its checkpoint
+    directory.  The rerun resumes at the crash and its losses are the
+    uninterrupted run's (RESUME_REL; bit for bit reported).  Training runs
+    the plain paths: no kernel launches."""
+    import shutil
+    import tempfile
+    root = tempfile.mkdtemp(prefix="train_lm_")
+    try:
+        free = shutil.disk_usage(root).free
+        require(free > 8e9, f"train_lm: {free} B free under {root}")
+        whole = run_twin("train_lm", TRAIN_LM_ARGS
+                         + ["--ckpt-dir", os.path.join(root, "whole")])
+        crashed = run_twin("train_lm", TRAIN_LM_ARGS
+                           + ["--ckpt-dir", os.path.join(root, "crash"),
+                              "--crash-at", str(TRAIN_LM_CRASH)])
+        resumed = run_twin("train_lm", TRAIN_LM_ARGS
+                           + ["--ckpt-dir", os.path.join(root, "crash")])
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    for run in (whole, crashed, resumed):
+        require(all(v == 0 for v in run["launches"].values()),
+                f"train_lm launched {run['launches']}")
+    a, b, c = whole["result"], crashed["result"], resumed["result"]
+    steps = int(TRAIN_LM_ARGS[TRAIN_LM_ARGS.index("--steps") + 1])
+    require(sorted(a) == list(range(steps))
+            and sorted(b) == list(range(TRAIN_LM_CRASH))
+            and sorted(c) == list(range(TRAIN_LM_CRASH, steps)),
+            "train_lm: steps run")
+    require(f"resumed from step {TRAIN_LM_CRASH}" in resumed["lines"],
+            "train_lm: the rerun did not resume")
+    require(all(np.isfinite(v) for v in a.values()), "train_lm: a loss")
+    both = {**b, **c}
+    gap = max(abs(both[k] - a[k]) / abs(a[k]) for k in a)
+    require(gap <= RESUME_REL, f"train_lm: resumed losses {gap} apart")
+    import re
+    # the step seconds the twin prints every 5 steps (each ends in
+    # float(loss), a sync), and the watchdog's decisions
+    printed = [re.search(r"  (\d+\.\d+)s  \[(\w+)\]$", x)
+               for x in whole["lines"] if x.startswith("step ")]
+    step_s = [float(m.group(1)) for m in printed if m]
+    return {"seconds": whole["seconds"] + crashed["seconds"]
+            + resumed["seconds"],
+            "printed_step_s_median": float(np.median(step_s[1:])),
+            "printed_step_s_first": step_s[0],
+            "watchdog": sorted({m.group(2) for m in printed if m}),
+            "whole_s": whole["seconds"], "crashed_s": crashed["seconds"],
+            "resumed_s": resumed["seconds"], "args": TRAIN_LM_ARGS,
+            "crash_at": TRAIN_LM_CRASH,
+            "ms_per_step": whole["seconds"] * 1e3 / steps,
+            "loss_first": a[0], "loss_last": a[steps - 1],
+            "resumed_rel_gap": gap, "resumed_bit_equal": both == a,
+            "launches": whole["launches"],
+            "model_line": whole["lines"][0]}
+
+
+def phase_examples() -> dict:
+    """The twins that reach the card, each its own main path, then
+    quickstart (host only).  Each record carries its seconds."""
+    t0 = time.perf_counter()
+    out = {"serve_batched": example_serve_batched(),
+           "pareto_search": example_pareto_search(),
+           "train_lm": example_train_lm()}
+    quick = run_twin("quickstart", [])
+    require(all(v == 0 for v in quick["launches"].values()),
+            f"quickstart launched {quick['launches']}")
+    require(quick["lines"][-1].startswith("best of "),
+            f"quickstart: {quick['lines'][-1:]}")
+    out["quickstart"] = {"seconds": quick["seconds"],
+                         "launches": quick["launches"],
+                         "last_line": quick["lines"][-1]}
+    out["seconds"] = time.perf_counter() - t0
+    return out
+
+
+# ---------------------------------------------------------------------------
 # dryrun: the multi-pod dry run's cells, and its accounting against a real
 # step on the card
 # ---------------------------------------------------------------------------
 
-# (arch, shape, multi-pod): FSDP on 16x16; the expert-parallel all-to-all
-# on 2x16x16; the cache sharded over its layers dimension (the JAX
-# package's heuristic: minitron's 32 layers divide the data degree 16); a
-# prefill at 32k tokens (counted by two shallower runs, dryrun.REPEATS)
-DRYRUN_CELLS = (("qwen3-14b", "train_4k", False),
-                ("deepseek-moe-16b", "train_4k", True),
-                ("minitron-8b", "decode_32k", False),
-                ("qwen3-14b", "prefill_32k", False))
+# (arch, shape, multi-pod, variant): FSDP on 16x16; the expert-parallel
+# all-to-all on 2x16x16; the cache sharded over its layers dimension (the
+# JAX package's heuristic: minitron's 32 layers divide the data degree 16);
+# a prefill at 32k tokens (counted by two shallower runs, dryrun.REPEATS);
+# and the JAX package's variants m1 (the cache by batch) and m2 (by batch,
+# its kv-sequence over model) of the decode cell (dryrun.VARIANTS)
+DRYRUN_CELLS = (("qwen3-14b", "train_4k", False, None),
+                ("deepseek-moe-16b", "train_4k", True, None),
+                ("minitron-8b", "decode_32k", False, None),
+                ("qwen3-14b", "prefill_32k", False, None),
+                ("minitron-8b", "decode_32k", False, "m1"),
+                ("minitron-8b", "decode_32k", False, "m2"))
 DRYRUN_TIMEOUT_S = 900
 # the card check: the train phase's qwen3-14b (published width, its depth,
 # TRAIN_RT), one step of [TRAIN_BATCH, TRAIN_SEQ]; the dry run's predicted
@@ -3223,20 +3593,34 @@ DRYRUN_TIMEOUT_S = 900
 CARD_PEAK_REL = 0.05
 
 
+# cores left to this process while the dry-run cells run (its examples and
+# the card check are host-bound); the cells take the others
+FREE_CORES = 2
+
+
 def dryrun_cells(out_dir: str) -> list:
     """Start one ``python -m repro_torch.launch.dryrun`` per cell, all at
-    once (each owns its fake process group), writing under ``out_dir``;
-    returns [(cell, process, output path)]."""
+    once (each owns its fake process group), writing under ``out_dir``,
+    each pinned to the cores past the first FREE_CORES (where the host has
+    at least two more); returns [(cell, process, output path)]."""
     env = dict(os.environ, PYTHONPATH=str(ROOT / "src"), OMP_NUM_THREADS="1")
+    cores = sorted(os.sched_getaffinity(0))
+    cell_cores = set(cores[FREE_CORES:]) \
+        if len(cores) >= FREE_CORES + 2 else set(cores)
     started = []
-    for arch, shape, multipod in DRYRUN_CELLS:
-        out = os.path.join(out_dir, f"{arch}_{shape}_{int(multipod)}.jsonl")
+    for arch, shape, multipod, variant in DRYRUN_CELLS:
+        out = os.path.join(out_dir, f"{arch}_{shape}_{int(multipod)}"
+                                    f"{variant or ''}.jsonl")
         cmd = [sys.executable, "-m", "repro_torch.launch.dryrun", "--arch",
                arch, "--shape", shape, "--out", out] \
-            + (["--multipod"] if multipod else [])
-        started.append(((arch, shape, multipod), subprocess.Popen(
-            cmd, env=env, cwd=ROOT, stdout=subprocess.DEVNULL,
-            stderr=subprocess.PIPE, text=True), out))
+            + (["--multipod"] if multipod else []) \
+            + (["--variant", variant] if variant else [])
+        proc = subprocess.Popen(cmd, env=env, cwd=ROOT,
+                                stdout=subprocess.DEVNULL,
+                                stderr=subprocess.PIPE, text=True)
+        # at once: the threads the cell starts later inherit it
+        os.sched_setaffinity(proc.pid, cell_cores)
+        started.append(((arch, shape, variant), proc, out))
     return started
 
 
@@ -3244,7 +3628,7 @@ def dryrun_records(started: list) -> list:
     """Each started cell's record, once its process ended: status OK, and
     the counts positive and finite."""
     records = []
-    for (arch, shape, multipod), proc, out in started:
+    for (arch, shape, variant), proc, out in started:
         try:
             _, err = proc.communicate(timeout=DRYRUN_TIMEOUT_S)
         except subprocess.TimeoutExpired:
@@ -3269,6 +3653,7 @@ def dryrun_records(started: list) -> list:
             "peak_memory_per_dev_gb", "args_gb", "temp_gb", "t_compute_s",
             "t_memory_s", "t_collective_s", "dominant", "useful_flops_ratio",
             "trace_wall_s")} | {"repeats": rec.get("repeats"),
+                               "label": rec.get("label", ""),
                                "stage_step_ms":
                                rec["stage_predict"].get("step_ms"),
                                "stage_peak_gb":
@@ -3342,24 +3727,30 @@ def card_check() -> dict:
             "real_counted_s": real["trace_wall_s"]}
 
 
-def phase_dryrun() -> dict:
-    """The dry run's cells in subprocesses (started first, on the host's
-    cores), the card check on the card meanwhile, then the cells'
-    records."""
-    import tempfile
+def stop_cells(started: list) -> None:
+    """Kill what is left of the started cells (after a failure)."""
+    for _, proc, _ in started:
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait()
+
+
+def phase_dryrun(started: list, started_at: float) -> dict:
+    """The card check, then the records of the dry run's cells, which
+    ``main`` started in subprocesses at ``started_at``, on the host's cores,
+    beside the examples phase.  m1 and m2 side by side: per-device bytes,
+    collective bytes by kind, peak GiB."""
     t0 = time.perf_counter()
-    with tempfile.TemporaryDirectory(prefix="dryrun_") as out_dir:
-        started = dryrun_cells(out_dir)
-        try:
-            check = card_check()
-            records = dryrun_records(started)
-        finally:
-            for _, proc, _ in started:    # stop what is left after a failure
-                if proc.poll() is None:
-                    proc.kill()
-                    proc.wait()
-    return {"cells": records, "card_check": check,
-            "seconds": time.perf_counter() - t0}
+    check = card_check()
+    records = dryrun_records(started)
+    by_label = {r["label"]: r for r in records if r["label"]}
+    seq = {tag: {k: by_label[VARIANTS[tag][0]][k] for k in (
+        "bytes_per_dev", "collective_bytes_per_dev", "collectives",
+        "peak_memory_per_dev_gb", "args_gb", "trace_wall_s")}
+        for tag in ("m1", "m2")}
+    return {"cells": records, "card_check": check, "cache_seq": seq,
+            "seconds": time.perf_counter() - t0,
+            "cells_seconds": time.perf_counter() - started_at}
 
 
 def main(argv=None) -> int:
@@ -3467,10 +3858,27 @@ def main(argv=None) -> int:
         gc.collect()
         torch.cuda.empty_cache()
         emit("shard", **phase_shard())
-    if "dryrun" in phases:
-        gc.collect()
-        torch.cuda.empty_cache()
-        emit("dryrun", **phase_dryrun())
+    import shutil
+    import tempfile
+    dry_dir, started = None, []
+    try:
+        if "dryrun" in phases:
+            # the cells run beside the examples phase, on cores of their own
+            dry_dir = tempfile.mkdtemp(prefix="dryrun_")
+            started_at = time.perf_counter()
+            started = dryrun_cells(dry_dir)
+        if "examples" in phases:
+            gc.collect()
+            torch.cuda.empty_cache()
+            emit("examples", cells_beside=len(started), **phase_examples())
+        if "dryrun" in phases:
+            gc.collect()
+            torch.cuda.empty_cache()
+            emit("dryrun", **phase_dryrun(started, started_at))
+    finally:
+        stop_cells(started)
+        if dry_dir is not None:
+            shutil.rmtree(dry_dir, ignore_errors=True)
 
     if set(phases) != set(PHASES) or models != list(SERVED):
         print(json.dumps({"ok": False, "partial": phases, "models": models}),

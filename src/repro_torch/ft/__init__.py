@@ -1,8 +1,8 @@
 """Fault tolerance + resilience modeling (pure python, no torch).
 
 Failure domains and goodput math live here so the DSE sweep workers can
-import them without pulling in the torch runtime; the
-checkpoint I/O (``repro.ckpt`` in the JAX package) is not ported yet.
+import them without pulling in the torch runtime; checkpoint I/O is
+``repro_torch.ckpt``.
 """
 from .elastic import ElasticPlan, elastic_reshard, reshard_cost, shrink_cfg
 from .failures import FailureDomain, FailureEvent, FailureModel, FailureTrace

@@ -22,7 +22,7 @@ from typing import Optional
 
 import torch
 
-from ..models.common import as_global, replicated, settle
+from ..models.common import as_global, copy_into, replicated, settle
 from . import cost_reduce as _cr
 from . import flash_attention as _fa
 from . import rwkv6_scan as _wkv
@@ -142,7 +142,7 @@ def wkv6(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor, w: torch.Tensor,
             state_out=state_out.to_local() if in_place else None)
         st = as_global(st, mesh, sp, state0.shape)
         if state_out is not None and not in_place:
-            st = state_out.copy_(st)
+            st = copy_into(state_out, st)
         elif in_place:
             st = state_out
         return as_global(out, mesh, rp, r.shape), st

@@ -1,4 +1,6 @@
-"""Plain-torch oracle for attention (ground truth for allclose)."""
+"""Plain-torch oracles (ground truth for allclose): attention, the RWKV6
+recurrence and the SSM recurrence, each the JAX package's ``kernels/ref``
+function of the same name."""
 from __future__ import annotations
 
 import math
@@ -51,3 +53,15 @@ def ref_wkv(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                                  state + u[None, :, :, None] * kv))
         state = wt[..., :, None] * state + kv
     return torch.stack(outs, dim=2), state
+
+
+def ref_ssm(dA: torch.Tensor, dBx: torch.Tensor, h0: torch.Tensor) -> tuple:
+    """Sequential SSM recurrence h_t = dA_t h_{t-1} + dBx_t, one step at a
+    time.  dA/dBx [B, S, D, P]; h0 [B, D, P] (cast to dA's dtype) -> (all h
+    [B, S, D, P], last h)."""
+    h = h0.to(dA.dtype)
+    hs = []
+    for t in range(dA.shape[1]):
+        h = dA[:, t] * h + dBx[:, t]
+        hs.append(h)
+    return torch.stack(hs, dim=1), h

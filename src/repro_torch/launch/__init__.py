@@ -7,3 +7,6 @@ process of its own (``python -m repro_torch.launch.dryrun``), never in one
 that has a group, a pytest worker's included, except through
 ``dryrun.fake_group``, which it closes.
 """
+from .mesh import data_axes_of, make_production_mesh
+
+__all__ = ["data_axes_of", "make_production_mesh"]

@@ -202,7 +202,12 @@ def _cache_shardings(cache_abs, mesh, *, batch: int = 0,
     'first divisible dim' heuristic (which lands on the layer-stack dim
     and forces per-layer gathers) — kept as the recorded baseline of
     §Perf iteration 1 on minitron-8b/decode_32k.  ``decode_step`` takes
-    such a cache (each row broadcast from the ranks that hold it).  A leaf
+    such a cache (each row broadcast from the ranks that hold it).  Else
+    ``seq_axis`` (the rule override ``_cache_seq_axis``) shards the
+    largest dim past the batch over that mesh axis: the kv-sequence of an
+    attention cache, the channels of a recurrent state; ``decode_step``
+    writes each rank's part of a span into its shard
+    (``models.common.write_span``, ``ring_append``, ``copy_into``).  A leaf
     that is no tensor (``pos``) is replicated."""
     da = data_axes_of(mesh)
     sizes = mesh_sizes(mesh)
@@ -411,12 +416,6 @@ def prepare(arch: Arch, shape: ShapeSpec, mesh, *,
     from torch._subclasses.fake_tensor import FakeTensorMode
     rt = rt or DRYRUN_RT
     overrides = rule_overrides or {}
-    if overrides.get("_cache_seq_axis") is not None:
-        raise ValueError(
-            "rule override _cache_seq_axis (the kv-sequence dim of the decode "
-            "cache over model) is not supported: decode_step writes a "
-            "layer's new entries into its cache rows, and a row sharded "
-            "over the sequence cannot take them")
     rules_d = arch_rules(arch, mesh, overrides=rule_overrides, sp=rt.sp)
     rules = AxisRules(rules_d, mesh)      # the mesh: MoE's EP branch
     spec = arch.spec
@@ -457,9 +456,10 @@ def prepare(arch: Arch, shape: ShapeSpec, mesh, *,
         b = shape.global_batch
         cache_abs = _cache_abstract(arch, rt, b, shape.seq_len)
         trees.append((cache_abs,
-                      _cache_shardings(cache_abs, mesh, batch=b,
-                                       buggy=overrides.get("_buggy_cache",
-                                                           True)),
+                      _cache_shardings(
+                          cache_abs, mesh, batch=b,
+                          seq_axis=overrides.get("_cache_seq_axis"),
+                          buggy=overrides.get("_buggy_cache", True)),
                       "zeros"))
         deg = math.prod(mesh_sizes(mesh)[a] for a in da)
         trees.append((_meta((b, 1), torch.int32),
@@ -627,10 +627,13 @@ def stage_predict(arch: Arch, shape_name: str, *, multi_pod: bool = False,
 
 def run_cell(arch_name: str, shape_name: str, *, multi_pod: bool,
              out_path: str, rt: Optional[RuntimeCfg] = None,
-             label: str = "", device=None) -> dict:
+             label: str = "", device=None,
+             rule_overrides: Optional[dict] = None) -> dict:
     """One cell's record, appended to ``out_path``: SKIP where the arch
     skips the shape, FAIL with the error and its trace where the step
-    raised, else OK.  Creates the fake group where none exists."""
+    raised, else OK.  Creates the fake group where none exists.
+    ``rule_overrides`` goes to ``prepare`` (a variant: give it a
+    ``label``, which also keeps ``--all`` from taking it for the cell)."""
     arch = get_arch(arch_name)
     mesh_tag = "2x16x16" if multi_pod else "16x16"
     if shape_name in arch.skip:
@@ -640,9 +643,9 @@ def run_cell(arch_name: str, shape_name: str, *, multi_pod: bool,
         t0 = time.time()
         try:
             with fake_group(512 if multi_pod else 256):
-                counts, mesh, meta = lower_cell(arch, shape_name,
-                                                multi_pod=multi_pod, rt=rt,
-                                                device=device)
+                counts, mesh, meta = lower_cell(
+                    arch, shape_name, multi_pod=multi_pod, rt=rt,
+                    rule_overrides=rule_overrides, device=device)
             rec = analyze(arch, shape_name, counts, mesh)
             rec["status"] = "OK"
             try:
@@ -716,6 +719,15 @@ def summary(out_path: str) -> str:
     return "\n".join(rows)
 
 
+# the JAX package's two variants of minitron-8b decode_32k
+# (benchmarks/perf_iterations.py): {name: (label, rule overrides)}
+VARIANTS = {
+    "m1": ("m1-cache-batch-shard", {"_buggy_cache": False}),
+    "m2": ("m2-m1+cache-seq-over-model",
+           {"_buggy_cache": False, "_cache_seq_axis": "model"}),
+}
+
+
 def main(argv=None):
     ap = argparse.ArgumentParser()
     ap.add_argument("--arch", default=None)
@@ -727,10 +739,16 @@ def main(argv=None):
                     help="the card unless 'cpu' (fake tensors either way)")
     ap.add_argument("--summary", action="store_true",
                     help="print the records of --out as a markdown table")
+    ap.add_argument("--variant", choices=sorted(VARIANTS), default=None,
+                    help="one cell as a variant: m1 the cache by batch, m2 "
+                         "by batch with its kv-sequence over model (the "
+                         "record carries the variant's label)")
     args = ap.parse_args(argv)
     if args.summary:
         print(summary(args.out))
         return
+    if args.variant and args.all:
+        ap.error("--variant names one cell, not --all")
     resolve_device(args.device)        # no card and no --device cpu: raise
 
     if args.all:
@@ -751,8 +769,10 @@ def main(argv=None):
         return
     if args.arch is None or args.shape is None:
         ap.error("one cell needs --arch and --shape (or --all)")
+    label, overrides = VARIANTS[args.variant] if args.variant else ("", None)
     rec = run_cell(args.arch, args.shape, multi_pod=args.multipod,
-                   out_path=args.out, device=args.device)
+                   out_path=args.out, device=args.device, label=label,
+                   rule_overrides=overrides)
     print(json.dumps(rec, indent=2))
 
 

@@ -271,6 +271,89 @@ def local_shape_and_offset(shape, mesh, placements) -> tuple:
     return tuple(shape), tuple(offset)
 
 
+# ---------------------------------------------------------------------------
+# In-place cache writes that work on DTensors
+# ---------------------------------------------------------------------------
+
+def _sharded_past_batch(t) -> bool:
+    """Whether ``t`` is a DTensor sharded over a dimension other than its
+    first (a layer's cache row: the sequence, a head or channel dim)."""
+    from torch.distributed.tensor import DTensor, Shard
+    return isinstance(t, DTensor) and any(
+        isinstance(pl, Shard) and pl.dim > 0 for pl in t.placements)
+
+
+def _local_like(dst, src, whole_dims=()) -> torch.Tensor:
+    """The local shard of ``src`` (a DTensor, or a plain tensor taken as
+    replicated) laid out as the DTensor ``dst``, but whole along
+    ``whole_dims``."""
+    from torch.distributed.tensor import Replicate, Shard
+    src = replicated(src, dst.device_mesh)
+    return settle(src, [Replicate() if isinstance(pl, Shard)
+                        and pl.dim in whole_dims else pl
+                        for pl in dst.placements]).to_local()
+
+
+def write_span(dst: torch.Tensor, pos: int, src: torch.Tensor) -> None:
+    """``dst[:, pos:pos + S] = src`` (S = ``src.shape[1]``), in place.
+
+    Where ``dst`` is a DTensor sharded past its first dimension (a cache
+    row whose sequence, heads or channels are split over a mesh axis, which
+    DTensor's indexed write cannot take) each rank writes the part of the
+    span that falls in its own shard, which may be none, or the span's
+    middle where it crosses a shard boundary, into ``to_local()``; ``src``
+    is first laid out as ``dst`` but whole along dimension 1."""
+    if not _sharded_past_batch(dst):
+        dst[:, pos:pos + src.shape[1]] = src
+        return
+    span = _local_like(dst, src, (1,))     # on every rank: a collective
+    shape, offset = local_shape_and_offset(dst.shape, dst.device_mesh,
+                                           dst.placements)
+    lo = max(pos, offset[1])
+    hi = min(pos + src.shape[1], offset[1] + shape[1])
+    if lo < hi:
+        dst.to_local()[:, lo - offset[1]:hi - offset[1]] = \
+            span[:, lo - pos:hi - pos]
+
+
+def ring_append(dst: torch.Tensor, src: torch.Tensor) -> torch.Tensor:
+    """A sliding window's ring cache ``dst`` [B, klen, ...] shifted left by
+    S = ``src.shape[1]`` with ``src`` appended, in place; returns the
+    window to attend to.
+
+    Sharded over its sequence, a shift moves entries across shard
+    boundaries: the window is gathered over that axis (one all-gather of
+    ``dst`` a step), shifted and appended on every rank, and each rank
+    keeps its own shard.  The gathered window is what is returned, so the
+    attention after reads it without a second gather.  Elsewhere this is
+    ``dst`` itself."""
+    klen, s_new = dst.shape[1], src.shape[1]
+    if not _sharded_past_batch(dst):
+        if s_new < klen:
+            dst[:, :klen - s_new] = dst[:, s_new:].clone()
+        dst[:, klen - s_new:] = src
+        return dst
+    from torch.distributed.tensor import Replicate, Shard
+    mesh = dst.device_mesh
+    pl = [Replicate() if isinstance(p, Shard) and p.dim == 1 else p
+          for p in dst.placements]
+    window = torch.cat([settle(dst, pl).to_local()[:, s_new:],
+                        _local_like(dst, src, (1,))], dim=1)
+    shape, offset = local_shape_and_offset(dst.shape, mesh, dst.placements)
+    dst.to_local().copy_(window[:, offset[1]:offset[1] + shape[1]])
+    return as_global(window, mesh, pl, dst.shape)
+
+
+def copy_into(dst: torch.Tensor, src: torch.Tensor) -> torch.Tensor:
+    """``dst.copy_(src)``.  Where ``dst`` is a DTensor sharded past its
+    first dimension (a recurrent state split over its channels or heads),
+    ``src`` is laid out as ``dst`` and the local shards are copied."""
+    if not _sharded_past_batch(dst):
+        return dst.copy_(src)
+    dst.to_local().copy_(_local_like(dst, src))
+    return dst
+
+
 def replicated(t, mesh):
     """A plain tensor ``t`` (tokens, labels, positions, frames, which every
     rank holds whole) as a replicated DTensor on ``mesh``; a DTensor, None,

@@ -46,8 +46,9 @@ import torch
 import torch.nn.functional as F
 from torch.utils.checkpoint import checkpoint
 
-from .common import (AxisRules, Initializer, RuntimeCfg, constrain, cumsum,
-                     dt, einsum, matmul, mesh_of, pad_end)
+from .common import (AxisRules, Initializer, RuntimeCfg, constrain,
+                     copy_into, cumsum, dt, einsum, matmul, mesh_of, pad_end,
+                     ring_append, write_span)
 
 # logical axis names (mapped to mesh axes by parallel.sharding's rules), the
 # JAX package's
@@ -309,13 +310,9 @@ def gqa_attention(p: dict, x: torch.Tensor, spec, rt: RuntimeCfg,
             if s_new > klen:
                 raise ValueError(f"{s_new} new tokens do not fit the "
                                  f"{klen}-entry window cache")
-            if s_new < klen:
-                ck[:, :klen - s_new] = ck[:, s_new:].clone()
-                cv[:, :klen - s_new] = cv[:, s_new:].clone()
-            ck[:, klen - s_new:] = k
-            cv[:, klen - s_new:] = v
+            wk, wv = ring_append(ck, k), ring_append(cv, v)
             filled = min(pos + s_new, klen)
-            out5 = attn_core(q, ck[:, klen - filled:], cv[:, klen - filled:],
+            out5 = attn_core(q, wk[:, klen - filled:], wv[:, klen - filled:],
                              rt, causal=False, window=None,
                              softcap=spec.attn_softcap)
         else:
@@ -323,8 +320,8 @@ def gqa_attention(p: dict, x: torch.Tensor, spec, rt: RuntimeCfg,
                 raise ValueError(
                     f"KV cache overflow: position {pos} + {s_new} new "
                     f"token(s) exceeds kv_len {klen}")
-            ck[:, pos:pos + s_new] = k
-            cv[:, pos:pos + s_new] = v
+            write_span(ck, pos, k)
+            write_span(cv, pos, v)
             out5 = attn_core(q, ck, cv, rt, causal=True, window=window,
                              softcap=spec.attn_softcap, q_offset=pos)
     else:
@@ -402,8 +399,8 @@ def mla_attention(p: dict, x: torch.Tensor, spec, rt: RuntimeCfg,
             raise ValueError(
                 f"KV cache overflow: position {pos} + {s_new} new token(s) "
                 f"exceeds kv_len {ckv.shape[1]}")
-        ckv[:, pos:pos + s_new] = ckv_new
-        kr[:, pos:pos + s_new] = kr_new
+        write_span(ckv, pos, ckv_new)
+        write_span(kr, pos, kr_new)
         new_cache = {"ckv": ckv, "kr": kr, "pos": pos + s_new}
         q_offset = pos
     else:
@@ -883,8 +880,8 @@ def mamba_layer(p: dict, x: torch.Tensor, spec, rt: RuntimeCfg,
     out = matmul(y, cast(p["w_out"], rt))
     new_cache = None
     if cache is not None:
-        cache["conv"].copy_(xpad[:, -3:])
-        cache["ssm"].copy_(h_last)
+        copy_into(cache["conv"], xpad[:, -3:])
+        copy_into(cache["ssm"], h_last)
         new_cache = {"conv": cache["conv"], "ssm": cache["ssm"]}
     return x + constrain(out, rules, (BATCH, SEQ, EMB)), new_cache
 
@@ -1020,7 +1017,7 @@ def rwkv6_layer(p: dict, x: torch.Tensor, spec, rt: RuntimeCfg,
             outs.append(o)
         out = torch.cat(outs, dim=1)
         if cache is not None:
-            cache["wkv"].copy_(state)
+            copy_into(cache["wkv"], state)
     out = rms_norm(p["gn"], out.to(x.dtype))             # per-head groupnorm
     out = out * F.silu(g)
     tm = einsum("bsnd,ndh->bsh", out, cast(p["w_tmo"], rt))
@@ -1039,8 +1036,8 @@ def rwkv6_layer(p: dict, x: torch.Tensor, spec, rt: RuntimeCfg,
 
     new_cache = None
     if cache is not None:
-        cache["shift_tm"].copy_(h[:, -1])
-        cache["shift_cm"].copy_(hc[:, -1])
+        copy_into(cache["shift_tm"], h[:, -1])
+        copy_into(cache["shift_cm"], hc[:, -1])
         new_cache = {"wkv": cache["wkv"], "shift_tm": cache["shift_tm"],
                      "shift_cm": cache["shift_cm"]}
     return x, new_cache

@@ -2,7 +2,9 @@
 package's, at published size, nothing run: for the ten archs on the fake
 256-rank (16x16) and 512-rank (2x16x16) process groups, the logical rules,
 the batch's shapes, dtypes and specs, the decode caches' specs (the
-layer-sharding heuristic and the batch one), rank 0's argument bytes (the
+layer-sharding heuristic and the batch one; and, placed by ``prepare``
+with the rule override ``_cache_seq_axis``, the batch one with the
+kv-sequence over model), rank 0's argument bytes (the
 port's fake local shards against ``NamedSharding.shard_shape``),
 ``model_flops_total`` and (training and decode) ``stage_predict`` on H100s
 are equal.  The JAX
@@ -289,12 +291,84 @@ def test_fail_record_carries_the_error_and_its_trace(tmp_path):
     assert not dist.is_initialized()
 
 
-def test_seq_axis_override_is_refused():
+# the JAX package's variant m2 of minitron-8b decode_32k
+# (benchmarks/perf_iterations.py): the batch-sharded cache with its
+# kv-sequence over model
+SEQ_OVERRIDES = dryrun.VARIANTS["m2"][1]
+
+
+def test_variants_are_the_references():
+    """``dryrun.VARIANTS`` holds the labels and rule overrides of the JAX
+    package's minitron-8b decode_32k variants, read from the benchmark's
+    source (importing it would import ``repro.launch.dryrun``)."""
+    import ast
+    tree = ast.parse((ROOT / "benchmarks" / "perf_iterations.py").read_text())
+    table = next(n.value for n in ast.walk(tree) if isinstance(n, ast.Assign)
+                 and getattr(n.targets[0], "id", "") == "VARIANTS")
+    want = {}
+    for row in table.elts:
+        arch, shape, label = (ast.literal_eval(e) for e in row.elts[:3])
+        if (arch, shape) == ("minitron-8b", "decode_32k"):
+            want[label[:2]] = (label, ast.literal_eval(row.elts[4]))
+    assert dryrun.VARIANTS == want
+
+
+def test_variant_flag_labels_the_record(tmp_path, capsys):
+    """``--variant`` runs one cell with the variant's overrides and label;
+    a name outside VARIANTS, or with ``--all``, is refused."""
+    out = tmp_path / "r.jsonl"
+    dryrun.main(["--arch", "qwen3-14b", "--shape", "long_500k", "--variant",
+                 "m2", "--device", "cpu", "--out", str(out)])
+    rec = json.loads(out.read_text())
+    assert rec["status"] == "SKIP"
+    assert rec["label"] == "m2-m1+cache-seq-over-model"
+    assert dryrun.done_cells(str(out)) == set()
+    for argv in (["--variant", "m3"], ["--all", "--variant", "m1"]):
+        with pytest.raises(SystemExit):
+            dryrun.main(argv + ["--device", "cpu", "--out", str(out)])
+    capsys.readouterr()
+
+
+@pytest.fixture(scope="module")
+def seq_cells():
+    """Each arch's decode_32k cell placed by ``prepare`` with the m2
+    overrides on the fake 256-rank group: the cache's placements by path,
+    rank 0's argument bytes, and the mesh."""
+    from torch.distributed.tensor import DTensor
+    out = {}
     with dryrun.fake_group(256):
         mesh = make_production_mesh(device="cpu")
-        with pytest.raises(ValueError, match="_cache_seq_axis"):
-            dryrun.prepare(get("minitron-8b"), SHAPES["decode_32k"], mesh,
-                           rule_overrides={"_cache_seq_axis": "model"})
+        for name in ARCHS:
+            cell = dryrun.prepare(get(name), SHAPES["decode_32k"], mesh,
+                                  rule_overrides=SEQ_OVERRIDES)
+            out[name] = {
+                "placements": {p: tuple(t.placements) for p, t in
+                               _paths(cell.args[1]) if isinstance(t, DTensor)},
+                "args_bytes": sum(dryrun._nbytes(t.to_local()) for t in
+                                  dryrun._tensors(cell.args)),
+                "mesh": mesh}
+            del cell
+    return out
+
+
+@pytest.mark.parametrize("name", ARCHS)
+def test_seq_axis_override_places_the_references_cache(reference, seq_cells,
+                                                       name):
+    """``prepare`` runs the kv-sequence override for each arch's decode cell
+    on the 16x16 fake group: every cache leaf's placements are those of
+    the reference's ``_cache_shardings(seq_axis="model")`` spec, at least
+    one leaf is sharded over model, and rank 0's argument bytes are the
+    reference's with that cache."""
+    from repro_torch.parallel import spec_placements
+    want = reference()["16x16"][name]["shapes"]["decode_32k"]
+    got = seq_cells[name]
+    assert got["placements"] == {
+        p: spec_placements(tuple(None if e is None else tuple(e)
+                                 for e in spec), got["mesh"])
+        for p, spec in want["cache_seq"].items()}
+    assert any("model" in (e or []) for spec in want["cache_seq"].values()
+               for e in spec)
+    assert got["args_bytes"] == want["seq_args_bytes"]
 
 
 def test_done_cells_and_all_resume(tmp_path, capsys):

@@ -11,7 +11,8 @@ import torch
 
 ROOT = Path(__file__).resolve().parents[1]
 PKG = ROOT / "src" / "repro_torch"
-FILES = sorted(PKG.rglob("*.py")) + [ROOT / "chip_smoke.py"]
+FILES = sorted(PKG.rglob("*.py")) + [ROOT / "chip_smoke.py"] \
+    + sorted((ROOT / "examples_torch").glob("*.py"))
 # ml_dtypes comes with jax: an install of torch alone has none
 FORBIDDEN = {"jax", "jaxlib", "repro", "flax", "optax", "ml_dtypes"}
 

@@ -4,7 +4,10 @@ selective scan ``_ssm_scan`` and ``mamba_layer`` (prefill and cache steps).
 Inputs come from numpy with a seed; the layer's weights are drawn by the JAX
 package's ``init_mamba`` and carried across.  fp32 throughout: the scan
 within 1e-6 relative (the port combines the same pairs in the same order as
-``jax.lax.associative_scan``), the layer within 1e-5."""
+``jax.lax.associative_scan``), the layer within 1e-5.  The sequential
+oracle ``kernels.ref.ref_ssm`` equal to the JAX package's within 1e-6
+relative (the same multiply-add per step; XLA may fuse it), and the scan
+within 1e-5 of it, the JAX package's own test's bound made relative."""
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -12,9 +15,11 @@ import pytest
 import torch
 
 from repro.configs import get as jax_get
+from repro.kernels import ref as JREF
 from repro.models import layers as JL
 from repro.models.common import Initializer as JaxInitializer
 from repro.models.common import pvalue
+from repro_torch.kernels import ref as REF
 from repro_torch.models import layers as L
 from repro_torch.models import params_from_reference
 from torch_port_helpers import as_f32, port_spec, runtimes, to_jax, to_torch
@@ -143,3 +148,24 @@ def test_softplus_is_jax_softplus():
     np.testing.assert_allclose(as_f32(L._softplus(to_torch(x))),
                                as_f32(jax.nn.softplus(jnp.asarray(x))),
                                rtol=1e-7, atol=0)
+
+
+@pytest.mark.parametrize("s", [1, 37, 300])
+def test_ref_ssm_is_the_references(s):
+    """The port's ``ref_ssm`` (a plain loop) against ``repro.kernels.ref.
+    ref_ssm`` (``lax.scan``), fp32, and ``_ssm_scan`` against it."""
+    dA, dBx, h0 = _scan_inputs(100 + s, 2, s, 5, 3)
+    want_hs, want_h = JREF.ref_ssm(to_jax(dA), to_jax(dBx), to_jax(h0))
+    got_hs, got_h = REF.ref_ssm(to_torch(dA), to_torch(dBx), to_torch(h0))
+    assert got_hs.shape == (2, s, 5, 3) and got_h.shape == (2, 5, 3)
+    assert got_hs.dtype == got_h.dtype == torch.float32
+    for got, want in ((got_hs, want_hs), (got_h, want_h)):
+        want = as_f32(want)
+        np.testing.assert_allclose(as_f32(got), want, rtol=1e-6,
+                                   atol=1e-6 * np.abs(want).max())
+    scan_hs, scan_h = L._ssm_scan(to_torch(dA), to_torch(dBx), to_torch(h0),
+                                  min(s, 256))
+    for got, want in ((scan_hs, got_hs), (scan_h, got_h)):
+        want = as_f32(want)
+        np.testing.assert_allclose(as_f32(got), want, rtol=1e-5,
+                                   atol=1e-5 * np.abs(want).max())

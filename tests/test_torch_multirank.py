@@ -1,7 +1,9 @@
 """The port on a (2, 4) ("data", "model") DeviceMesh of 8 gloo ranks: the
 expert-parallel MoE branch (all-to-all, ZeRO-3 gathers), a train step with
 DTensor parameters and ZeRO-1 moments, served decode, the kernel entries
-on local shards, checkpoints placed by ``shardings=``, and what must raise.
+on local shards, checkpoints placed by ``shardings=``, what must raise,
+and every family's greedy decode through a cache sharded over its
+kv-sequence (or a state over its channels).
 As ``tests/test_multidevice.py`` does for the JAX package with 8
 placeholder devices, the ranks run in a subprocess
 (``tests/torch_multirank_worker.py``, one spawn for every check), so that no
@@ -19,7 +21,8 @@ from pathlib import Path
 
 import pytest
 
-from torch_multirank_worker import CHECKS, LOSS_REL
+from torch_multirank_worker import (CHECKS, LOSS_REL, SEQ_FAMILIES, SEQ_KV,
+                                    SEQ_PROMPT)
 
 ROOT = Path(__file__).resolve().parents[1]
 
@@ -113,3 +116,39 @@ def test_what_must_raise_on_the_mesh(results):
     assert rows["layer_sharded_leaves"] == 2, rows      # k and v
     assert rows["tokens_equal"] and rows["logits_equal"], rows
     assert rows["cache_equal"], rows
+
+
+# the families whose model-sharded leaves are all attention caches: through
+# the kernel entry their keys are gathered before attention
+GATHERED = ("qwen3-14b", "gemma2-27b", "deepseek-v2-236b", "deepseek-moe-16b",
+            "whisper-medium")
+
+
+def test_seq_span_crosses_a_shard_boundary():
+    """The second step writes positions SEQ_PROMPT .. SEQ_PROMPT + 2, which
+    straddle the end of the first of the 4 sequence shards."""
+    assert SEQ_PROMPT < SEQ_KV // 4 < SEQ_PROMPT + 3
+
+
+@pytest.mark.parametrize("name", list(SEQ_FAMILIES))
+def test_decode_through_a_seq_sharded_cache(results, name):
+    """Six greedy steps through ``dryrun._cache_shardings(seq_axis=
+    "model")``'s cache, alone and with the layer-stack heuristic's shards,
+    give the replicated cache's tokens.  Through the kernel entry, where
+    the keys are gathered before attention, the logits and the cache are
+    bit for bit the replicated run's (attention-only caches); elsewhere
+    (scores summed over the key shards by the naive core, a recurrent state
+    split over its channels) within 1e-5 * max|replicated| + 1e-6."""
+    d = _ok(results, f"seq_cache[{name}]")
+    assert d["model_sharded_leaves"] > 0, d
+    # jamba's period of 8 at 8 layers stacks one layer a slot: nothing to
+    # shard over data there
+    assert (d["layer_and_model_sharded_leaves"] > 0) \
+        == (name != "jamba-v0.1-52b"), d
+    for mode in ("seq", "seq_layers", "seq_kernel_entry",
+                 "seq_layers_kernel_entry"):
+        got = d[mode]
+        assert got["tokens_equal"], (mode, got)
+        assert got["logits"] <= 1.0 and got["cache"] <= 1.0, (mode, got)
+        if name in GATHERED and "kernel_entry" in mode:
+            assert got["bit_equal"], (mode, got)

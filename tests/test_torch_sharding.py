@@ -245,3 +245,18 @@ def test_production_mesh_needs_its_world():
         make_production_mesh()
     with pytest.raises(ValueError, match="512 ranks"):
         make_production_mesh(multi_pod=True)
+
+
+def test_launch_reexports_the_mesh_helpers():
+    """``repro_torch.launch`` re-exports what ``repro.launch`` does: the
+    production mesh and the data axes of a mesh."""
+    import repro.launch as jax_launch
+    import repro_torch.launch as launch
+    from repro_torch.launch import mesh
+    public = {n for n in dir(jax_launch) if not n.startswith("_")
+              and callable(getattr(jax_launch, n))}
+    assert public == {"data_axes_of", "make_production_mesh"}
+    assert launch.data_axes_of is mesh.data_axes_of
+    assert launch.make_production_mesh is mesh.make_production_mesh
+    assert launch.data_axes_of({"pod": 2, "data": 16, "model": 16}) \
+        == ("pod", "data")

@@ -8,8 +8,9 @@ holds the port's against, written as one JSON file:
 it is imported, so it is imported first, in a process of its own (never in
 a pytest worker).  Nothing is compiled: for the ten archs on the 16x16 and
 2x16x16 production meshes, the logical rules, the batch's shapes, dtypes
-and specs, the decode caches' specs (the layer-sharding heuristic and the
-batch one), rank 0's argument bytes from ``NamedSharding.shard_shape`` over
+and specs, the decode caches' specs (the layer-sharding heuristic, the
+batch one, and the batch one with the kv-sequence over ``model``: the rule
+override ``_cache_seq_axis``), rank 0's argument bytes from ``NamedSharding.shard_shape`` over
 ``eval_shape``'d parameters, ZeRO-1 optimizer state, batch and cache (the
 cache's ``pos`` arrays left out: the port keeps ``pos`` as a Python int),
 ``model_flops_total`` of ``analyze`` (on a stand-in for the compiled
@@ -120,19 +121,31 @@ def main(out_path: str) -> None:
                             jax.tree_util.tree_flatten_with_path(c_shard)[0]
                             if not path_of(p).endswith("pos")}
                     cell["cache"] = specs
-                    c_shard = dryrun._cache_shardings(cache, mesh, batch=b,
-                                                      buggy=True)
-                    keep = [(x, s) for (p, x), s in zip(
-                        jax.tree_util.tree_flatten_with_path(cache)[0],
-                        jax.tree.leaves(c_shard))
-                        if not path_of(p).endswith("pos")]
                     tok = jax.ShapeDtypeStruct((b, 1), jnp.int32)
                     t_shard = NamedSharding(mesh, P(da) if b % deg == 0
                                             else P())
-                    args = local_bytes(params, p_shard) \
-                        + local_bytes([x for x, _ in keep],
-                                      [s for _, s in keep]) \
-                        + local_bytes(tok, t_shard)
+
+                    def decode_args(c_shard):
+                        keep = [(x, s) for (p, x), s in zip(
+                            jax.tree_util.tree_flatten_with_path(cache)[0],
+                            jax.tree.leaves(c_shard))
+                            if not path_of(p).endswith("pos")]
+                        return local_bytes(params, p_shard) \
+                            + local_bytes([x for x, _ in keep],
+                                          [s for _, s in keep]) \
+                            + local_bytes(tok, t_shard)
+                    args = decode_args(dryrun._cache_shardings(
+                        cache, mesh, batch=b, buggy=True))
+                    # the m2 variant: _buggy_cache False, _cache_seq_axis
+                    # "model" (lower_cell's rule overrides)
+                    seq = dryrun._cache_shardings(cache, mesh, batch=b,
+                                                  seq_axis="model",
+                                                  buggy=False)
+                    cell["cache_seq"] = {
+                        path_of(p): spec_of(s) for p, s in
+                        jax.tree_util.tree_flatten_with_path(seq)[0]
+                        if not path_of(p).endswith("pos")}
+                    cell["seq_args_bytes"] = decode_args(seq)
                 cell["args_bytes"] = args
                 if shape_name in arch.skip:
                     continue

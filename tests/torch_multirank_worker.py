@@ -377,6 +377,106 @@ def check_layer_sharded_decode(mesh):
             "tokens": sharded[0]}
 
 
+# every family's smoke spec for the seq-sharded decode cache; gemma2's
+# window widened to 32 (over 4 ranks, 8 entries a shard) and qwen3's and
+# rwkv6's stacks cut to 2 layers, so that the heuristics shard the ring's
+# sequence (the largest dim: not the head dim, 16) and the layer stacks (a
+# depth the data degree divides)
+SEQ_FAMILIES = {"qwen3-14b": {"n_layers": 2}, "gemma2-27b": {"window": 32},
+                "deepseek-v2-236b": {}, "deepseek-moe-16b": {},
+                "jamba-v0.1-52b": {}, "rwkv6-7b": {"n_layers": 2},
+                "whisper-medium": {}}
+SEQ_KV, SEQ_PROMPT, SEQ_STEPS = 64, 14, 6
+
+
+def _with_seq(by_layers, by_seq):
+    """The layer-stack heuristic's shardings with the kv-sequence one's
+    ``model`` added on the dim it shards, where that dim is still free."""
+    from repro_torch.parallel import NamedSharding
+    if isinstance(by_layers, dict):
+        return {k: _with_seq(v, by_seq[k]) for k, v in by_layers.items()}
+    if isinstance(by_layers, list):
+        return [_with_seq(a, b) for a, b in zip(by_layers, by_seq)]
+    spec = list(by_layers.spec) + [None] * (len(by_seq.spec)
+                                            - len(by_layers.spec))
+    for d, e in enumerate(by_seq.spec):
+        if e == "model" and spec[d] is None:
+            spec[d] = e
+    return NamedSharding(by_layers.mesh, tuple(spec))
+
+
+def check_seq_sharded_decode(mesh, name: str):
+    """Six greedy decode steps through a cache whose largest dim past the
+    batch (the kv-sequence of attention caches, gemma2's ring included; the
+    channels of the Mamba and RWKV6 states) is sharded over model
+    (``dryrun._cache_shardings(seq_axis="model")``), alone and combined with
+    the layer-stack heuristic (``buggy=True``), against the same steps
+    through a replicated cache.  The first step feeds a 14-token prompt, the
+    second 3 tokens at positions 14-16, across the boundary of the first
+    two sequence shards (16 entries each).  With ``attention_impl="naive"``
+    the scores are summed over the key shards (another order: within
+    EP_TOL); through the kernel entry (``"cuda"``, its plain version on the
+    CPU) the keys are gathered first."""
+    import dataclasses
+    from repro_torch.configs import get
+    from repro_torch.launch.dryrun import _cache_shardings
+    from repro_torch.models import (RuntimeCfg, init_cache, init_params, lm,
+                                    param_axes)
+    from repro_torch.models.common import _tree_map
+    from repro_torch.parallel import (NamedSharding, distribute,
+                                      logical_rules, param_shardings)
+    from repro_torch.train.tree import leaves
+    spec = dataclasses.replace(get(name).smoke, **SEQ_FAMILIES[name])
+    rt = RuntimeCfg(attention_impl="naive", param_dtype="float32",
+                    compute_dtype="float32")
+    params = init_params(spec, rt, device="cpu", seed=0)
+    rules_d = logical_rules(data_axes=("data",))
+    dparams = distribute(params, param_shardings(params, param_axes(spec),
+                                                 rules_d, mesh))
+    empty = init_cache(spec, rt, 4, SEQ_KV, device="cpu")
+    by_seq = _cache_shardings(empty, mesh, batch=4, seq_axis="model")
+    by_seq_layers = _with_seq(_cache_shardings(empty, mesh, buggy=True),
+                              by_seq)
+    whole_cache = _tree_map(lambda _: NamedSharding(mesh, ()), empty)
+    rng = np.random.default_rng(3)
+    prompt = torch.from_numpy(rng.integers(0, spec.vocab, (4, SEQ_PROMPT)))
+    extra = torch.from_numpy(rng.integers(0, spec.vocab, (4, 2)))
+
+    def greedy(shardings, impl):
+        run_rt = dataclasses.replace(rt, attention_impl=impl)
+        cache = distribute(init_cache(spec, rt, 4, SEQ_KV, device="cpu"),
+                           shardings)
+        tok, toks, logits = prompt, [], []
+        for i in range(SEQ_STEPS):
+            out, cache = lm.decode_step(dparams, cache, tok, spec, run_rt)
+            out = _full(out)
+            tok = out[:, -1].argmax(-1, keepdim=True)
+            toks.append(tok.flatten().tolist())
+            logits.append(out)
+            if i == 0:
+                tok = torch.cat([tok, extra], dim=1)
+        return toks, logits, [_full(t) for t in leaves(cache)
+                              if isinstance(t, torch.Tensor)]
+
+    def vs(got, want):
+        return {"tokens_equal": got[0] == want[0],
+                "logits": _worst(got[1], want[1], EP_TOL),
+                "cache": _worst(got[2], want[2], EP_TOL),
+                "bit_equal": all(torch.equal(a, b) for a, b in
+                                 zip(got[1] + got[2], want[1] + want[2]))}
+    want = {impl: greedy(whole_cache, impl) for impl in ("naive", "cuda")}
+    specs = [s.spec for s in _sh_leaves(by_seq_layers)]
+    return {"seq": vs(greedy(by_seq, "naive"), want["naive"]),
+            "seq_layers": vs(greedy(by_seq_layers, "naive"), want["naive"]),
+            "seq_kernel_entry": vs(greedy(by_seq, "cuda"), want["cuda"]),
+            "seq_layers_kernel_entry": vs(greedy(by_seq_layers, "cuda"),
+                                          want["cuda"]),
+            "model_sharded_leaves": sum("model" in s for s in specs),
+            "layer_and_model_sharded_leaves": sum(
+                "model" in s and s[:1] == (("data",),) for s in specs),
+            "tokens": want["naive"][0]}
+
+
 CHECKS = {
     "ep_moe[seq16]": lambda m, **_: check_ep_moe(m, False, 16),
     "ep_moe[seq16-fsdp-gather]": lambda m, **_: check_ep_moe(m, True, 16),
@@ -393,6 +493,8 @@ CHECKS = {
     "kernel_entries": lambda m, **_: check_kernel_entries(m),
     "checkpoint": lambda m, tmp, rank: check_checkpoint(m, tmp, rank),
     "refusals": lambda m, **_: check_refusals(m),
+    **{f"seq_cache[{n}]": (lambda m, n=n, **_: check_seq_sharded_decode(m, n))
+       for n in SEQ_FAMILIES},
 }
 
 

@@ -218,3 +218,73 @@ def check_remat_equal(name):
                                     train_runtimes(8, remat)[1])
         assert l == pytest.approx(base_l, rel=1e-6)
         assert_grads_close(g, base_g, rel=1e-6, floor=0.0)
+
+
+# ---------------------------------------------------------------------------
+# The examples and their twins (examples/ and examples_torch/)
+# ---------------------------------------------------------------------------
+
+def run_example_pair(name: str, tmp_path, twin_args=(), jax_args=(),
+                     timeout=600, jax_script=None) -> tuple:
+    """Run ``examples/<name>.py`` (or ``jax_script``, a copy of it, with
+    ``jax_args``) and ``examples_torch/<name>.py`` (with ``twin_args``),
+    both at once, each in a subprocess of its own with its own working
+    directory and a shared TMPDIR under ``tmp_path``; returns their
+    standard outputs as lists of lines.  Either failing fails."""
+    import os
+    import subprocess
+    import sys
+    from pathlib import Path
+    root = Path(__file__).resolve().parents[1]
+    tmp = Path(tmp_path) / "tmp"
+    tmp.mkdir(exist_ok=True)
+    env = dict(os.environ, PYTHONPATH=str(root / "src"), JAX_PLATFORMS="cpu",
+               TMPDIR=str(tmp))
+    procs = []
+    scripts = (jax_script or root / "examples" / f"{name}.py",
+               root / "examples_torch" / f"{name}.py")
+    for pkg, script, args in (("examples", scripts[0], tuple(jax_args)),
+                              ("examples_torch", scripts[1],
+                               tuple(twin_args))):
+        cwd = Path(tmp_path) / pkg
+        cwd.mkdir(exist_ok=True)
+        procs.append(subprocess.Popen(
+            [sys.executable, str(script), *args],
+            env=env, cwd=cwd, stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+            text=True))
+    outs = []
+    for pkg, proc in zip(("examples", "examples_torch"), procs):
+        out, err = proc.communicate(timeout=timeout)
+        assert proc.returncode == 0, (pkg, name, err[-4000:])
+        outs.append(out.splitlines())
+    return tuple(outs)
+
+
+def masked(lines: list, masks: dict) -> tuple:
+    """``lines`` with each of ``masks`` ({what it hides: (regex,
+    replacement)}) applied to every line, and the names of the masks that
+    changed some line."""
+    import re
+    used = set()
+    out = []
+    for line in lines:
+        for what, (pattern, repl) in masks.items():
+            new = re.sub(pattern, repl, line)
+            if new != line:
+                used.add(what)
+            line = new
+        out.append(line)
+    return out, used
+
+
+def assert_same_output(name, jax_lines, torch_lines, masks=None) -> None:
+    """The two outputs equal line for line once ``masks`` hide what reads a
+    clock or names a temporary path; each mask must hide something in
+    both, so that none is left over from a line that has gone."""
+    masks = masks or {}
+    want, used_j = masked(jax_lines, masks)
+    got, used_t = masked(torch_lines, masks)
+    assert used_j == used_t == set(masks), (name, used_j, used_t)
+    assert len(got) == len(want) > 0, (name, len(got), len(want))
+    for i, (g, w) in enumerate(zip(got, want)):
+        assert g == w, (name, i, g, w)
