@@ -187,8 +187,10 @@ Phases, one JSON line each on standard output:
 
 ``--profile`` adds to each serve line a trace of four decode steps and of
 one warm prefill: device-busy time, idle share, top kernels, and the device
-time of Mamba's scan and conv, the MoE dispatch and combine (torch.profiler
-ranges) and of the flash and cuBLAS kernels.
+time under the program's own spans (``repro_torch.obs``, on inside the
+profile): the Mamba mixer and its SSM part (dA, dBx, the scan and the
+y-contraction), the MoE FFN and its dispatch and combine; and of the flash
+and cuBLAS kernels.
 
 Each phase line carries the seconds since the script started.  After serve,
 sweep, api and analysis, the ``kernels`` line: every kernel with its
@@ -1140,65 +1142,52 @@ def device_us(e) -> float:
                    getattr(e, "self_cuda_time_total", 0.0))
 
 
-# the port's functions a profile times apart (each runs inside a
-# torch.profiler range of its own name while the profile records), and the
-# device kernels it sums by family, from their names
-PROFILED_FUNCTIONS = ("mamba_layer", "_ssm_scan", "_causal_conv", "moe_ffn",
-                      "moe_dispatch", "moe_combine")
+# the parts of the model a profile times apart, each by the device time
+# under one of the program's own spans (``repro_torch.obs``, on inside the
+# profile: each span opens a profiler range of its name), and the device
+# kernels it sums by family, from their names.  ``mamba.ssm`` covers dA and
+# dBx built, the scan and the y-contraction: wider than ``_ssm_scan`` alone
+SPAN_PARTS = {"mamba_layer": "model.mamba", "_ssm_scan": "mamba.ssm",
+              "moe_ffn": "model.moe", "moe_dispatch": "moe.dispatch",
+              "moe_combine": "moe.combine"}
 KERNEL_FAMILIES = {"flash_attention": ("flash",), "wkv6": ("wkv6",),
                    "cublas": ("gemm", "nvjet", "cutlass", "xmma")}
 
 
 @contextlib.contextmanager
-def profiled_functions():
-    """Wrap each of ``PROFILED_FUNCTIONS`` of ``models.layers`` in a range of
-    its name, for one profile; the functions are restored after it."""
-    from torch.profiler import record_function
-    from repro_torch.models import layers
-    saved = {name: getattr(layers, name) for name in PROFILED_FUNCTIONS}
-
-    def ranged(name, fn):
-        def call(*args, **kw):
-            with record_function(name):
-                return fn(*args, **kw)
-        return call
-
-    for name, fn in saved.items():
-        setattr(layers, name, ranged(name, fn))
-    try:
-        yield
-    finally:
-        for name, fn in saved.items():
-            setattr(layers, name, fn)
+def profiled_spans():
+    """torch.profiler over CPU and CUDA with the program's spans on inside
+    it: yields (the profiler, the spans' ``Profile``, filled on exit)."""
+    from torch.profiler import ProfilerActivity, profile
+    from repro_torch.obs import spans
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) \
+            as prof, spans.profiled() as trace:
+        yield prof, trace
 
 
-def kernel_events(prof) -> list:
+def kernel_events(prof, trace) -> list:
     """The ``key_averages`` rows of device kernels.  The device-side rows of
-    the ranges ``profiled_functions`` opens (their spans on the device,
-    idle gaps included) are no kernels and are left out."""
+    the program's spans (their annotations on the device, idle gaps
+    included) are no kernels and are left out."""
     from torch.autograd import DeviceType
+    names = {e.name for e in trace.events}
     return [e for e in prof.key_averages()
             if e.device_type == DeviceType.CUDA and device_us(e) > 0
-            and e.key not in PROFILED_FUNCTIONS]
+            and e.key not in names]
 
 
-def device_split(prof, events, busy_ms: float, per: int = 1) -> dict:
-    """Device ms (per ``per`` steps) and share of the busy time of each
-    profiled function that ran (the kernels of every op under its range)
+def device_by_part(prof, trace, events, busy_ms: float, per: int = 1) -> dict:
+    """Device ms (per ``per`` steps) and share of the busy time of each part
+    of ``SPAN_PARTS`` that ran (the kernels inside its span's annotations)
     and of each kernel family."""
-    ranges = {name: 0.0 for name in PROFILED_FUNCTIONS}
-    for e in prof.events():
-        us = sum(k.duration for k in e.kernels if k.name not in ranges)
-        parent = e.cpu_parent
-        while us and parent is not None:
-            if parent.name in ranges:
-                ranges[parent.name] += us
-            parent = parent.cpu_parent
+    under = trace.device_time(prof)
+    parts = {part: under.get(name, 0.0) * 1e6
+             for part, name in SPAN_PARTS.items()}
     families = {fam: sum(device_us(e) for e in events
                          if any(t in e.key.lower() for t in tags))
                 for fam, tags in KERNEL_FAMILIES.items()}
     out = {}
-    for name, us in {**ranges, **families}.items():
+    for name, us in {**parts, **families}.items():
         if us > 0:
             ms = us / 1e3 / per
             out[name] = {"ms": ms, "share_of_busy": ms / busy_ms}
@@ -1211,7 +1200,6 @@ def profile_decode(spec, rt, params, steps: int = 4) -> dict:
     torch.profiler.  The device-busy time per step comes from the trace; the
     idle share holds it against the step time of those 16 steps, so both
     numbers are one engine's in one run."""
-    from torch.profiler import ProfilerActivity, profile
     eng = Engine(spec, rt, params, batch_slots=8, kv_len=2048, device=DEV)
     rng = np.random.RandomState(7)
     for rid in range(8):
@@ -1223,13 +1211,12 @@ def profile_decode(spec, rt, params, steps: int = 4) -> dict:
     eng.run(max_steps=16)
     torch.cuda.synchronize()
     step_ms = (time.perf_counter() - t0) * 1e3 / 16
-    with profiled_functions(), profile(
-            activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+    with profiled_spans() as (prof, trace):
         eng.run(max_steps=steps)
         torch.cuda.synchronize()
 
     # kernel events only: the CPU-side op rows repeat their kernels' time
-    events = kernel_events(prof)
+    events = kernel_events(prof, trace)
     busy_ms = sum(device_us(e) for e in events) / 1e3 / steps
     if not events:
         return {"device_busy_ms_per_step": "not measured",
@@ -1240,8 +1227,8 @@ def profile_decode(spec, rt, params, steps: int = 4) -> dict:
         "step_ms_unprofiled_same_engine": step_ms,
         "device_idle_share": max(0.0, 1.0 - busy_ms / step_ms),
         "device_kernels_per_step": sum(e.count for e in events) / steps,
-        "device_ms_per_step_by_part": device_split(prof, events, busy_ms,
-                                                   steps),
+        "device_ms_per_step_by_part": device_by_part(prof, trace, events,
+                                                     busy_ms, steps),
         "top_device_ms_per_step": [
             {"name": e.key[:60], "ms": device_us(e) / 1e3 / steps,
              "calls": e.count / steps} for e in top],
@@ -1285,19 +1272,16 @@ def profile_prefill(prefill, params, tokens, kernel: str) -> dict:
     """Where a warm [2, 2048] prefill's time goes (``--profile``): one
     prefill under torch.profiler; its wall time on the host beside the
     device-busy time and the device time of the model's kernel in it."""
-    from torch.profiler import ProfilerActivity, profile
     with torch.no_grad():
         prefill(params, tokens)                          # warm-up
     torch.cuda.synchronize()
-    with profiled_functions(), profile(
-            activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof, \
-            torch.no_grad():
+    with profiled_spans() as (prof, trace), torch.no_grad():
         t0 = time.perf_counter()
         prefill(params, tokens)
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3
 
-    events = kernel_events(prof)
+    events = kernel_events(prof, trace)
     if not events:
         return {"device_busy_ms": "not measured",
                 "reason": "the profiler recorded no device time"}
@@ -1310,7 +1294,7 @@ def profile_prefill(prefill, params, tokens, kernel: str) -> dict:
         "device_idle_share": max(0.0, 1.0 - busy_ms / wall_ms),
         f"{kernel}_device_ms": sum(device_us(e) for e in mine) / 1e3,
         f"{kernel}_kernel_launches": sum(e.count for e in mine),
-        "device_ms_by_part": device_split(prof, events, busy_ms),
+        "device_ms_by_part": device_by_part(prof, trace, events, busy_ms),
         "top_device_ms": [{"name": e.key[:60], "ms": device_us(e) / 1e3,
                            "calls": e.count} for e in top],
     }

@@ -9,13 +9,16 @@ it, through the decode path alone: whisper-medium decodes against its
 cross-attention caches, which nothing fills (zeros), and internvl2-26b
 without a vision prefix.  Before it serves, it prints the symbolic
 pre-flight line (:mod:`repro_torch.launch.preflight`): the decode step's
-predicted time and peak memory on the modelled cluster.
+predicted time and peak memory on the modelled cluster, priced for the
+card it runs on (``H100_HGX`` on a CUDA device, the advisor's default
+otherwise).
 """
 import argparse
 
 import numpy as np
 import torch
 
+from repro_torch import H100_HGX
 from repro_torch._device import resolve_device
 from repro_torch.configs import get as get_arch
 from repro_torch.launch.preflight import announce, preflight
@@ -25,14 +28,16 @@ from repro_torch.serve import Engine, Request
 
 def announce_preflight(spec, *, slots: int, kv_len: int, device) -> None:
     """Print the ``STAGE pre-flight:`` line for a decode engine of ``slots``
-    requests against a ``kv_len`` cache, one data-parallel replica per card
-    (advisory only: a failure prints why and never blocks serving)."""
+    requests against a ``kv_len`` cache, one data-parallel replica per card,
+    priced on the H100 on a CUDA device (advisory only: a failure prints why
+    and never blocks serving)."""
+    cuda = device.type == "cuda"
+    hw = {"hw": H100_HGX} if cuda else {}
     try:
         announce("serve", preflight(spec, mode="decode", batch=slots,
                                     seq=1, kv_len=kv_len,
-                                    dp=torch.cuda.device_count()
-                                    if device.type == "cuda" else 1,
-                                    ep=spec.moe is not None))
+                                    dp=torch.cuda.device_count() if cuda
+                                    else 1, ep=spec.moe is not None, **hw))
     except Exception as e:  # noqa: BLE001 — advisory only, never blocks
         print(f"[serve] STAGE pre-flight unavailable: {e}")
 

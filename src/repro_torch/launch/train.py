@@ -21,6 +21,7 @@ import time
 
 import torch
 
+from repro_torch import H100_HGX
 from repro_torch._device import resolve_device
 from repro_torch.ckpt import CheckpointManager
 from repro_torch.configs import get as get_arch
@@ -49,10 +50,11 @@ def train(spec, *, steps: int = 20, batch: int = 4, seq: int = 64,
     n_dev = torch.cuda.device_count() if device.type == "cuda" else 1
     print(f"training {spec.name}: {spec.params()/1e6:.1f}M params, "
           f"{n_dev} devices")
+    hw = {"hw": H100_HGX} if device.type == "cuda" else {}
     try:
         announce("train", preflight(spec, mode="train", batch=batch,
                                     seq=seq, dp=n_dev,
-                                    ep=spec.moe is not None))
+                                    ep=spec.moe is not None, **hw))
     except Exception as e:  # noqa: BLE001 — advisory only, never blocks
         print(f"[train] STAGE pre-flight unavailable: {e}")
 

@@ -21,6 +21,12 @@ Shapes follow the JAX package so weights carry across leaf by leaf:
   an input that requires grad (``kernels/ops.py``).
 * The Mamba scan (``_ssm_scan``) is plain PyTorch, as the JAX package's is
   plain JAX (``lax.associative_scan``, no Pallas kernel).
+* With ``repro_torch.obs`` tracing on, the parts a fused kernel would
+  replace record spans of their own: ``mamba.ssm`` (dA and dBx built, the
+  scan, the y-contraction), ``moe.dispatch`` and ``moe.combine``; and the
+  routing counts its work and waste (``moe.picks`` and
+  ``moe.experts_read`` on the host, ``moe.experts_used`` and ``moe.kept``
+  on the device, with no sync).  With tracing off none of these runs.
 * Every layer takes ``rules`` (``AxisRules``) and constrains its
   activations by logical axes at the JAX package's places: on DTensors
   (parameters placed on a ``DeviceMesh`` by ``parallel.sharding``) each
@@ -46,6 +52,9 @@ import torch
 import torch.nn.functional as F
 from torch.utils.checkpoint import checkpoint
 
+from ..obs import metrics
+from ..obs.spans import enabled as tracing_enabled
+from ..obs.spans import span, traced
 from .common import (AxisRules, Initializer, RuntimeCfg, constrain,
                      copy_into, cumsum, dt, einsum, matmul, mesh_of, pad_end,
                      ring_append, write_span)
@@ -493,6 +502,7 @@ def top_k_lowest_first(probs: torch.Tensor, k: int) -> tuple:
     return vals[..., :k], idx[..., :k]
 
 
+@traced("moe.dispatch")
 def moe_dispatch(h: torch.Tensor, wr: torch.Tensor, *, E: int, Kk: int,
                  capacity_factor: float) -> dict:
     """Routing and dispatch of tokens ``h [b, s, H]`` over ``E`` experts.
@@ -529,6 +539,8 @@ def moe_dispatch(h: torch.Tensor, wr: torch.Tensor, *, E: int, Kk: int,
     # the device)
     rank = torch.arange(T * Kk, device=h.device) - torch.searchsorted(se, se)
     keep = rank < C
+    if tracing_enabled():
+        _count_routing(E, T * Kk, rank, keep)
     # row se * C + rank of an [E * C + 1, H] buffer; every dropped entry
     # goes to the last row, which is cut off
     slot = torch.where(keep, se * C + rank, torch.full_like(se, E * C))
@@ -539,6 +551,19 @@ def moe_dispatch(h: torch.Tensor, wr: torch.Tensor, *, E: int, Kk: int,
             "C": C}
 
 
+def _count_routing(E: int, picks: int, rank, keep) -> None:
+    """The routing's work and waste, while tracing is on: picks (T·K) and
+    experts read (E: the expert products read every expert) on the host;
+    on the device, in one reduction with no sync, the experts that kept a
+    pick (the entries of rank 0) and the picks kept (the rest capacity
+    dropped)."""
+    metrics.counter("moe.picks").inc(picks)
+    metrics.counter("moe.experts_read").inc(E)
+    metrics.device_counter("moe.experts_used", "moe.kept").add(
+        torch.stack((rank == 0, keep)).sum(1))
+
+
+@traced("moe.combine")
 def moe_combine(eo: torch.Tensor, route: dict, T: int, Kk: int) -> torch.Tensor:
     """Expert outputs ``eo [E, C, H]`` back to tokens: [T, H].
 
@@ -867,14 +892,15 @@ def mamba_layer(p: dict, x: torch.Tensor, spec, rt: RuntimeCfg,
     dt0, Bt, Ct = (xdb[..., :dtr], xdb[..., dtr:dtr + ss.d_state],
                    xdb[..., dtr + ss.d_state:])
     dtt = _softplus(matmul(dt0, cast(p["w_dt"], rt)).float())       # [B,S,Din]
-    A = -torch.exp(p["A_log"].float())                         # [Din, P]
-    dA = torch.exp_(dtt[..., None] * A)                        # [B,S,Din,P]
-    dBx = (dtt * xc.float())[..., None] * Bt[:, :, None, :].float()
-    h0 = cache["ssm"] if cache is not None else \
-        torch.zeros((b, din, ss.d_state), dtype=torch.float32,
-                    device=x.device)
-    hs, h_last = _ssm_scan(dA, dBx, h0, chunk=min(s, 256))
-    y = einsum("bsip,bsp->bsi", hs, Ct.float()).to(x.dtype)
+    with span("mamba.ssm"):
+        A = -torch.exp(p["A_log"].float())                     # [Din, P]
+        dA = torch.exp_(dtt[..., None] * A)                    # [B,S,Din,P]
+        dBx = (dtt * xc.float())[..., None] * Bt[:, :, None, :].float()
+        h0 = cache["ssm"] if cache is not None else \
+            torch.zeros((b, din, ss.d_state), dtype=torch.float32,
+                        device=x.device)
+        hs, h_last = _ssm_scan(dA, dBx, h0, chunk=min(s, 256))
+        y = einsum("bsip,bsp->bsi", hs, Ct.float()).to(x.dtype)
     y = y + xc * cast(p["D"], rt)
     y = y * F.silu(z)
     out = matmul(y, cast(p["w_out"], rt))

@@ -29,6 +29,11 @@ grad.  ``rt.remat`` checkpoints the prefix layers, each repeat of the
 period and each encoder layer, as the JAX package does.
 
 A block kind no configuration has raises ``NotImplementedError``.
+
+With ``repro_torch.obs`` tracing on, each layer boundary records a span, in
+prefill and in decode: ``model.embed``, the mixer (``model.attn`` /
+``model.mla`` / ``model.mamba`` / ``model.rwkv``), ``model.cross``, the FFN
+(``model.moe`` / ``model.ffn``) and ``model.logits``.
 """
 from __future__ import annotations
 
@@ -42,6 +47,7 @@ from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
 
 from . import layers as L
 from .._device import resolve_device
+from ..obs.spans import span, traced
 from .common import (AxesInitializer, AxisRules, Initializer, RuntimeCfg,
                      _tree_map, dt, embed_rows, local_shape_and_offset,
                      mesh_of, on_mesh, replicated)
@@ -200,33 +206,45 @@ def _index(tree, i: int):
 # ---------------------------------------------------------------------------
 
 
+# the span of each mixer kind (``_slot_kind``'s, attention split into GQA and
+# MLA) and FFN kind
+_MIXER_SPANS = {"rwkv": "model.rwkv", "mamba": "model.mamba",
+                "attn": "model.attn", "mla": "model.mla"}
+_FFN_SPANS = {"moe": "model.moe", "ffn": "model.ffn"}
+
+
 def _apply_slot(p: dict, x, spec, rt, rules, kind: dict, *, positions=None,
                 cache=None, cross_kv=None, cross_p=None, cross_cache=None):
     name = kind["mixer"]
     layer_cache = None if cache is None else cache.get(name)
-    if name == "rwkv":
-        x, c = L.rwkv6_layer(p["rwkv"], x, spec, rt, rules,
-                             cache=layer_cache)
-    elif name == "mamba":
-        x, c = L.mamba_layer(p["mamba"], x, spec, rt, rules,
-                             cache=layer_cache)
-    elif spec.block == "mla":
-        x, c = L.mla_attention(p["attn"], x, spec, rt, rules,
-                               positions=positions, cache=layer_cache)
-    else:
-        x, c = L.gqa_attention(p["attn"], x, spec, rt, rules,
-                               positions=positions, window=kind["window"],
-                               cache=layer_cache)
+    with span(_MIXER_SPANS["mla" if name == "attn" and spec.block == "mla"
+                           else name]):
+        if name == "rwkv":
+            x, c = L.rwkv6_layer(p["rwkv"], x, spec, rt, rules,
+                                 cache=layer_cache)
+        elif name == "mamba":
+            x, c = L.mamba_layer(p["mamba"], x, spec, rt, rules,
+                                 cache=layer_cache)
+        elif spec.block == "mla":
+            x, c = L.mla_attention(p["attn"], x, spec, rt, rules,
+                                   positions=positions, cache=layer_cache)
+        else:
+            x, c = L.gqa_attention(p["attn"], x, spec, rt, rules,
+                                   positions=positions, window=kind["window"],
+                                   cache=layer_cache)
     new_cache = {name: c} if c is not None else {}
     if cross_p is not None:
-        x, cc = L.gqa_attention(cross_p, x, spec, rt, rules,
-                                cross_kv=cross_kv, cache=cross_cache)
+        with span("model.cross"):
+            x, cc = L.gqa_attention(cross_p, x, spec, rt, rules,
+                                    cross_kv=cross_kv, cache=cross_cache)
         if cache is not None:
             new_cache["cross"] = cc
-    if kind["ffn"] == "moe":
-        x = L.moe_ffn(p["moe"], x, spec, rt, rules)
-    elif kind["ffn"] == "ffn":
-        x = L.ffn(p["ffn"], x, spec, rt, rules)
+    if kind["ffn"] is not None:
+        with span(_FFN_SPANS[kind["ffn"]]):
+            if kind["ffn"] == "moe":
+                x = L.moe_ffn(p["moe"], x, spec, rt, rules)
+            else:
+                x = L.ffn(p["ffn"], x, spec, rt, rules)
     return x, new_cache or None
 
 
@@ -271,6 +289,7 @@ def _run_encoder(params: dict, frames, spec, rt: RuntimeCfg, rules=None):
     return L.rms_norm(params["ln_enc"], x)
 
 
+@traced("model.logits")
 def _logits(params: dict, x, spec, rt: RuntimeCfg, rules=None):
     x = L.rms_norm(params["ln_f"], x)
     x = L.constrain(x, rules, (L.BATCH, L.SEQ, L.EMB))
@@ -279,6 +298,11 @@ def _logits(params: dict, x, spec, rt: RuntimeCfg, rules=None):
     if spec.final_softcap:
         logits = L._softcap(logits.float(), spec.final_softcap)
     return logits
+
+
+@traced("model.embed")
+def _embed(params: dict, tokens, rt: RuntimeCfg):
+    return L.cast(embed_rows(params["embed"], tokens), rt)
 
 
 def forward(params: dict, tokens, spec, rt: RuntimeCfg,
@@ -306,7 +330,7 @@ def forward(params: dict, tokens, spec, rt: RuntimeCfg,
 
 
 def _forward(params, tokens, spec, rt, rules, frames, vision, positions):
-    x = L.cast(embed_rows(params["embed"], tokens), rt)
+    x = _embed(params, tokens, rt)
     x = L.constrain(x, rules, (L.BATCH, L.SEQ, L.EMB))
     if vision is not None:
         x = torch.cat([vision.to(x.dtype), x], dim=1)
@@ -519,7 +543,7 @@ def _put_row(t, r: int, row) -> None:
 
 
 def _decode(params, cache, tokens, spec, rt, rules) -> tuple:
-    x = L.cast(embed_rows(params["embed"], tokens), rt)
+    x = _embed(params, tokens, rt)
     prefix_n, period = layer_pattern(spec)
     new_cache: dict = {"prefix": [], "slots": []}
     for l, (p, c) in enumerate(zip(params["prefix"], cache["prefix"])):

@@ -21,12 +21,13 @@ from __future__ import annotations
 
 from .log import configure as configure_logging
 from .log import get_logger
-from .metrics import (REGISTRY, counter, diff, gauge, histogram, snapshot)
+from .metrics import (REGISTRY, counter, device_counter, diff, gauge,
+                      histogram, snapshot)
 from .spans import (Profile, enabled, profiled, span, take_events, traced)
 
 __all__ = [
     "configure_logging", "get_logger",
-    "REGISTRY", "counter", "gauge", "histogram", "snapshot", "diff",
+    "REGISTRY", "counter", "device_counter", "gauge", "histogram", "snapshot", "diff",
     "span", "traced", "profiled", "enabled", "take_events", "Profile",
     # lazy (from .timeline):
     "Timeline", "TimelineEvent", "UtilizationReport",

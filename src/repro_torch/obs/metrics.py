@@ -4,7 +4,9 @@
 Counters, gauges, and histograms with a process-global default
 registry.  Instruments are created on demand and are cheap enough to
 bump unconditionally (one dict lookup + int add); nothing is exported
-unless asked.
+unless asked.  A :class:`DeviceCounter` keeps its counts on the device
+(an int64 tensor added to without a host sync) and is read once, with
+one ``.tolist()``, when the registry is collected.
 
 :func:`snapshot` is the one-stop telemetry API: it merges the live
 registry with the engine-cache statistics already kept by the fluent
@@ -18,8 +20,9 @@ import bisect
 import threading
 from dataclasses import dataclass, field
 
-__all__ = ["Counter", "Gauge", "Histogram", "Registry", "REGISTRY",
-           "counter", "gauge", "histogram", "snapshot", "diff",
+__all__ = ["Counter", "DeviceCounter", "Gauge", "Histogram", "Registry",
+           "REGISTRY", "counter", "device_counter", "gauge", "histogram",
+           "snapshot", "diff",
            "format_snapshot", "format_diff", "reset"]
 
 _HIST_BOUNDS = (1e-6, 1e-5, 1e-4, 1e-3, 1e-2, 1e-1, 1.0, 10.0, 100.0)
@@ -33,6 +36,31 @@ class Counter:
 
     def inc(self, n: int = 1) -> None:
         self.value += n
+
+
+@dataclass
+class DeviceCounter:
+    """Counts kept on the device beside the tensors they count, one a name
+    of ``names``: ``add`` adds an integer tensor of one count a name (0-d
+    for one name) into an int64 tensor on the device of the first count,
+    with no host sync; ``read`` syncs once (``.tolist()``)."""
+    names: tuple
+    value: object = None          # int64 tensor once something is added
+
+    def add(self, n) -> None:
+        if self.value is None:
+            self.value = n.detach().long().clone()
+        else:
+            self.value.add_(n)
+
+    def read(self) -> dict:
+        """{name: count}."""
+        if self.value is None:
+            return dict.fromkeys(self.names, 0)
+        return dict(zip(self.names, self.value.reshape(-1).tolist()))
+
+    def reset(self) -> None:
+        self.value = None
 
 
 @dataclass
@@ -86,6 +114,7 @@ class Registry:
     def __init__(self):
         self._lock = threading.Lock()
         self._counters: dict[str, Counter] = {}
+        self._device: dict[tuple, DeviceCounter] = {}
         self._gauges: dict[str, Gauge] = {}
         self._hists: dict[str, Histogram] = {}
 
@@ -94,6 +123,13 @@ class Registry:
         if c is None:
             with self._lock:
                 c = self._counters.setdefault(name, Counter(name))
+        return c
+
+    def device_counter(self, *names: str) -> DeviceCounter:
+        c = self._device.get(names)
+        if c is None:
+            with self._lock:
+                c = self._device.setdefault(names, DeviceCounter(names))
         return c
 
     def gauge(self, name: str) -> Gauge:
@@ -111,8 +147,13 @@ class Registry:
         return h
 
     def reset(self) -> None:
+        """Zero the counters in place (their holders, such as a serving
+        engine, keep counting into the registry) and drop the rest."""
         with self._lock:
-            self._counters.clear()
+            for c in self._counters.values():
+                c.value = 0
+            for d in self._device.values():
+                d.reset()
             self._gauges.clear()
             self._hists.clear()
 
@@ -122,6 +163,10 @@ class Registry:
             out: dict = {"counters": {}, "gauges": {}, "histograms": {}}
             for name, c in sorted(self._counters.items()):
                 out["counters"][name] = c.value
+            if self._device:
+                out["device_counters"] = dict(sorted(
+                    kv for c in self._device.values()
+                    for kv in c.read().items()))
             for name, g in sorted(self._gauges.items()):
                 out["gauges"][name] = g.value
             for name, h in sorted(self._hists.items()):
@@ -139,6 +184,10 @@ REGISTRY = Registry()
 
 def counter(name: str) -> Counter:
     return REGISTRY.counter(name)
+
+
+def device_counter(*names: str) -> DeviceCounter:
+    return REGISTRY.device_counter(*names)
 
 
 def gauge(name: str) -> Gauge:
@@ -172,6 +221,8 @@ def _flatten(snap: dict) -> dict:
     flat: dict[str, float] = {}
     for name, v in snap.get("counters", {}).items():
         flat[f"counter.{name}"] = v
+    for name, v in snap.get("device_counters", {}).items():
+        flat[f"device_counter.{name}"] = v
     for name, v in snap.get("gauges", {}).items():
         flat[f"gauge.{name}"] = v
     for name, h in snap.get("histograms", {}).items():

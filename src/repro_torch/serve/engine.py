@@ -13,6 +13,15 @@ step past ``kv_len`` raises.  For a recurrent model (RWKV6) the slot's state
 is not reset either: a later request inherits the recurrent state that the
 slot's earlier occupants left, and empty slots keep stepping on token 0.
 
+Each step counts itself in the ``repro_torch.obs`` registry, always
+(``engine.slot_steps``: slots stepped, empty ones included,
+``engine.generated``: tokens served; their ratio is the share of slot
+steps that served a token), and with tracing on records the spans
+``engine.step`` > ``engine.tokens`` (the token batch built and copied to
+the device), ``engine.forward`` (``step_fn``: the host enqueueing the
+decode step) and ``engine.sync`` (the argmax and its copy back: the host
+waiting for the device).
+
 With ``rules`` and parameters placed on a mesh (DTensors), the engine's
 cache is placed on the same mesh, its batch dimension over the mesh's data
 axes where it divides, everything else replicated (the layers dimension of
@@ -29,6 +38,8 @@ import torch
 from .._device import resolve_device
 from ..models import lm
 from ..launch.mesh import data_axes_of
+from ..obs import metrics
+from ..obs.spans import span
 from ..models.common import AxisRules, RuntimeCfg, _tree_map, mesh_of, whole
 from ..parallel.sharding import (NamedSharding, batch_pspec, distribute,
                                  mesh_sizes)
@@ -108,6 +119,8 @@ class Engine:
         self.step_fn = make_serve_step(spec, rt, rules)
         self.queue: list = []
         self.steps = 0                       # decode steps taken so far
+        self._n_slot_steps = metrics.counter("engine.slot_steps")
+        self._n_generated = metrics.counter("engine.generated")
 
     def submit(self, req: Request):
         self.queue.append(req)
@@ -126,6 +139,15 @@ class Engine:
         for _ in range(max_steps):
             if all(s is None for s in self.slots) and not self.queue:
                 break
+            with span("engine.step", step=self.steps):
+                finished += self._step()
+        return finished
+
+    def _step(self) -> list:
+        """One decode step of every slot, then admission; returns the
+        requests it finished."""
+        finished, generated = [], 0
+        with span("engine.tokens"):
             # build the batched token: prompts feed first, then argmax
             tok_host = np.zeros((len(self.slots), 1), np.int64)
             for i, req in enumerate(self.slots):
@@ -137,17 +159,22 @@ class Engine:
                 elif req.out:
                     tok_host[i, 0] = req.out[-1]
             tokens = torch.from_numpy(tok_host).to(self.device)
+        with span("engine.forward"):
             logits, self.cache = self.step_fn(self.params, self.cache, tokens)
-            self.steps += 1
+        self.steps += 1
+        with span("engine.sync"):
             nxt = torch.argmax(whole(logits)[:, 0], dim=-1).cpu().numpy()
-            for i, req in enumerate(self.slots):
-                if req is None:
-                    continue
-                if req._fed >= len(req.prompt):
-                    req.out.append(int(nxt[i]))
-                if len(req.out) >= req.max_new:
-                    req.done = True
-                    finished.append(req)
-                    self.slots[i] = None
-            self._admit()
+        for i, req in enumerate(self.slots):
+            if req is None:
+                continue
+            if req._fed >= len(req.prompt):
+                req.out.append(int(nxt[i]))
+                generated += 1
+            if len(req.out) >= req.max_new:
+                req.done = True
+                finished.append(req)
+                self.slots[i] = None
+        self._admit()
+        self._n_slot_steps.inc(len(self.slots))
+        self._n_generated.inc(generated)
         return finished
