@@ -12,8 +12,8 @@ Phases, one JSON line each on standard output:
   device   torch version, the card's name and power limit (nvidia-smi)
   build    compiles every CUDA source of ``repro_torch/kernels/csrc`` with nvcc,
            one compiler process per source, all started together
-  kernels  each hand-written kernel (flash_attention, wkv6, cost_reduce)
-           against its plain PyTorch version on the card, at the shapes of the
+  kernels  each hand-written kernel (flash_attention, wkv6, cost_reduce,
+           selective_scan) against its plain PyTorch version on the card, at the shapes of the
            main paths and at edge shapes: max abs error vs a stated tolerance,
            kernel / plain / library time and the card's bound for the same work.
            Attention shapes also print the kernel the wrapper chose (tc, fma
@@ -23,7 +23,12 @@ Phases, one JSON line each on standard output:
            the main paths have run); wkv6 shapes the kernel its wrapper chose
            (decode or tiled), the tile, and the device time per launch;
            cost_reduce rows (the sweep's merged calls first) the split its
-           wrapper's rule chose, and its and torch.matmul's device times
+           wrapper's rule chose, and its and torch.matmul's device times;
+           selective_scan rows (jamba's prefill and decode shapes first)
+           the chunks its wrapper's rule chose, the error against the
+           float64 oracle and against the plain path, device times and the
+           kernel's registers and spills; and fake CUDA tensors through
+           its entry take the plain path, with no launch
   serve    ten served models, one after the other, each at published
            width, bf16, random weights from a seed: qwen3-14b (attention
            through flash_attention), rwkv6-7b (every WKV recurrence through
@@ -42,7 +47,8 @@ Phases, one JSON line each on standard output:
            just before each model's run and read just after; each model's
            flash launches must be steps x (attention + cross-attention
            layers) + prefills x (encoder + attention + cross-attention
-           layers).  Three warm prefills follow: every reading, their median
+           layers); jamba's selective_scan launches (steps + prefills) x
+           Mamba layers.  Three warm prefills follow: every reading, their median
            as prefill_ms.  --models runs a subset (a partial run)
   sweep    the generator's design-space sweep on the batched backend:
            dse.sweep over every (dp, tp, cp, pp) factorisation of 64 devices
@@ -104,9 +110,10 @@ Phases, one JSON line each on standard output:
            kernel may launch.  Then train-parity: every family's smoke spec
            at fp32 (TF32 off), loss, gradients and one step's parameters on
            the card against the CPU; and the kernels' refusal:
-           ops.flash_attention, ops.wkv6 and ops.cost_reduce raise on a CUDA
-           input that requires grad, make_train_step with
-           attention_impl="cuda" raises
+           ops.flash_attention, ops.wkv6, ops.cost_reduce and
+           ops.selective_scan raise on a CUDA input that requires grad,
+           make_train_step with attention_impl="cuda" raises (qwen3, rwkv6,
+           jamba)
   ckpt     the training launcher and checkpoints on the card, which run no
            kernel: deepseek-moe-16b at published widths cut to depth 2 of
            28 (the dense prefix layer and one MoE layer, 1.09 B
@@ -136,13 +143,15 @@ Phases, one JSON line each on standard output:
            warm-up), peak GB, the largest relative gap of the losses (limit
            1e-6; bit-equal or not); the placed state saved and restored
            with shardings= (DTensors on the mesh, every leaf's bytes equal
-           on the card).  Serving: qwen3-14b at published width and depth,
-           attention through the kernel: the serve phase's 16 requests and
-           [2, 2048] prefill, by the plain engine and by Engine(rules=)
-           over the placed parameters; the same greedy tokens, and the
-           same flash launches (counts set to 0 before each, 5520: the
-           kernel ran on the local shards); decode ms/step and prefill ms
-           of both.  The process group is destroyed at the phase's end.
+           on the card).  Serving: qwen3-14b at published width and depth
+           and jamba-v0.1-52b at the serve phase's depth of 8, through the
+           kernels: the serve phase's 16 requests and [2, 2048] prefill, by
+           the plain engine and by Engine(rules=) over the placed
+           parameters; the same greedy tokens, and the same flash and
+           selective_scan launches (counts set to 0 before each: one an
+           attention or Mamba layer, every step and the prefill; qwen3's
+           5520 flash; the kernels ran on the local shards); decode ms/step
+           and prefill ms of both.  The process group is destroyed at the phase's end.
            Multi-rank behaviour (expert parallelism, real collectives) is
            held on gloo ranks on the CPU (tests/test_torch_multirank.py):
            NCCL takes one rank per device
@@ -186,11 +195,12 @@ Phases, one JSON line each on standard output:
            roofline time beside the measured ms/step
 
 ``--profile`` adds to each serve line a trace of four decode steps and of
-one warm prefill: device-busy time, idle share, top kernels, and the device
-time under the program's own spans (``repro_torch.obs``, on inside the
-profile): the Mamba mixer and its SSM part (dA, dBx, the scan and the
-y-contraction), the MoE FFN and its dispatch and combine; and of the flash
-and cuBLAS kernels.
+one warm prefill: device-busy time, idle share, top kernels, the Mamba
+scan's calls by path (the plain path must read 0), and the device time
+under the program's own spans (``repro_torch.obs``, on inside the
+profile): the Mamba mixer and its selective scan (the kernel), the MoE FFN
+and its dispatch and combine; and of the flash, selective_scan and cuBLAS
+kernels.
 
 Each phase line carries the seconds since the script started.  After serve,
 sweep, api and analysis, the ``kernels`` line: every kernel with its
@@ -230,6 +240,7 @@ from repro_torch.kernels import cost_reduce as cr  # noqa: E402
 from repro_torch.kernels import flash_attention as fa  # noqa: E402
 from repro_torch.kernels import ref  # noqa: E402
 from repro_torch.kernels import rwkv6_scan as wkv  # noqa: E402
+from repro_torch.kernels import selective_scan as sscan  # noqa: E402
 from repro_torch.data import DataCfg, TokenPipeline  # noqa: E402
 from repro_torch.kernels import ops  # noqa: E402
 from repro_torch.launch.dryrun import VARIANTS, arch_rules  # noqa: E402
@@ -258,10 +269,12 @@ TOL = {torch.float32: dict(absolute=2e-5, rms_share=0.0, relative=2e-5),
 PHASES = ("build", "kernels", "serve", "sweep", "api", "parity", "analysis",
           "train", "ckpt", "shard", "examples", "dryrun")
 # the kernels' wrapper modules, each with its launch count, and their sources
-COUNTERS = {"flash_attention": fa, "wkv6": wkv, "cost_reduce": cr}
+COUNTERS = {"flash_attention": fa, "wkv6": wkv, "cost_reduce": cr,
+            "selective_scan": sscan}
 SOURCES = {"flash_attention": "src/repro_torch/kernels/csrc/flash_attention.cu",
            "wkv6": "src/repro_torch/kernels/csrc/rwkv6_scan.cu",
-           "cost_reduce": "src/repro_torch/kernels/csrc/cost_reduce.cu"}
+           "cost_reduce": "src/repro_torch/kernels/csrc/cost_reduce.cu",
+           "selective_scan": "src/repro_torch/kernels/csrc/selective_scan.cu"}
 
 
 def reset_counts() -> None:
@@ -1084,6 +1097,201 @@ def check_cost_case(case, seed: int) -> dict:
     }
 
 
+# selective_scan, jamba's Mamba scan: dtt [B, S, Din] fp32, xc [B, S, Din],
+# B and C [B, S, P] as strided views of one xdb [B, S, dt_rank + 2P] (the
+# layer's), A_log [Din, P], h0 [B, Din, P].  The main rows are the calls
+# jamba's paths make at Din 8192, P 16, bf16 x: the prefill cell's batches
+# (1, 8192) to (8, 1024) and the decode step (8, 1) from a state.  Then S
+# below the shortest chunk, S that the chunks do not divide (the last one
+# shorter; both end in a group of fewer than 8 steps), fp32 x, a state that carries over the whole sequence (decay
+# e^{-dt |A|} near 1, so a wrong carry between chunks shows everywhere), and
+# the smoke spec's P = 8.  dt = scale x softplus(N(0, 1)); A_log = log U(1, 16).
+SSM_CASES = [
+    *[dict(name=f"prefill-{b}x{s}", main=True, B=b, S=s, D=8192, P=16)
+      for b, s in ((1, 8192), (2, 4096), (4, 2048), (8, 1024))],
+    dict(name="decode-8x1", main=True, B=8, S=1, D=8192, P=16, h0=True),
+    dict(name="below-chunk-2x37", B=2, S=37, D=8192, P=16, h0=True),
+    dict(name="ragged-1x700", B=1, S=700, D=8192, P=16, h0=True),
+    dict(name="ragged-3x1001-d1000", B=3, S=1001, D=1000, P=16, h0=True),
+    dict(name="fp32-x-2x2048", B=2, S=2048, D=8192, P=16, dtype=F32),
+    dict(name="slow-decay-1x8192", B=1, S=8192, D=8192, P=16, h0=True,
+         dt_scale=1e-3),
+    dict(name="smoke-p8-2x40", B=2, S=40, D=128, P=8, h0=True),
+]
+# kernel (and plain path on the card) vs the float64 oracle:
+# |err| <= rms_share * rms(y) + relative * |y|, on y and on the last state.
+# fp32 results differ from the float64 function by rounding only (the
+# kernel's step-by-step recurrence, the plain path's odd/even pairs): about
+# 1e-4 of the output's rms where the state carries over all 8 192 steps (the
+# slow-decay row; both paths alike), far less where it decays within tens
+# of steps, so 1e-3 of the rms; a bf16 y is rounded once more, half an
+# ulp, up to 2^-8 relative: the limit is one ulp, 2^-7, as attention's is,
+# and the kernel and the plain path may round to two neighbouring values
+# (twice the limit between them).  Dropping one step's input (x_t = 0 at
+# t = S / 2) moves y_t by about dt x_t (B_t . C_t), of the order of the rms:
+# each row checks that the limit refuses it.
+SSM_TOL = {F32: dict(rms_share=1e-3, relative=1e-5),
+           BF16: dict(rms_share=1e-3, relative=2.0 ** -7)}
+# the SFU's expf rate of an H100 SXM: 16 a clock per SM, 132 SMs, 1.98 GHz
+PEAK_SFU_PER_S = 132 * 16 * 1.98e9
+
+
+def ssm_bound(case) -> tuple:
+    """(bound_ms, bound_by): dt, x and y of every (b, t, i) once, B and C of
+    every (b, t), A_log, the state in (where given) and out once, against 6
+    fp32 operations (the dA product, dBx, the state's and y's multiply-adds)
+    and one expf per (b, t, i, p), the expf at the SFU's rate."""
+    B, S, D, P = case["B"], case["S"], case["D"], case["P"]
+    esize = case.get("dtype", BF16).itemsize
+    states = (1 + bool(case.get("h0"))) * B * D * P * 4
+    t_bytes = ((4 + 2 * esize) * B * S * D + 2 * P * esize * B * S
+               + 4 * D * P + states) / PEAK_BYTES_PER_S
+    t_fma = (6 * B * S * D * P + B * S * D) / PEAK_FLOPS[F32]
+    t_exp = B * S * D * P / PEAK_SFU_PER_S
+    bound, by = max((t_bytes, "bytes"), (t_fma, "fp32 operations"),
+                    (t_exp, "expf"))
+    return bound * 1e3, by
+
+
+def ssm_inputs(case, seed: int) -> tuple:
+    gen = torch.Generator(device=DEV).manual_seed(seed)
+    B, S, D, P = case["B"], case["S"], case["D"], case["P"]
+    dtype, dtr = case.get("dtype", BF16), 256
+
+    def rand(*shape):
+        return torch.randn(shape, generator=gen, device=DEV)
+
+    dtt = case.get("dt_scale", 1.0) * F.softplus(rand(B, S, D))
+    xc = rand(B, S, D).to(dtype)
+    xdb = rand(B, S, dtr + 2 * P).to(dtype)
+    a_log = torch.log(1 + 15 * torch.rand((D, P), generator=gen, device=DEV))
+    h0 = rand(B, D, P) if case.get("h0") else None
+    return dtt, xc, xdb[..., dtr:dtr + P], xdb[..., dtr + P:], a_log, h0
+
+
+def ssm_allowed(want: torch.Tensor, dtype) -> torch.Tensor:
+    tol = SSM_TOL[dtype]
+    rms = want.double().pow(2).mean().sqrt()
+    return tol["rms_share"] * rms + tol["relative"] * want.double().abs()
+
+
+def ptxas_usage(name: str) -> dict:
+    """Registers, spill bytes and shared memory of each kernel in
+    ``csrc/<name>.cu``, from ``nvcc -Xptxas -v`` (a build of its own)."""
+    import re
+    flags = ("-Xptxas", "-v")
+    out = _build.library_path(name, flags)
+    log = _build._finish(*_build._start(name, out, flags), out)
+    usage, kernel = {}, None
+    for line in log.splitlines():
+        m = re.search(r"Compiling entry function '(\w+)'", line)
+        if m:
+            kernel = m.group(1)
+        m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads",
+                      line)
+        if m and kernel:
+            usage.setdefault(kernel, {})["spill_bytes"] = [int(m.group(1)),
+                                                           int(m.group(2))]
+        m = re.search(r"Used (\d+) registers", line)
+        if m and kernel:
+            usage.setdefault(kernel, {})["registers"] = int(m.group(1))
+            m = re.search(r"(\d+) bytes smem", line)
+            usage[kernel]["smem_bytes"] = int(m.group(1)) if m else 0
+    return usage
+
+
+def check_ssm_case(case, seed: int, usage: dict) -> dict:
+    B, S, D, P, name = case["B"], case["S"], case["D"], case["P"], case["name"]
+    dtype = case.get("dtype", BF16)
+    args = ssm_inputs(case, seed)
+    dtt, xc, Bt, Ct, a_log, h0 = args
+    before = sscan.launches
+    got, got_h = sscan.selective_scan(*args)
+    again, again_h = sscan.selective_scan(*args)
+    torch.cuda.synchronize()
+    require(sscan.launches == before + 2,
+            "the wrapper did not count its launches")
+    require(torch.equal(got, again) and torch.equal(got_h, again_h),
+            f"selective_scan {name}: two runs differ")
+    require(got.dtype == dtype and got_h.dtype == F32,
+            f"selective_scan {name}: y {got.dtype}, state {got_h.dtype}")
+    require(torch.isfinite(got).all() and torch.isfinite(got_h).all(),
+            f"selective_scan {name}: kernel output not finite")
+    want, want_h = ref.ref_selective_scan(*args)
+    allowed, allowed_h = ssm_allowed(want, dtype), ssm_allowed(want_h, F32)
+
+    def over(y, h) -> float:
+        return max(((y.double() - want).abs() / allowed).max().item(),
+                   ((h.double() - want_h).abs() / allowed_h).max().item())
+    share = over(got, got_h)
+    max_abs = max((got.double() - want).abs().max().item(),
+                  (got_h.double() - want_h).abs().max().item())
+    require(share <= 1.0,
+            f"selective_scan {name}: kernel against the float64 oracle at "
+            f"{share:.3f} of its limit {SSM_TOL[dtype]}")
+    plain, plain_h = sscan.selective_scan_plain(*args)
+    plain_share = over(plain, plain_h)
+    vs_plain = max(((got.double() - plain.double()).abs() / allowed)
+                   .max().item(),
+                   ((got_h - plain_h).double().abs() / allowed_h).max().item())
+    require(vs_plain <= 2.0,
+            f"selective_scan {name}: kernel against the plain path at "
+            f"{vs_plain:.3f} of the limit (each side may take one)")
+    del plain, plain_h
+    x_lost = xc.clone()
+    x_lost[:, S // 2] = 0
+    lost, lost_h = ref.ref_selective_scan(dtt, x_lost, Bt, Ct, a_log, h0)
+    require(((lost - want).abs() > allowed).any()
+            or ((lost_h - want_h).abs() > allowed_h).any(),
+            f"selective_scan {name}: the tolerance would let a lost step "
+            f"pass")
+    lost_change = (lost - want).abs().max().item()
+    del want, want_h, lost, lost_h, allowed, allowed_h
+    torch.cuda.empty_cache()
+    n, length = sscan.split(B, S, D, sscan._sm_count(DEV.index))
+    bound_ms, bound_by = ssm_bound(case)
+    dev_ms, ahead = device_ms(lambda: sscan.selective_scan(*args))
+    return {
+        "shape": name, "main_path": bool(case.get("main")),
+        "B": B, "S": S, "D": D, "P": P, "dtype": str(dtype)[6:],
+        "h0": h0 is not None, "dt_scale": case.get("dt_scale", 1.0),
+        "chunks": n, "chunk_len": length,
+        "blocks": -(-D // sscan.THREADS) * B * n,
+        "max_abs_err": max_abs,
+        "max_err_over_allowed": share,
+        "plain_fp32_max_err_over_allowed": plain_share,
+        "kernel_vs_plain_over_allowed": vs_plain,
+        "tolerance": SSM_TOL[dtype], "held_against": "ref_selective_scan "
+        "in float64, and selective_scan_plain on the card",
+        "lost_step_max_change": lost_change,
+        "device_ms": dev_ms, "device_ms_queued_ahead": ahead,
+        "ms": time_ms(lambda: sscan.selective_scan(*args)),
+        "plain_ms": time_ms(lambda: sscan.selective_scan_plain(*args),
+                            max_iters=5),
+        "library_ms": None, "bound_ms": bound_ms, "bound_by": bound_by,
+        "bound_share_device": bound_ms / dev_ms, "ptxas": usage,
+    }
+
+
+def check_ssm_fake() -> dict:
+    """Fake CUDA tensors (the kind a dry run traces with) of the smoke row
+    take the plain path through the entry: outputs of the right shapes on
+    the card's device, and no launch."""
+    from torch._subclasses.fake_tensor import FakeTensorMode
+    case = SSM_CASES[-1]
+    before = sscan.launches
+    with FakeTensorMode() as mode:
+        args = [mode.from_tensor(t) for t in ssm_inputs(case, 0)]
+        y, h = ops.selective_scan(*args)
+    require(sscan.launches == before, "a fake call launched the kernel")
+    require(y.shape == args[1].shape and y.device == args[1].device
+            and h.shape == args[5].shape,
+            f"fake call gave y {tuple(y.shape)} on {y.device}, "
+            f"state {tuple(h.shape)}")
+    return {"shape": case["name"], "launches": sscan.launches - before,
+            "device": str(y.device)}
+
+
 def kernel_entry(name: str, replaces: str, shapes: list, **extra) -> dict:
     """One kernel's entry of the ``kernels`` line; the top-level numbers are
     those of its main path's prefill shape (the first)."""
@@ -1107,6 +1315,9 @@ def phase_kernels() -> list:
     strided_err = check_strided_cache_view()
     scans = [check_wkv_case(c, seed=100 + i) for i, c in enumerate(WKV_CASES)]
     costs = [check_cost_case(c, seed=200 + i) for i, c in enumerate(COST_CASES)]
+    usage = ptxas_usage("selective_scan")
+    ssm = [check_ssm_case(c, seed=300 + i, usage=usage)
+           for i, c in enumerate(SSM_CASES)]
     # the D_v < D instance (MLA) with the numbers of its own main rows;
     # its launches are the deepseek-v2 path's, filled in by the serve phase
     mla = {r["shape"]: r for r in attention}
@@ -1129,6 +1340,10 @@ def phase_kernels() -> list:
                      library="none: no single PyTorch call computes wkv6"),
         kernel_entry("cost_reduce", "src/repro/kernels/cost_reduce.py:49",
                      costs, library="torch.matmul(x, w.T)"),
+        kernel_entry("selective_scan", "none: the reference's scan is "
+                     "jax.lax.associative_scan (src/repro/models/layers.py)",
+                     ssm, library="none: no single PyTorch call computes "
+                     "the selective scan", fake_tensors=check_ssm_fake()),
     ]
 
 
@@ -1145,12 +1360,13 @@ def device_us(e) -> float:
 # the parts of the model a profile times apart, each by the device time
 # under one of the program's own spans (``repro_torch.obs``, on inside the
 # profile: each span opens a profiler range of its name), and the device
-# kernels it sums by family, from their names.  ``mamba.ssm`` covers dA and
-# dBx built, the scan and the y-contraction: wider than ``_ssm_scan`` alone
-SPAN_PARTS = {"mamba_layer": "model.mamba", "_ssm_scan": "mamba.ssm",
+# kernels it sums by family, from their names.  ``mamba.ssm`` is the
+# selective scan: on the card its kernel's one launch
+SPAN_PARTS = {"mamba_layer": "model.mamba", "mamba_ssm": "mamba.ssm",
               "moe_ffn": "model.moe", "moe_dispatch": "moe.dispatch",
               "moe_combine": "moe.combine"}
 KERNEL_FAMILIES = {"flash_attention": ("flash",), "wkv6": ("wkv6",),
+                   "selective_scan": ("selective_scan",),
                    "cublas": ("gemm", "nvjet", "cutlass", "xmma")}
 
 
@@ -1163,6 +1379,17 @@ def profiled_spans():
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) \
             as prof, spans.profiled() as trace:
         yield prof, trace
+
+
+def scan_calls(since: dict = None) -> dict:
+    """The Mamba scan's calls by path, ``mamba.ssm_kernel`` and
+    ``mamba.ssm_plain`` (counted while the program's tracing is on), since
+    ``since`` (an earlier reading).  On the card's serving paths the plain
+    path must never run: the caller requires ``plain`` 0."""
+    from repro_torch.obs import metrics
+    got = metrics.REGISTRY.collect()["counters"]
+    return {k: got.get(f"mamba.ssm_{k}", 0) - (since or {}).get(k, 0)
+            for k in ("kernel", "plain")}
 
 
 def kernel_events(prof, trace) -> list:
@@ -1211,9 +1438,12 @@ def profile_decode(spec, rt, params, steps: int = 4) -> dict:
     eng.run(max_steps=16)
     torch.cuda.synchronize()
     step_ms = (time.perf_counter() - t0) * 1e3 / 16
+    before = scan_calls()
     with profiled_spans() as (prof, trace):
         eng.run(max_steps=steps)
         torch.cuda.synchronize()
+    scans = scan_calls(before)
+    require(scans["plain"] == 0, f"decode ran the plain Mamba scan: {scans}")
 
     # kernel events only: the CPU-side op rows repeat their kernels' time
     events = kernel_events(prof, trace)
@@ -1224,6 +1454,7 @@ def profile_decode(spec, rt, params, steps: int = 4) -> dict:
     top = sorted(events, key=device_us, reverse=True)[:8]
     return {
         "steps": steps, "device_busy_ms_per_step": busy_ms,
+        "mamba_scan_calls": scans,
         "step_ms_unprofiled_same_engine": step_ms,
         "device_idle_share": max(0.0, 1.0 - busy_ms / step_ms),
         "device_kernels_per_step": sum(e.count for e in events) / steps,
@@ -1275,11 +1506,15 @@ def profile_prefill(prefill, params, tokens, kernel: str) -> dict:
     with torch.no_grad():
         prefill(params, tokens)                          # warm-up
     torch.cuda.synchronize()
+    before = scan_calls()
     with profiled_spans() as (prof, trace), torch.no_grad():
         t0 = time.perf_counter()
         prefill(params, tokens)
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3
+    scans = scan_calls(before)
+    require(scans["plain"] == 0, f"the prefill ran the plain Mamba scan: "
+            f"{scans}")
 
     events = kernel_events(prof, trace)
     if not events:
@@ -1291,6 +1526,7 @@ def profile_prefill(prefill, params, tokens, kernel: str) -> dict:
     top = sorted(events, key=device_us, reverse=True)[:8]
     return {
         "wall_ms_profiled": wall_ms, "device_busy_ms": busy_ms,
+        "mamba_scan_calls": scans,
         "device_idle_share": max(0.0, 1.0 - busy_ms / wall_ms),
         f"{kernel}_device_ms": sum(device_us(e) for e in mine) / 1e3,
         f"{kernel}_kernel_launches": sum(e.count for e in mine),
@@ -1462,8 +1698,23 @@ def phase_serve(name: str, kernels: list, with_profile: bool = False) -> dict:
                 f"{kernel} launched {counts[kernel]} times, expected "
                 f"{engine.steps} steps x {per_step} + {prefills} prefills x "
                 f"{per_prefill} = {expected}")
-    require(all(n == 0 for k, n in counts.items() if k != kernel),
+    # jamba's Mamba layers: one selective_scan launch a layer, every engine
+    # step (S = 1) and every prefill
+    mamba = sum(lm._slot_kind(spec, l)["mixer"] == "mamba"
+                for l in range(spec.n_layers))
+    own = {kernel, "selective_scan"} if mamba else {kernel}
+    require(all(n == 0 for k, n in counts.items() if k not in own),
             f"{name} launched another model's kernel: {counts}")
+    if mamba:
+        want_scans = (engine.steps + prefills) * mamba
+        require(counts["selective_scan"] == want_scans,
+                f"selective_scan launched {counts['selective_scan']} times, "
+                f"expected ({engine.steps} steps + {prefills} prefills) x "
+                f"{mamba} Mamba layers = {want_scans}")
+        scan_entry = next(k for k in kernels if k["name"] == "selective_scan")
+        scan_entry.setdefault("launches_by_path", {})[f"serve {name}"] = \
+            counts["selective_scan"]
+        scan_entry["launches"] = sum(scan_entry["launches_by_path"].values())
     if kernel == "wkv6":
         # the rule: one launch per layer; every engine step is one token
         # (decode), the [2, 2048] prefill is 2048 steps (tiled)
@@ -1527,6 +1778,7 @@ def phase_serve(name: str, kernels: list, with_profile: bool = False) -> dict:
         "prefill_warm_ms_readings": warm_ms,
         "prefill_host_events": [first, *warm],
         "kernel": kernel, "launches": counts,
+        **({"selective_scan_launches_per_forward": mamba} if mamba else {}),
         "launches_per_decode_step": per_step,
         "launches_per_prefill": per_prefill, "prefills_counted": prefills,
         "peak_memory_gb": torch.cuda.max_memory_allocated() / 1e9,
@@ -2692,10 +2944,12 @@ def phase_train_parity() -> dict:
 
 def check_refusals() -> dict:
     """The forward-only kernels refuse to be differentiated on the card:
-    ``ops.flash_attention``, ``ops.wkv6`` and ``ops.cost_reduce`` raise on a
-    CUDA input that requires grad, before any launch; ``make_train_step``
+    ``ops.flash_attention``, ``ops.wkv6``, ``ops.cost_reduce`` and
+    ``ops.selective_scan`` raise on a CUDA input that requires grad, before
+    any launch; ``make_train_step``
     with ``attention_impl="cuda"`` raises at its first step (qwen3's smoke
-    spec through flash attention, rwkv6's through wkv6).  A missing raise
+    spec through flash attention, rwkv6's through wkv6, jamba's through the
+    selective scan).  A missing raise
     fails the run."""
     g = torch.Generator(device=DEV).manual_seed(4)
 
@@ -2714,6 +2968,10 @@ def check_refusals() -> dict:
                   randn(2, 64), randn(1, 2, 64, 64)]),
         "cost_reduce": (ops.cost_reduce, [randn(4, 96, dtype=torch.float64),
                                           randn(8, 96, dtype=torch.float64)]),
+        "selective_scan": (ops.selective_scan,
+                           [randn(1, 64, 256).abs(), randn(1, 64, 256),
+                            randn(1, 64, 16), randn(1, 64, 16),
+                            randn(256, 16), randn(1, 256, 16)]),
     }
 
     def raises(fn, kernel) -> str:
@@ -2741,7 +2999,8 @@ def check_refusals() -> dict:
             "a kernel did not run on inputs that need no grad")
     rt = RuntimeCfg(param_dtype="float32", compute_dtype="float32")
     for name, kernel in (("qwen3-14b", "flash_attention"),
-                         ("rwkv6-7b", "wkv6")):
+                         ("rwkv6-7b", "wkv6"),
+                         ("jamba-v0.1-52b", "selective_scan")):
         spec = get_arch(name).smoke
         params = init_params(spec, rt, torch.Generator(device=DEV)
                              .manual_seed(5), device=DEV)
@@ -2988,7 +3247,8 @@ def phase_ckpt() -> dict:
 
 SHARD = dict(train_arch=CKPT["arch"], train_widths=CKPT["widths"],
              train_layers=CKPT["layers"], batch=2, seq=2048, steps=6,
-             serve_arch="qwen3-14b", serve_launches=5520)
+             serve_archs=("qwen3-14b", "jamba-v0.1-52b"),
+             serve_launches={"qwen3-14b": 5520})
 SHARD_LOSS_REL = 1e-6         # mesh vs plain losses, relative, each step
 
 
@@ -3108,17 +3368,20 @@ def shard_train(mesh) -> dict:
     }
 
 
-def shard_serve(mesh) -> dict:
-    """The serve phase's requests and prefill for ``SHARD["serve_arch"]``,
-    by the plain engine and by ``Engine(rules=)`` over placed parameters;
-    counts set to 0 before each run and read after it."""
+def shard_serve(mesh, name: str) -> dict:
+    """The serve phase's requests and prefill for ``name`` (at the serve
+    phase's depth), by the plain engine and by ``Engine(rules=)`` over
+    placed parameters; counts set to 0 before each run and read after it:
+    one flash launch an attention layer and one selective_scan launch a
+    Mamba layer, every engine step and the prefill, on both."""
     from torch.distributed.tensor import DTensor
     from repro_torch.models import AxisRules
     from repro_torch.parallel import distribute, param_shardings
-    name = SHARD["serve_arch"]
     spec = get_arch(name).spec
     require((spec.n_layers, spec.d_model, spec.d_ff, spec.vocab)
             == SERVED[name]["widths"], f"not the published {name}")
+    if "layers" in SERVED[name]:
+        spec = dataclasses.replace(spec, n_layers=SERVED[name]["layers"])
     rt = RuntimeCfg()                    # bf16, attention through the kernel
     rules_d = arch_rules(get_arch(name), mesh)
     gc.collect()
@@ -3173,12 +3436,18 @@ def shard_serve(mesh) -> dict:
     require(placed["logits_are_dtensors"], "the mesh's logits are plain")
     require(placed["tokens"] == plain["tokens"],
             "greedy tokens on the mesh differ from the plain engine's")
+    per_step, per_prefill = flash_launches(spec)
+    mamba = sum(lm._slot_kind(spec, l)["mixer"] == "mamba"
+                for l in range(spec.n_layers))
     for run in (plain, placed):
-        require(run["launches"]["flash_attention"] == SHARD["serve_launches"]
-                and run["launches"]["wkv6"] == run["launches"][
-                    "cost_reduce"] == 0,
-                f"launches {run['launches']}, expected "
-                f"{SHARD['serve_launches']} flash")
+        steps = run["decode_steps"]
+        want = {"flash_attention": steps * per_step + per_prefill,
+                "wkv6": 0, "cost_reduce": 0,
+                "selective_scan": (steps + 1) * mamba}
+        require(run["launches"] == want
+                and want["flash_attention"] == SHARD["serve_launches"].get(
+                    name, want["flash_attention"]),
+                f"launches {run['launches']}, expected {want}")
     logit_gap = float((placed.pop("last_logits")
                        - plain.pop("last_logits")).abs().max())
     del placed_params, params
@@ -3202,7 +3471,11 @@ def phase_shard() -> dict:
         train = shard_train(mesh)
         gc.collect()
         torch.cuda.empty_cache()
-        serve = shard_serve(mesh)
+        serve = {}
+        for name in SHARD["serve_archs"]:
+            gc.collect()
+            torch.cuda.empty_cache()
+            serve[name] = shard_serve(mesh, name)
     finally:
         dist.destroy_process_group()
     return {"mesh": {"shape": [1, 1], "names": ["data", "model"],
@@ -3804,6 +4077,8 @@ def main(argv=None) -> int:
         # api and analysis phases require and report their own counts)
         served = {SERVED[m]["kernel"] for m in models} \
             if "serve" in phases else set()
+        if "serve" in phases and "jamba-v0.1-52b" in models:
+            served.add("selective_scan")
         paths = {f"serve {m}" for m in models}
         for k in kernels:
             if k["name"] in served or (k["name"] == "cost_reduce" and {

@@ -12,10 +12,11 @@ On a mesh (DTensor inputs, ``repro_torch.parallel``) the kernels read
 ``data_ptr()``, so no DTensor reaches them: an entry redistributes to
 ``Replicate`` every dimension its kernel cannot split (attention's query
 and key sequences and head dims, wkv6's sequence and head dim,
-cost_reduce's T; GSPMD gathers there too), runs the kernel on each rank's
-local shard, split over batch and heads only (cost_reduce: over B and G),
-and returns DTensors with those placements.  Plain tensors met there are
-taken as replicated."""
+cost_reduce's T, the selective scan's sequence and states; GSPMD gathers
+there too), runs the kernel on each rank's local shard, split over batch
+and heads only (cost_reduce: over B and G; the selective scan: over batch
+and channels), and returns DTensors with those placements.  Plain tensors
+met there are taken as replicated."""
 from __future__ import annotations
 
 from typing import Optional
@@ -26,6 +27,7 @@ from ..models.common import as_global, copy_into, replicated, settle
 from . import cost_reduce as _cr
 from . import flash_attention as _fa
 from . import rwkv6_scan as _wkv
+from . import selective_scan as _ss
 
 # the dtypes the attention kernel reads q, k and v in; a caller casts others
 FLASH_INPUT_DTYPES = _fa.INPUT_DTYPES
@@ -147,3 +149,31 @@ def wkv6(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor, w: torch.Tensor,
             st = state_out
         return as_global(out, mesh, rp, r.shape), st
     return _wkv.wkv6(r, k, v, w, u, state0, chunk=chunk, state_out=state_out)
+
+
+def selective_scan(dtt: torch.Tensor, xc: torch.Tensor, Bt: torch.Tensor,
+                   Ct: torch.Tensor, A_log: torch.Tensor,
+                   h0: Optional[torch.Tensor] = None, *,
+                   state: bool = True) -> tuple:
+    """The Mamba mixer's selective scan: dtt [B,S,Din] fp32, xc [B,S,Din],
+    Bt/Ct [B,S,P] (strided views of the layer's ``xdb`` as they are), A_log
+    [Din,P], h0 [B,Din,P] or None (zero) -> (y [B,S,Din] in xc's dtype,
+    last state fp32 or None).  The JAX package has no kernel here; see
+    ``kernels/selective_scan.py``."""
+    _refuse_grad("selective_scan", dtt, xc, Bt, Ct, A_log, h0)
+    if _is_dtensor(dtt, xc, Bt, Ct, A_log, h0):
+        mesh, (dtt, xc, Bt, Ct, A_log, h0) = _mesh_inputs(
+            dtt, xc, Bt, Ct, A_log, h0)
+        # channels are independent: batch rows and channels split, B and C
+        # follow the batch rows, A_log the channels
+        xp = _kept(xc.placements, {0: 0, 2: 2})
+        bcp, ap, hp = _kept(xp, {0: 0}), _kept(xp, {2: 0}), \
+            _kept(xp, {0: 0, 2: 1})
+        y, h = _ss.selective_scan(
+            _local(dtt, xp), _local(xc, xp), _local(Bt, bcp),
+            _local(Ct, bcp), _local(A_log, ap),
+            None if h0 is None else _local(h0, hp), state=state)
+        b, _, d = xc.shape
+        return as_global(y, mesh, xp, xc.shape), None if h is None else \
+            as_global(h, mesh, hp, (b, d, A_log.shape[1]))
+    return _ss.selective_scan(dtt, xc, Bt, Ct, A_log, h0, state=state)

@@ -1,6 +1,7 @@
 """Plain-torch oracles (ground truth for allclose): attention, the RWKV6
 recurrence and the SSM recurrence, each the JAX package's ``kernels/ref``
-function of the same name."""
+function of the same name, and the Mamba mixer's selective scan built on
+the SSM recurrence (``ref_selective_scan``, the port's own)."""
 from __future__ import annotations
 
 import math
@@ -65,3 +66,23 @@ def ref_ssm(dA: torch.Tensor, dBx: torch.Tensor, h0: torch.Tensor) -> tuple:
         h = dA[:, t] * h + dBx[:, t]
         hs.append(h)
     return torch.stack(hs, dim=1), h
+
+
+def ref_selective_scan(dtt: torch.Tensor, xc: torch.Tensor, Bt: torch.Tensor,
+                       Ct: torch.Tensor, A_log: torch.Tensor,
+                       h0: Optional[torch.Tensor] = None, *,
+                       dtype: torch.dtype = torch.float64) -> tuple:
+    """The Mamba mixer's selective scan step by step in ``dtype``: A =
+    -exp(A_log), dA = exp(dt A), dBx = dt x B, then ``ref_ssm`` and the
+    y-contraction y_t = h_t C_t.  dtt/xc [B, S, Din], Bt/Ct [B, S, P],
+    A_log [Din, P], h0 [B, Din, P] or None (zero) -> (y [B, S, Din], last h
+    [B, Din, P]), both in ``dtype``."""
+    dtt, xc, Bt, Ct, A_log = (t.to(dtype) for t in (dtt, xc, Bt, Ct, A_log))
+    b, _, din = dtt.shape
+    if h0 is None:
+        h0 = torch.zeros((b, din, A_log.shape[1]), dtype=dtype,
+                         device=dtt.device)
+    dA = torch.exp(dtt[..., None] * -torch.exp(A_log))
+    dBx = (dtt * xc)[..., None] * Bt[:, :, None, :]
+    hs, h = ref_ssm(dA, dBx, h0.to(dtype))
+    return torch.einsum("bsip,bsp->bsi", hs, Ct), h

@@ -19,12 +19,18 @@ Shapes follow the JAX package so weights carry across leaf by leaf:
   any other runs the JAX layer's own chunk loop (``_wkv_chunk``) in plain
   PyTorch, which autograd follows.  The kernels have no backward and refuse
   an input that requires grad (``kernels/ops.py``).
-* The Mamba scan (``_ssm_scan``) is plain PyTorch, as the JAX package's is
-  plain JAX (``lax.associative_scan``, no Pallas kernel).
-* With ``repro_torch.obs`` tracing on, the parts a fused kernel would
-  replace record spans of their own: ``mamba.ssm`` (dA and dBx built, the
-  scan, the y-contraction), ``moe.dispatch`` and ``moe.combine``; and the
-  routing counts its work and waste (``moe.picks`` and
+* The Mamba mixer's selective scan (the ``mamba.ssm`` span) is chosen by
+  the same field: ``"cuda"`` goes through ``kernels.ops.selective_scan``
+  (the hand-written kernel for real CUDA tensors, its plain version for
+  CPU, meta and fake ones); any other runs
+  ``kernels.selective_scan.selective_scan_plain``, the JAX layer's plain
+  scan (``lax.associative_scan``; the reference has no Pallas kernel
+  there), which autograd follows.
+* With ``repro_torch.obs`` tracing on, sub-layer parts record spans of
+  their own: ``mamba.ssm`` (the selective scan, kernel or plain),
+  ``moe.dispatch`` and ``moe.combine``; the scan counts its calls by path
+  (``mamba.ssm_kernel``, ``mamba.ssm_plain``); and the routing counts its
+  work and waste (``moe.picks`` and
   ``moe.experts_read`` on the host, ``moe.experts_used`` and ``moe.kept``
   on the device, with no sync).  With tracing off none of these runs.
 * Every layer takes ``rules`` (``AxisRules``) and constrains its
@@ -56,7 +62,7 @@ from ..obs import metrics
 from ..obs.spans import enabled as tracing_enabled
 from ..obs.spans import span, traced
 from .common import (AxisRules, Initializer, RuntimeCfg, constrain,
-                     copy_into, cumsum, dt, einsum, matmul, mesh_of, pad_end,
+                     copy_into, cumsum, dt, einsum, matmul, pad_end,
                      ring_append, write_span)
 
 # logical axis names (mapped to mesh axes by parallel.sharding's rules), the
@@ -761,7 +767,8 @@ def moe_ffn(p: dict, x: torch.Tensor, spec, rt: RuntimeCfg,
 
 
 # ---------------------------------------------------------------------------
-# Mamba (selective SSM): chunked scan with an O(1) carried state
+# Mamba (selective SSM): the scan (kernels/selective_scan.py) with an O(1)
+# carried state
 # ---------------------------------------------------------------------------
 
 def init_mamba(ini: Initializer, spec, prefix: str = "") -> dict:
@@ -784,67 +791,6 @@ def init_mamba(ini: Initializer, spec, prefix: str = "") -> dict:
         "w_out": ini(prefix + "w_out", (din, H), (FFN, EMB),
                      scale=1.0 / math.sqrt(din)),
     }
-
-
-def _combine(a1, x1, a2, x2) -> tuple:
-    """(a1, x1) then (a2, x2): h -> a2 (a1 h + x1) + x2."""
-    return a1 * a2, x1 * a2 + x2
-
-
-def _associative_scan(a: torch.Tensor, x: torch.Tensor) -> tuple:
-    """Inclusive scan of ``_combine`` over dim 1, by the odd/even recursion
-    of ``jax.lax.associative_scan`` (log depth, the same pairs combined in
-    the same order, so the same roundings)."""
-    n = a.shape[1]
-    if n < 2:
-        return a, x
-    odd_a, odd_x = _associative_scan(*_combine(a[:, 0:-1:2], x[:, 0:-1:2],
-                                               a[:, 1::2], x[:, 1::2]))
-    if n % 2 == 0:
-        ev_a, ev_x = _combine(odd_a[:, :-1], odd_x[:, :-1], a[:, 2::2],
-                              x[:, 2::2])
-    else:
-        ev_a, ev_x = _combine(odd_a, odd_x, a[:, 2::2], x[:, 2::2])
-
-    def interleave(first, even, odd):
-        out = first.new_empty((first.shape[0], n) + tuple(first.shape[2:]))
-        out[:, 0:1] = first
-        out[:, 2::2] = even
-        out[:, 1::2] = odd
-        return out
-
-    return (interleave(a[:, :1], ev_a, odd_a),
-            interleave(x[:, :1], ev_x, odd_x))
-
-
-def _ssm_scan(dA: torch.Tensor, dBx: torch.Tensor, h0: torch.Tensor,
-              chunk: int) -> tuple:
-    """h_t = dA_t * h_{t-1} + dBx_t over dim 1; returns (all h, last h).
-
-    dA/dBx: [B, S, D, P]; h0 [B, D, P].  The JAX package's chunking: chunks
-    of ``chunk`` steps carried one after the other, one chunk of S when
-    ``chunk`` does not divide S; a log-depth scan inside each chunk."""
-    s = dA.shape[1]
-    if s % chunk != 0:
-        chunk = s
-    # a write through ``out=`` has no backward: where autograd records, the
-    # chunks (the same sums) are joined instead, as they are on a mesh,
-    # where a view of a DTensor cannot take a result of other placements
-    joined = (torch.is_grad_enabled() and any(
-        t.requires_grad for t in (dA, dBx, h0))) or mesh_of(dBx) is not None
-    hs = None if joined else torch.empty_like(dBx)
-    parts = []
-    h = h0
-    for c0 in range(0, s, chunk):
-        aa, xx = _associative_scan(dA[:, c0:c0 + chunk],
-                                   dBx[:, c0:c0 + chunk])
-        if joined:
-            part = xx + aa * h[:, None]
-            parts.append(part)
-        else:
-            part = torch.add(xx, aa * h[:, None], out=hs[:, c0:c0 + chunk])
-        h = part[:, -1]
-    return (torch.cat(parts, dim=1) if joined else hs), h
 
 
 def _causal_conv(xpad: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
@@ -874,7 +820,9 @@ def mamba_layer(p: dict, x: torch.Tensor, spec, rt: RuntimeCfg,
     tensors are **updated in place** and handed back in the new dict.  The
     causal conv sums its four taps in the JAX package's order in the compute
     dtype; dt, dA, dBx and the state are fp32, y is cast back to x's
-    dtype."""
+    dtype.  ``rt.attention_impl == "cuda"`` runs the selective scan through
+    its kernel's entry (the kernel for real CUDA tensors; forward only), any
+    other value through ``selective_scan_plain``, which autograd follows."""
     ss = spec.ssm
     b, s, H = x.shape
     din = ss.expand * H
@@ -893,14 +841,18 @@ def mamba_layer(p: dict, x: torch.Tensor, spec, rt: RuntimeCfg,
                    xdb[..., dtr + ss.d_state:])
     dtt = _softplus(matmul(dt0, cast(p["w_dt"], rt)).float())       # [B,S,Din]
     with span("mamba.ssm"):
-        A = -torch.exp(p["A_log"].float())                     # [Din, P]
-        dA = torch.exp_(dtt[..., None] * A)                    # [B,S,Din,P]
-        dBx = (dtt * xc.float())[..., None] * Bt[:, :, None, :].float()
-        h0 = cache["ssm"] if cache is not None else \
-            torch.zeros((b, din, ss.d_state), dtype=torch.float32,
-                        device=x.device)
-        hs, h_last = _ssm_scan(dA, dBx, h0, chunk=min(s, 256))
-        y = einsum("bsip,bsp->bsi", hs, Ct.float()).to(x.dtype)
+        from ..kernels import selective_scan as kss
+        args = (dtt, xc, Bt, Ct, p["A_log"],
+                cache["ssm"] if cache is not None else None)
+        before = kss.launches
+        if rt.attention_impl == "cuda":
+            from ..kernels import ops as kops
+            y, h_last = kops.selective_scan(*args, state=cache is not None)
+        else:
+            y, h_last = kss.selective_scan_plain(*args)
+        if tracing_enabled():
+            metrics.counter("mamba.ssm_kernel" if kss.launches > before
+                            else "mamba.ssm_plain").inc()
     y = y + xc * cast(p["D"], rt)
     y = y * F.silu(z)
     out = matmul(y, cast(p["w_out"], rt))

@@ -61,10 +61,14 @@ CELLS = [("qwen3-14b", k, False) for k in ("train", "prefill", "decode")] \
 
 @pytest.mark.parametrize("name,kind,multi_pod", CELLS)
 def test_smoke_cell_runs_on_the_fake_group(meshes, name, kind, multi_pod):
+    from repro_torch.kernels import selective_scan
     arch = _arch(name)
+    before = selective_scan.launches
     counts, meta = meshes(multi_pod, lambda m: dryrun.lower_on(
         arch, ShapeSpec(kind, SEQ, BATCH, kind), m))
     _check(counts)
+    # fake tensors on a mesh: the Mamba scan takes its plain path
+    assert selective_scan.launches == before
     if arch.spec.moe is not None:
         # the expert-parallel branch: dispatch and combine over model
         assert counts["collectives"]["all-to-all"] > 0

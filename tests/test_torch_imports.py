@@ -66,9 +66,14 @@ def test_import_leaves_jax_out_of_the_process():
 def test_kernel_sources_and_build_dir():
     from repro_torch.kernels import _build
     cu = sorted(p.name for p in (PKG / "kernels" / "csrc").glob("*.cu"))
-    assert cu == ["cost_reduce.cu", "flash_attention.cu", "rwkv6_scan.cu"]
+    assert cu == ["cost_reduce.cu", "flash_attention.cu", "rwkv6_scan.cu",
+                  "selective_scan.cu"]
     assert _build.sources() == ["cost_reduce", "flash_attention",
-                                "rwkv6_scan"]
+                                "rwkv6_scan", "selective_scan"]
+    # the Mamba scan's dA is the accurate expf: no fast-math build, no __expf
+    assert not any("fast_math" in f for f in _build.NVCC_FLAGS)
+    assert "__expf(" not in (PKG / "kernels" / "csrc" /
+                             "selective_scan.cu").read_text()
     for name in cu:
         text = (PKG / "kernels" / "csrc" / name).read_text()
         assert "__global__" in text and 'extern "C"' in text

@@ -1,5 +1,6 @@
 """The port's Mamba mixer against the JAX package's on the CPU: the chunked
-selective scan ``_ssm_scan`` and ``mamba_layer`` (prefill and cache steps).
+selective scan ``_ssm_scan`` (``kernels/selective_scan.py``) and
+``mamba_layer`` (prefill and cache steps).
 
 Inputs come from numpy with a seed; the layer's weights are drawn by the JAX
 package's ``init_mamba`` and carried across.  fp32 throughout: the scan
@@ -20,6 +21,7 @@ from repro.models import layers as JL
 from repro.models.common import Initializer as JaxInitializer
 from repro.models.common import pvalue
 from repro_torch.kernels import ref as REF
+from repro_torch.kernels import selective_scan as SS
 from repro_torch.models import layers as L
 from repro_torch.models import params_from_reference
 from torch_port_helpers import as_f32, port_spec, runtimes, to_jax, to_torch
@@ -46,7 +48,7 @@ def test_ssm_scan(s):
     dA, dBx, h0 = _scan_inputs(s, 2, s, 6, 4)
     chunk = min(s, 256)
     want_hs, want_h = JL._ssm_scan(to_jax(dA), to_jax(dBx), to_jax(h0), chunk)
-    got_hs, got_h = L._ssm_scan(to_torch(dA), to_torch(dBx), to_torch(h0),
+    got_hs, got_h = SS._ssm_scan(to_torch(dA), to_torch(dBx), to_torch(h0),
                                 chunk)
     assert got_hs.shape == (2, s, 6, 4) and got_h.shape == (2, 6, 4)
     for got, want in ((got_hs, want_hs), (got_h, want_h)):
@@ -64,7 +66,7 @@ def test_ssm_scan_is_the_recurrence():
         h = dA[:, t] * h + dBx[:, t]
         ref.append(h)
     ref = np.stack(ref, axis=1)
-    got, _ = L._ssm_scan(to_torch(dA), to_torch(dBx), to_torch(h0), 256)
+    got, _ = SS._ssm_scan(to_torch(dA), to_torch(dBx), to_torch(h0), 256)
     np.testing.assert_allclose(as_f32(got), ref, rtol=1e-5, atol=1e-5)
 
 
@@ -163,7 +165,7 @@ def test_ref_ssm_is_the_references(s):
         want = as_f32(want)
         np.testing.assert_allclose(as_f32(got), want, rtol=1e-6,
                                    atol=1e-6 * np.abs(want).max())
-    scan_hs, scan_h = L._ssm_scan(to_torch(dA), to_torch(dBx), to_torch(h0),
+    scan_hs, scan_h = SS._ssm_scan(to_torch(dA), to_torch(dBx), to_torch(h0),
                                   min(s, 256))
     for got, want in ((scan_hs, got_hs), (scan_h, got_h)):
         want = as_f32(want)

@@ -87,13 +87,19 @@ def test_decode_on_the_mesh_gives_the_same_tokens(results, name):
 
 def test_kernel_entries_run_on_local_shards(results):
     d = _ok(results, "kernel_entries")
-    assert d["calls"] == 3 and not d["dtensor_reached"], d
+    assert d["calls"] == 4 and not d["dtensor_reached"], d
     assert d["flash"]["err"] <= 1.0 and d["wkv6"]["err"] <= 1.0
     assert d["cost_reduce"]["err"] <= 1.0
+    assert d["selective_scan"]["err"] <= 1.0
     # the sequence shards are gathered; batch and heads keep theirs
     assert d["flash"]["placements"] == "(Shard(dim=0), Replicate())"
     assert d["wkv6"]["placements"] == "(Shard(dim=0), Shard(dim=2))"
     assert d["cost_reduce"]["placements"] == "(Shard(dim=1), Shard(dim=0))"
+    # the scan follows x: its sequence shard is gathered, its channel shard
+    # kept, and the state takes the same channel shard
+    assert d["selective_scan"]["placements"] == "(Replicate(), Shard(dim=2))"
+    assert d["selective_scan"]["state_placements"] \
+        == "(Replicate(), Shard(dim=1))"
 
 
 def test_checkpoint_of_a_placed_state(results):

@@ -34,6 +34,7 @@ from repro_torch.data import DataCfg, TokenPipeline
 from repro_torch.kernels import ops
 from repro_torch.kernels.cost_reduce import cost_reduce_plain
 from repro_torch.kernels.flash_attention import flash_attention_plain
+from repro_torch.kernels import selective_scan as SS
 from repro_torch.kernels.rwkv6_scan import wkv6_plain
 from repro_torch.models import RuntimeCfg, init_params, layers as TL, lm
 from repro_torch.serve.engine import make_prefill
@@ -167,9 +168,9 @@ def test_ssm_scan_under_grad_equals_the_scan_without():
                            .astype(np.float32))
     h0 = torch.from_numpy(rng.standard_normal((2, 4, 3)).astype(np.float32))
     with torch.no_grad():
-        want, want_last = TL._ssm_scan(dA, dBx, h0, chunk=8)
+        want, want_last = SS._ssm_scan(dA, dBx, h0, chunk=8)
     ins = [t.clone().requires_grad_(True) for t in (dA, dBx, h0)]
-    got, got_last = TL._ssm_scan(*ins, chunk=8)
+    got, got_last = SS._ssm_scan(*ins, chunk=8)
     assert torch.equal(got.detach(), want)
     assert torch.equal(got_last.detach(), want_last)
     (got.sum() + got_last.sum()).backward()
@@ -513,6 +514,11 @@ def _kernel_inputs():
     w = torch.rand(1, 8, 2, 16, generator=g)
     u, s0 = torch.randn(2, 16, generator=g), torch.zeros(1, 2, 16, 16)
     x, cw = torch.randn(3, 10, generator=g), torch.randn(4, 10, generator=g)
+    dtt = torch.rand(2, 8, 6, generator=g)
+    xc, a_log = torch.randn(2, 8, 6, generator=g), torch.randn(6, 4, generator=g)
+    bc = torch.randn(2, 8, 8, generator=g)
+    h0 = torch.randn(2, 6, 4, generator=g)
+    scan = (dtt, xc, bc[..., :4], bc[..., 4:], a_log, h0)
     return {
         "flash_attention": (lambda *a: ops.flash_attention(*a), (q, k, v),
                             lambda *a: flash_attention_plain(*a)),
@@ -520,11 +526,13 @@ def _kernel_inputs():
                  (r, kk, vv, w, u, s0),
                  lambda *a: wkv6_plain(*a, chunk=4)[0]),
         "cost_reduce": (ops.cost_reduce, (x, cw), cost_reduce_plain),
+        "selective_scan": (lambda *a: ops.selective_scan(*a)[0], scan,
+                           lambda *a: SS.selective_scan_plain(*a)[0]),
     }
 
 
 @pytest.mark.parametrize("kernel", ["flash_attention", "wkv6",
-                                    "cost_reduce"])
+                                    "cost_reduce", "selective_scan"])
 def test_kernel_entries_refuse_grad(kernel):
     """Under grad mode any floating input that requires grad raises,
     naming the kernel (on the CPU as on the card); without one, or under
@@ -544,10 +552,12 @@ def test_kernel_entries_refuse_grad(kernel):
 
 
 @pytest.mark.parametrize("name,kernel", [("qwen3-14b", "flash_attention"),
-                                         ("rwkv6-7b", "wkv6")])
+                                         ("rwkv6-7b", "wkv6"),
+                                         ("jamba-v0.1-52b", "selective_scan")])
 def test_train_step_through_the_kernels_raises(name, kernel):
-    """``attention_impl="cuda"`` routes attention and WKV through the
-    forward-only kernels: the first step raises, no fallback."""
+    """``attention_impl="cuda"`` routes attention, WKV and the Mamba scan
+    through the forward-only kernels: the first step raises, no fallback
+    (jamba's first layer is a Mamba mixer)."""
     spec = get(name).smoke
     rt = RuntimeCfg(param_dtype="float32", compute_dtype="float32")
     params = init_params(spec, rt, device="cpu")

@@ -202,15 +202,17 @@ def get_fsdp(name):
 
 
 def check_kernel_entries(mesh):
-    """The kernel entries on DTensors sharded over batch, heads and the
-    sequence: no DTensor reaches the kernel wrapper (on the CPU its plain
-    version), the sequence and head dims arrive whole, the result equals
-    the plain call and keeps the batch / head shards."""
+    """The kernel entries on DTensors sharded over batch, heads (the
+    selective scan: channels) and the sequence: no DTensor reaches the
+    kernel wrapper (on the CPU its plain version), the sequence and head
+    dims arrive whole, the result equals the plain call and keeps the batch
+    / head (channel) shards."""
     from torch.distributed.tensor import Shard, distribute_tensor
     from repro_torch.kernels import cost_reduce as cr
     from repro_torch.kernels import flash_attention as fa
     from repro_torch.kernels import ops
     from repro_torch.kernels import rwkv6_scan as wkv
+    from repro_torch.kernels import selective_scan as ss
     seen = []
 
     def spy(mod, name):
@@ -224,7 +226,8 @@ def check_kernel_entries(mesh):
         return real
     reals = [(fa, "flash_attention", spy(fa, "flash_attention")),
              (wkv, "wkv6", spy(wkv, "wkv6")),
-             (cr, "cost_reduce_bet", spy(cr, "cost_reduce_bet"))]
+             (cr, "cost_reduce_bet", spy(cr, "cost_reduce_bet")),
+             (ss, "selective_scan", spy(ss, "selective_scan"))]
     try:
         rng = np.random.default_rng(2)
 
@@ -257,11 +260,25 @@ def check_kernel_entries(mesh):
         cost = {"err": _worst([got], [cr.cost_reduce_plain(x, wt)],
                               (1e-12, 1e-12)),
                 "placements": str(got.placements)}
+        # B and C strided views of one xdb; the state sharded over channels
+        dtt = torch.nn.functional.softplus(arr(2, 16, 8))
+        xc, xdb = arr(2, 16, 8), arr(2, 16, 11)
+        a_log, h0 = torch.log1p(15 * torch.sigmoid(arr(8, 4))), arr(2, 8, 4)
+        bt, ct = xdb[..., 3:7], xdb[..., 7:]
+        want_y, want_h = ss.selective_scan_plain(dtt, xc, bt, ct, a_log, h0)
+        dxdb = dt(xdb, Shard(0), Shard(1))
+        y, h = ops.selective_scan(dt(dtt, Shard(0), Shard(2)),
+                                  dt(xc, Shard(1), Shard(2)), dxdb[..., 3:7],
+                                  dxdb[..., 7:], a_log,
+                                  dt(h0, Shard(0), Shard(1)))
+        scan = {"err": _worst([y, h], [want_y, want_h], (1e-5, 1e-5)),
+                "placements": str(y.placements),
+                "state_placements": str(h.placements)}
     finally:
         for mod, name, real in reals:
             setattr(mod, name, real)
     return {"flash": att, "wkv6": wk, "cost_reduce": cost,
-            "calls": len(seen),
+            "selective_scan": scan, "calls": len(seen),
             "dtensor_reached": any("DTensor" in c for c in seen)}
 
 
