@@ -1,12 +1,15 @@
 """``BENCHMARK.json`` and the files it names, found by name, and the
-manifest's own check: the characters of every name and unit, and that each
+manifest's own check: the characters of every name and unit, that each
 per-layer metric lists its cells and each of those reports the end-to-end
-metric it moves."""
+metric it moves, and that every layer of each configuration is of a kind
+that its module of layer kinds or the harness's own code defines."""
 from __future__ import annotations
 
 import json
 import re
 from pathlib import Path
+
+from . import weights as W
 
 NAME = re.compile(r"^[A-Za-z0-9_][A-Za-z0-9_.-]{0,63}$")
 UNIT = re.compile(r"^[A-Za-z0-9_/%.-]{1,16}$")
@@ -108,8 +111,12 @@ def problems(bench: Bench) -> list:
         if not bench.per_layer(w["name"]):
             out.append(f"{w['name']}: no per-layer metric")
     for c in d["configs"]:
-        if not (bench.root / c["file"]).is_file():
+        path = bench.root / c["file"]
+        if not path.is_file():
             out.append(f"config {c['name']}: no file {c['file']}")
+            continue
+        out += [f"config {c['name']}: {p}"
+                for p in W.kind_problems(json.loads(path.read_text()))]
     cells = {w["name"] for w in d["workloads"]}
     for m in d["per_layer"]:
         if "workloads" not in m:

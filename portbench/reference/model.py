@@ -6,7 +6,10 @@ fp32 leaves to bfloat16 (``precision="fp8"``: the output check's control).
 The model is the port's definition of the configuration: the source's
 keys, and the departures its file lists (capacity-limited top-k routing
 with gates renormalised over the K picks, RoPE on every attention layer,
-a Mamba mixer without the dt / B / C norms and biases).
+a Mamba mixer without the dt / B / C norms and biases).  Each layer runs
+the ``reference`` of its kinds (``weights.kinds``): the methods below for
+the harness's own, a module of layer kinds' functions for the kinds it
+adds.
 
 Two groupings of the MoE capacity:
 
@@ -91,13 +94,12 @@ class Reference:
         x = self.tree["embed"][tokens].float()
         if self.precision == "fp8":
             x = _fp8(x)
+        table = W.kinds(self.cfg)
         for l in range(self.cfg["num_hidden_layers"]):
             p = self.layer(l)
-            mixer, ffn = W.layer_kind(self.cfg, l)
-            x = x + (self.attention(p["attn"], x) if mixer == "attn"
-                     else self.mamba(p["mamba"], x))
-            x = x + (self.moe(p["moe"], x, grouping) if ffn == "moe"
-                     else self.ffn(p["ffn"], x))
+            for kind in W.layer_kind(self.cfg, l):
+                k = table[kind]
+                x = x + k["reference"](self, p[k["key"]], x, grouping)
         return self.norm(x, self.tree["ln_f"])
 
     @torch.no_grad()

@@ -43,42 +43,37 @@ def flash_bound_s(call: dict) -> float:
 
 
 def product_params_per_token(cfg: dict) -> float:
-    """Parameters in the matrix products one token goes through: every
+    """Parameters in the matrix products one token goes through: each
+    layer kind's ``params_per_token`` (``weights.BUILTIN``: the attention
     layer's projections, the dense FFNs, the router, the top-k routed and
-    all shared experts of each MoE layer (capacity padding and drops do not
-    count), the LM head.  The embedding is a lookup, Mamba's conv and scan
-    are elementwise: none counts."""
-    H, V = cfg["hidden_size"], cfg["vocab_size"]
-    n, nkv = cfg["num_attention_heads"], cfg["num_key_value_heads"]
-    dh = cfg["assumed"]["head_dim"]
-    total = H * V
+    all shared experts of each MoE layer, capacity padding and drops not
+    counted), the LM head.  The embedding is a lookup, Mamba's conv and
+    scan are elementwise: none counts."""
+    table = W.kinds(cfg)
+    total = cfg["hidden_size"] * cfg["vocab_size"]
     for l in range(cfg["num_hidden_layers"]):
-        mixer, ffn = W.layer_kind(cfg, l)
-        if mixer == "attn":
-            total += 2 * H * n * dh + 2 * H * nkv * dh
-        else:
-            din = cfg["mamba_expand"] * H
-            r, P = cfg["mamba_dt_rank"], cfg["mamba_d_state"]
-            total += H * 2 * din + din * (r + 2 * P) + r * din + din * H
-        if ffn == "moe":
-            d = W.expert_width(cfg)
-            active = W.top_k(cfg) + cfg.get("n_shared_experts", 0)
-            total += H * W.experts(cfg) + active * 3 * H * d
-        else:
-            total += 3 * H * cfg["intermediate_size"]
+        for kind in W.layer_kind(cfg, l):
+            total += table[kind]["params_per_token"](cfg)
     return float(total)
 
 
-def attention_layers(cfg: dict) -> int:
-    return sum(W.layer_kind(cfg, l)[0] == "attn"
-               for l in range(cfg["num_hidden_layers"]))
+def flops_per_position(cfg: dict) -> int:
+    """Model FLOPs of one token for each position it attends, over all
+    layers: each kind's ``flops_per_position`` (4 x heads x head dim for
+    ``attn``: QK^T and PV), nothing for a kind that attends nothing
+    (Mamba's scan, a dense or MoE FFN)."""
+    table = W.kinds(cfg)
+    total = 0
+    for l in range(cfg["num_hidden_layers"]):
+        for kind in W.layer_kind(cfg, l):
+            per = table[kind].get("flops_per_position")
+            total += per(cfg) if per is not None else 0
+    return total
 
 
 def model_flops(cfg: dict, tokens: int, attended: int) -> float:
     """Model FLOPs of ``tokens`` tokens that attend ``attended`` positions
     in all (summed over the tokens): 2 x product parameters a token, plus
-    4 x heads x head dim for each attended position of each attention
-    layer (QK^T and PV)."""
-    n, dh = cfg["num_attention_heads"], cfg["assumed"]["head_dim"]
+    ``flops_per_position`` for each attended position."""
     return 2.0 * product_params_per_token(cfg) * tokens \
-        + 4.0 * n * dh * attention_layers(cfg) * attended
+        + flops_per_position(cfg) * attended

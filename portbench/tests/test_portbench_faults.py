@@ -91,8 +91,8 @@ def test_a_broken_prefill_is_not_correct(cell, kind):
 @pytest.mark.parametrize("cell", DECODE + PREFILL)
 def test_the_control_is_not_correct(cell):
     s = smoke(cell)
-    ctx = core.setup(cell, 5, torch.device("cpu"), cfg=s["cfg"], mix=s["mix"],
-                     check=s["check"])
+    ctx = core.setup(s["cell"], 5, torch.device("cpu"), cfg=s["cfg"],
+                     mix=s["mix"], check=s["check"])
     with fixed_clock():
         ctx.load.measure(s["seconds"])
     ctx.load.release()

@@ -1,11 +1,13 @@
 """Nothing the harness or the reference imports is JAX or the JAX package
 (top-level names compared whole: ``repro_torch`` is not ``repro``), the
-reference imports nothing of the program, and without a card the harness
-exits non-zero and prints no result."""
+reference and each module of layer kinds import nothing of the program,
+and without a card the harness exits non-zero and prints no result."""
 import json
 import subprocess
 import sys
 from pathlib import Path
+
+import pytest
 
 ROOT = Path(__file__).resolve().parents[2]
 
@@ -34,8 +36,10 @@ def test_a_run_loads_no_jax_module():
     assert forbidden == [] and correct and tops == ["repro_torch"]
 
 
-def test_the_reference_imports_nothing_of_the_program():
-    r = _python("import sys, portbench.reference.model\n"
+@pytest.mark.parametrize("module", ["portbench.reference.model",
+                                    "portbench.reference.deepseek_v2"])
+def test_the_reference_imports_nothing_of_the_program(module):
+    r = _python(f"import sys, {module}\n"
                 "print(sorted({m.split('.')[0] for m in sys.modules}))")
     assert r.returncode == 0, r.stderr[-2000:]
     tops = set(eval(r.stdout.strip().splitlines()[-1]))

@@ -2,10 +2,13 @@
 check."""
 import copy
 import importlib
+import json
 
 import pytest
 
 from portbench import manifest
+from portbench import weights as W
+from portbench.reference import deepseek_v2
 
 BENCH = manifest.Bench(manifest.HERE.parent)
 
@@ -46,6 +49,45 @@ def _broken(mutate):
         "cell lacks moves", "bound over 0.25", "run_seconds", "non-ascii"])
 def test_manifest_check_catches(mutate):
     assert _broken(mutate)
+
+
+def _with_config(tmp_path, mutate):
+    """The manifest's problems with its first configuration's file changed
+    by ``mutate`` (the files copied under ``tmp_path``)."""
+    b = copy.copy(BENCH)
+    b.data = copy.deepcopy(BENCH.data)
+    b.root = tmp_path
+    for i, c in enumerate(b.data["configs"]):
+        cfg = BENCH.config(c["name"])
+        if i == 0:
+            mutate(cfg)
+        (tmp_path / c["file"]).parent.mkdir(parents=True, exist_ok=True)
+        (tmp_path / c["file"]).write_text(json.dumps(cfg))
+    return manifest.problems(b)
+
+
+def test_a_model_type_brings_its_module_of_layer_kinds(tmp_path):
+    # deepseek-moe's widths read as a deepseek_v2: its module gives every
+    # layer the mixer "mla", which it defines
+    assert _with_config(tmp_path,
+                        lambda cfg: cfg.update(model_type="deepseek_v2")) == []
+    cfg = BENCH.config(BENCH.data["configs"][0]["name"])
+    assert W.kinds_module(cfg) is None
+    assert W.kinds(dict(cfg, model_type="deepseek_v2"))["mla"] \
+        is deepseek_v2.KINDS["mla"]
+
+
+@pytest.mark.parametrize("break_it", [
+    lambda m: m.setattr(deepseek_v2, "KINDS", {}),
+    lambda m: m.setattr(deepseek_v2, "layer_kind",
+                        lambda cfg, l: ("mla", "swa")),
+], ids=["module lacks its kind", "ffn defined nowhere"])
+def test_manifest_check_catches_a_kind_defined_nowhere(tmp_path, monkeypatch,
+                                                       break_it):
+    break_it(monkeypatch)
+    problems = _with_config(tmp_path,
+                            lambda cfg: cfg.update(model_type="deepseek_v2"))
+    assert problems and all("is defined nowhere" in p for p in problems)
 
 
 def test_config_files_hold_the_port_spec_widths():

@@ -2,6 +2,8 @@
 import pytest
 
 from portbench import manifest, roofline
+from portbench import weights as W
+from portbench.tests.helpers import deepseek_v2
 
 BENCH = manifest.Bench(manifest.HERE.parent)
 
@@ -41,3 +43,21 @@ def test_model_flops_of_one_token():
     # a token attending 100 positions: 2 x params + 4 x 16 x 128 x 28 x 100
     assert roofline.model_flops(cfg, 1, 100) == \
         2 * 2_618_818_560 + 4 * 16 * 128 * 28 * 100
+
+
+def test_mla_counts_of_deepseek_v2():
+    cfg = deepseek_v2()
+    mla = W.kinds(cfg)["mla"]
+    # H q_lora 7 864 320 + q_lora N (nope + rope) 37 748 736 + H kv_lora
+    # 2 621 440 + H rope 327 680 + kv_lora N (nope + v) 16 777 216 +
+    # N v H 83 886 080
+    assert mla["params_per_token"](cfg) == 149_225_472
+    # 2 N (nope + rope) 49 152 + 2 N v 32 768
+    assert mla["flops_per_position"](cfg) == 81_920
+    # lm_head 524 288 000 + 60 MLA layers + the dense layer 188 743 680 +
+    # 59 MoE layers x (router 819 200 + 8 x 3 x 5120 x 1536): the "21B
+    # activated" of arXiv:2405.04434 less the embedding
+    assert roofline.product_params_per_token(cfg) == \
+        524_288_000 + 60 * 149_225_472 + 188_743_680 + 59 * 189_562_880
+    assert roofline.model_flops(cfg, 1, 100) == \
+        2 * 20_850_769_920 + 60 * 81_920 * 100

@@ -23,7 +23,7 @@ def _collect() -> dict:
 
 
 def _stretches(cell: str, seed: int) -> tuple:
-    """A smoke run of ``cell`` with the window (the registry diffed over
+    """A smoke run ``cell`` (of ``helpers.CELLS``) with the window (the registry diffed over
     it), S, the tracing cost's rounds, A and B, as a traced run would make
     them -> (the window, its counts, {metric: reading}, the report's lines,
     its checks)."""
@@ -31,8 +31,8 @@ def _stretches(cell: str, seed: int) -> tuple:
     sm = smoke(cell)
     device = torch.device("cpu")
     with fixed_clock():
-        ctx = core.setup(cell, seed, device, cfg=sm["cfg"], mix=sm["mix"],
-                         check=sm["check"])
+        ctx = core.setup(sm["cell"], seed, device, cfg=sm["cfg"],
+                         mix=sm["mix"], check=sm["check"])
         before = _collect()
         window = ctx.load.measure(sm["seconds"])
         counts = metrics.diff(before, _collect())
@@ -46,7 +46,7 @@ def _stretches(cell: str, seed: int) -> tuple:
     kind = ctx.mix["kind"]
     names = [m for m in spans.METRICS
              if m.endswith(".decode") == (kind == "closed_loop")]
-    names += [m["name"] for m in BENCH.per_layer(cell)]
+    names += [m["name"] for m in BENCH.per_layer(sm["cell"])]
     readings = {m: BENCH.reader(m)(rctx) for m in names}
     lines, checks = spans.report(kind, counts, s, b, readings, cost)
     return window, counts, readings, lines, checks

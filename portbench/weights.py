@@ -7,10 +7,27 @@ the device into one flat buffer of the served dtype (fp32 leaves into a
 second one), and each leaf is a view of it scaled by 1/sqrt(its contraction
 width); norm scales and Mamba's ``D`` are ones; ``A_log`` is the S4D-real
 init log(1..d_state) shifted by log(1/64), so that the scan keeps a memory
-of tens of steps.  The port's own ``init_params`` is not used."""
+of tens of steps.  The port's own ``init_params`` is not used.
+
+A configuration brings the layer kinds the harness lacks in the module of
+its ``model_type``, ``portbench/reference/<model_type>.py``, where there is
+one.  The module may give ``layer_kind(cfg, l) -> (mixer, ffn)`` and
+``KINDS``, a dict from each kind it adds to a dict of plain functions,
+shaped as ``BUILTIN``, the harness's own kinds:
+
+* ``key``: the key of the kind's subtree in a layer of the port's tree;
+* ``leaves(cfg)``: ``{leaf: (shape, fan_in | rule)}``, as ``_attn_leaves``;
+* ``reference(ref, p, x, grouping)``: the kind's output (to be added to
+  the residual ``x``), computed with the ``Reference``'s ``mm``, ``a``,
+  ``w``, ``w32`` and ``norm`` so that its float8 control follows;
+* ``params_per_token(cfg)``: parameters in its matrix products a token;
+* ``flops_per_position(cfg)``: FLOPs per attended position (left out by a
+  kind that attends nothing)."""
 from __future__ import annotations
 
+import importlib
 import math
+from pathlib import Path
 
 import torch
 
@@ -19,6 +36,7 @@ DRAW_CHUNK = 1 << 30
 # leaf offsets in the flat buffers are multiples of this many elements
 ALIGN = 128
 A_LOG_SHIFT = math.log(1.0 / 64.0)
+REFERENCE = Path(__file__).resolve().parent / "reference"
 
 
 def _attn_leaves(cfg: dict) -> dict:
@@ -70,7 +88,85 @@ def top_k(cfg: dict) -> int:
     return cfg["num_experts_per_tok"]
 
 
+def _attn_params(cfg: dict) -> int:
+    H = cfg["hidden_size"]
+    n, nkv = cfg["num_attention_heads"], cfg["num_key_value_heads"]
+    dh = cfg["assumed"]["head_dim"]
+    return 2 * H * n * dh + 2 * H * nkv * dh
+
+
+def _mamba_params(cfg: dict) -> int:
+    H = cfg["hidden_size"]
+    din = cfg["mamba_expand"] * H
+    r, P = cfg["mamba_dt_rank"], cfg["mamba_d_state"]
+    return H * 2 * din + din * (r + 2 * P) + r * din + din * H
+
+
+def _moe_params(cfg: dict) -> int:
+    """The router, the top-k routed and all shared experts (capacity
+    padding and drops do not count)."""
+    H, d = cfg["hidden_size"], expert_width(cfg)
+    active = top_k(cfg) + cfg.get("n_shared_experts", 0)
+    return H * experts(cfg) + active * 3 * H * d
+
+
+# the harness's own layer kinds, shaped as a module's ``KINDS``
+BUILTIN = {
+    "attn": {"key": "attn", "leaves": _attn_leaves,
+             "reference": lambda ref, p, x, grouping: ref.attention(p, x),
+             "params_per_token": _attn_params,
+             # QK^T and PV
+             "flops_per_position": lambda cfg: 4 * cfg["num_attention_heads"]
+             * cfg["assumed"]["head_dim"]},
+    "mamba": {"key": "mamba", "leaves": _mamba_leaves,
+              "reference": lambda ref, p, x, grouping: ref.mamba(p, x),
+              "params_per_token": _mamba_params},
+    "dense": {"key": "ffn",
+              "leaves": lambda cfg: _ffn_leaves(cfg["hidden_size"],
+                                                cfg["intermediate_size"]),
+              "reference": lambda ref, p, x, grouping: ref.ffn(p, x),
+              "params_per_token": lambda cfg: 3 * cfg["hidden_size"]
+              * cfg["intermediate_size"]},
+    "moe": {"key": "moe", "leaves": _moe_leaves,
+            "reference": lambda ref, p, x, grouping: ref.moe(p, x, grouping),
+            "params_per_token": _moe_params},
+}
+
+
+def kinds_module(cfg: dict):
+    """``portbench/reference/<model_type>.py``, the module of layer kinds
+    of the configuration's model type, or None where there is none."""
+    name = cfg["model_type"]
+    if not (name.isidentifier() and (REFERENCE / f"{name}.py").is_file()):
+        return None
+    return importlib.import_module(f"{__package__}.reference.{name}")
+
+
+def kinds(cfg: dict) -> dict:
+    """Every layer kind of the configuration: {kind: entry}, the harness's
+    own and its module's, the module's first."""
+    mod = kinds_module(cfg)
+    return {**BUILTIN, **getattr(mod, "KINDS", {})}
+
+
+def kind_problems(cfg: dict) -> list:
+    """The layers of a kind that is defined nowhere ([] if none)."""
+    table = kinds(cfg)
+    return [f"layer {l}: kind {kind!r} is defined nowhere"
+            for l in range(cfg["num_hidden_layers"])
+            for kind in layer_kind(cfg, l) if kind not in table]
+
+
 def layer_kind(cfg: dict, layer: int) -> tuple:
+    """(mixer, ffn) of ``layer``: the configuration's module's, where it
+    has a ``layer_kind``, else ``default_layer_kind``'s."""
+    mod = kinds_module(cfg)
+    if mod is not None and hasattr(mod, "layer_kind"):
+        return mod.layer_kind(cfg, layer)
+    return default_layer_kind(cfg, layer)
+
+
+def default_layer_kind(cfg: dict, layer: int) -> tuple:
     """(mixer, ffn) of ``layer`` by the source's keys: mixer ``attn`` or
     ``mamba``, ffn ``dense`` or ``moe``."""
     if cfg["model_type"] == "jamba":
@@ -87,13 +183,9 @@ def layer_kind(cfg: dict, layer: int) -> tuple:
 
 def layer_leaves(cfg: dict, layer: int) -> dict:
     """The subtree of one layer: {leaf: (shape, fan_in | init rule)}."""
-    mixer, ffn = layer_kind(cfg, layer)
-    out = {mixer: _attn_leaves(cfg) if mixer == "attn" else _mamba_leaves(cfg)}
-    if ffn == "moe":
-        out["moe"] = _moe_leaves(cfg)
-    else:
-        out["ffn"] = _ffn_leaves(cfg["hidden_size"], cfg["intermediate_size"])
-    return out
+    table = kinds(cfg)
+    return {table[k]["key"]: table[k]["leaves"](cfg)
+            for k in layer_kind(cfg, layer)}
 
 
 def layer_place(cfg: dict, layer: int) -> tuple:
