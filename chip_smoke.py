@@ -20,8 +20,11 @@ Phases, one JSON line each on standard output:
            or decode), the decode split, and the device time per launch
            beside the library's (the MLA rows, v's head dim 128 under q/k's
            192, also the library's backend, read with torch.profiler once
-           the main paths have run); wkv6 shapes the kernel its wrapper chose
-           (decode or tiled), the tile, and the device time per launch;
+           the main paths have run); the MLA decode instance's rows
+           (MLA_CASES: 128 heads over the 576-wide latent row, against the
+           float64 function, with both paths of the layer's decode step);
+           wkv6 shapes the kernel its wrapper chose (decode or tiled), the
+           tile, and the device time per launch;
            cost_reduce rows (the sweep's merged calls first) the split its
            wrapper's rule chose, and its and torch.matmul's device times;
            selective_scan rows (jamba's prefill and decode shapes first)
@@ -246,6 +249,7 @@ from repro_torch.kernels import ops  # noqa: E402
 from repro_torch.launch.dryrun import VARIANTS, arch_rules  # noqa: E402
 from repro_torch.models import (RuntimeCfg, init_params, lm,  # noqa: E402
                                 param_axes)
+from repro_torch.models import layers as L  # noqa: E402
 from repro_torch.serve import Engine, Request  # noqa: E402
 from repro_torch.train import (OptCfg, init_opt_state,  # noqa: E402
                                make_train_step)
@@ -278,11 +282,13 @@ SOURCES = {"flash_attention": "src/repro_torch/kernels/csrc/flash_attention.cu",
 
 
 def reset_counts() -> None:
-    """Every kernel's launch count to 0 (and wkv6's count by variant)."""
+    """Every kernel's launch count to 0 (and wkv6's and flash_attention's
+    counts by variant)."""
     for module in COUNTERS.values():
         module.launches = 0
-    for variant in wkv.launches_by_variant:
-        wkv.launches_by_variant[variant] = 0
+    for by_variant in (wkv.launches_by_variant, fa.launches_by_variant):
+        for variant in by_variant:
+            by_variant[variant] = 0
 
 
 def require(ok, message) -> None:
@@ -711,6 +717,186 @@ def check_attention_case(case, seed: int) -> dict:
     if lib:
         row["over_library"] = row["ms"] / row["library_ms"]
         row["over_library_device"] = dev_ms / lib_dev_ms
+    return row
+
+
+# MLA's absorbed decode (the flash kernel's "mla" instance): DeepSeek-V2's
+# 128 query heads over one kv head whose key is the 576-wide latent row
+# [c_kv 512 | k_rope 64] and whose value is that row's first 512 columns, as
+# models/layers.py:_mla_absorbed hands them over (q [B,1,1,128,576], the
+# latent a view of the cache).  The served cell's 32 slots at 4096 and 12288
+# keys, the chip_smoke engine's 8 at 2048, a short range of one split (a
+# window), a range split over 23 blocks, and DeepSeek-V2-Lite's 16 heads
+# (one block of 64 rows, 48 of them zeros) over a split range.  Each row of
+# 128 heads times the layer (layers.mla_attention at published widths,
+# random weights) on both paths: the absorbed one, and the recompute one (k
+# and v of every head from the whole latent cache), where that fits on the
+# card.
+MLA_CASES = [
+    dict(name="mla-absorbed-b32-4096", main=True, B=32, Sk=4096),
+    dict(name="mla-absorbed-b32-12288", main=True, B=32, Sk=12288),
+    dict(name="mla-absorbed-b8-2048", main=True, B=8, Sk=2048),
+    dict(name="mla-absorbed-short-window", B=3, Sk=200, window=150),
+    dict(name="mla-absorbed-split", B=2, Sk=3000),
+    dict(name="mla-absorbed-g16-split", B=3, Sk=2500, G=16),
+]
+MLA_LIBRARY_ROWS = 1 << 16     # B x Sk up to which the library runs (it
+                               # expands the latent 128-fold)
+
+
+def mla_layer(seed: int) -> tuple:
+    """(spec, one MLA layer's weights at deepseek-v2-236b's published
+    widths, drawn on the card from ``seed``, bf16)."""
+    spec = get_arch("deepseek-v2-236b").spec
+    m, H, N = spec.mla, spec.d_model, spec.n_heads
+    gen = torch.Generator(device=DEV).manual_seed(seed)
+
+    def w(*shape, fan):
+        return (torch.randn(shape, generator=gen, device=DEV)
+                / fan ** 0.5).to(BF16)
+    ones = lambda n: torch.ones(n, device=DEV, dtype=BF16)  # noqa: E731
+    return spec, {
+        "ln": ones(H), "w_dq": w(H, m.q_lora, fan=H), "ln_q": ones(m.q_lora),
+        "w_uq_n": w(m.q_lora, N, m.nope_dim, fan=m.q_lora),
+        "w_uq_r": w(m.q_lora, N, m.rope_dim, fan=m.q_lora),
+        "w_dkv": w(H, m.kv_lora, fan=H), "ln_kv": ones(m.kv_lora),
+        "w_kr": w(H, m.rope_dim, fan=H),
+        "w_uk": w(m.kv_lora, N, m.nope_dim, fan=m.kv_lora),
+        "w_uv": w(m.kv_lora, N, m.v_dim, fan=m.kv_lora),
+        "w_o": w(N, m.v_dim, H, fan=N * m.v_dim)}
+
+
+def mla_paths_ms(case, seed: int) -> dict:
+    """The MLA layer's decode step at the case's batch and keys through both
+    paths, on the latent buffer's views (``mla_attention`` with
+    ``attention_impl="cuda"``, the absorbed path, and with ``"naive"``, the
+    recompute one, whose attention over the rebuilt k and v is the plain
+    core's): device ms a step each (None where the recompute path runs out
+    of memory; the host's enqueueing, ≈ 3 ms a step, is the same on both
+    and left out), the outputs' largest gap against the bf16 limit, and the
+    absorbed path's launch of the instance."""
+    spec, p = mla_layer(seed)
+    m, B, Sk = spec.mla, case["B"], case["Sk"]
+    rt = RuntimeCfg(attention_impl="cuda", param_dtype="bfloat16",
+                    compute_dtype="bfloat16")
+    rt_recompute = dataclasses.replace(rt, attention_impl="naive")
+    gen = torch.Generator(device=DEV).manual_seed(seed + 1)
+    latent = (torch.randn((B, Sk, m.kv_lora + m.rope_dim), generator=gen,
+                          device=DEV) * 0.5).to(BF16)
+    x = torch.randn((B, 1, spec.d_model), generator=gen, device=DEV).to(BF16)
+
+    def step(cache, rt=rt):
+        return L.mla_attention(p, x, spec, rt, cache=dict(cache))[0]
+
+    views = {"ckv": latent[..., :m.kv_lora], "kr": latent[..., m.kv_lora:],
+             "pos": Sk - 1}
+    before = fa.launches_by_variant["mla"]
+    got = step(views)
+    torch.cuda.synchronize()
+    require(fa.launches_by_variant["mla"] == before + 1, "the absorbed step "
+            f"launched {fa.launches_by_variant['mla'] - before} mla "
+            "instances, not one")
+    out = {"absorbed_layer_ms": device_ms(lambda: step(views))[0],
+           "recompute_layer_ms": None, "paths_max_abs_err": None}
+    try:
+        want = step(views, rt_recompute)
+        err = (got.float() - want.float()).abs()
+        out["paths_max_err_over_allowed"] = \
+            (err / tolerance(want)).max().item()
+        out["paths_max_abs_err"] = err.max().item()
+        out["recompute_layer_ms"] = device_ms(
+            lambda: step(views, rt_recompute), calls=10)[0]
+        del want
+    except torch.cuda.OutOfMemoryError:
+        out["recompute"] = "out of memory"
+    gc.collect()
+    torch.cuda.empty_cache()
+    if out["recompute_layer_ms"] and case.get("main"):
+        # the served shapes; at a few hundred keys the recompute path's
+        # extra products are as small as the absorbed path's fp32 query
+        require(out["absorbed_layer_ms"] < out["recompute_layer_ms"],
+                f"{case['name']}: the absorbed step is slower than the "
+                "recompute one")
+    return out
+
+
+def check_mla_case(case, seed: int) -> dict:
+    """One MLA_CASES row: the instance against the float64 function, the
+    plain version and (where it fits) the library, its bound, and, at
+    DeepSeek-V2's 128 heads, both paths of the layer."""
+    B, Sk, name = case["B"], case["Sk"], case["name"]
+    G, D, Dv = case.get("G", 128), fa.MLA_D, fa.MLA_DV
+    gen = torch.Generator(device=DEV).manual_seed(seed)
+    latent = torch.randn((B, Sk, 1, D), generator=gen, device=DEV).to(BF16)
+    q = torch.randn((B, 1, 1, G, D), generator=gen, device=DEV).to(BF16)
+    k, v = latent, latent[..., :Dv]
+    kw = dict(causal=True, window=case.get("window"), softcap=None,
+              q_offset=Sk - 1)
+    require(fa._variant(q, k, v) == "mla", f"{name}: not the mla instance")
+    before = fa.launches
+    got = fa.flash_attention(q, k, v, **kw)
+    torch.cuda.synchronize()
+    require(fa.launches == before + 1, "the wrapper did not count its launch")
+    mask = fa._visible(1, Sk, True, kw["window"], kw["q_offset"], DEV)[0]
+    s64 = torch.einsum("bnd,bkd->bnk", q[:, 0, 0].double(),
+                       k[:, :, 0].double()) / D ** 0.5
+    s64 = s64.masked_fill(~mask, float("-inf"))
+    want = torch.einsum("bnk,bkd->bnd", torch.softmax(s64, -1),
+                        v[:, :, 0].double())[:, None, None]
+    require(torch.isfinite(got).all(), f"{name}: kernel output not finite")
+    err = (got.double() - want).abs()
+    allowed = tolerance(want.to(BF16)).double()
+    require(not (err > allowed).any(),
+            f"{name}: the instance disagrees with the float64 function: max "
+            f"abs err {err.max().item():.3e}")
+    plain = fa.flash_attention_plain(q, k, v, **kw)
+    short = fa.flash_attention_plain(q, k, v, **{**kw, "q_offset": Sk - 2})
+    require(((short.double() - want).abs() > allowed).any(),
+            f"{name}: the tolerance would let a lost key pass")
+    lo, hi = fa._decode_range(Sk, True, kw["window"], kw["q_offset"])
+    splits = fa.decode_splits(B, -(-G // fa.MLA_HEADS), hi - lo,
+                              fa.MLA_TARGET_BLOCKS)
+    visible = hi - lo
+    nbytes = 2 * (B * G * (D + Dv) + B * visible * D)
+    ops = 2 * B * G * (D + Dv) * visible
+    t_bytes, t_ops = nbytes / PEAK_BYTES_PER_S, ops / PEAK_FLOPS[BF16]
+    bound_ms = max(t_bytes, t_ops) * 1e3
+    dev_ms, ahead = device_ms(lambda: fa.flash_attention(q, k, v, **kw))
+    lib = None
+    if B * Sk <= MLA_LIBRARY_ROWS:
+        qq = q[:, 0, 0, :, None]                            # [B,128,1,576]
+        kk, vv = k.transpose(1, 2), v.transpose(1, 2)        # [B,1,Sk,.]
+
+        def lib():
+            return F.scaled_dot_product_attention(
+                qq, kk, vv, attn_mask=mask[None], enable_gqa=True)
+        lib_err = (lib()[:, :, 0][:, None, None].double() - want).abs()
+        require(not (lib_err > 4 * allowed).any(),
+                f"{name}: the library call computes something else")
+    row = {
+        "shape": name, "main_path": bool(case.get("main")), "variant": "mla",
+        "splits": splits, "B": B, "N": 1, "G": G, "Sq": 1, "Sk": Sk, "D": D,
+        "Dv": Dv, "dtype": "bfloat16",
+        **{k_: v_ for k_, v_ in kw.items() if v_},
+        "max_abs_err": err.max().item(),
+        "max_err_over_allowed": (err / allowed).max().item(),
+        "plain_max_abs_err": (plain.double() - want).abs().max().item(),
+        "tolerance": TOL[BF16],
+        "ms": time_ms(lambda: fa.flash_attention(q, k, v, **kw)),
+        "device_ms": dev_ms, "device_ms_queued_ahead": ahead,
+        "plain_ms": time_ms(lambda: fa.flash_attention_plain(q, k, v, **kw),
+                            max_iters=5),
+        "library_ms": time_ms(lib, max_iters=5) if lib else None,
+        "library_device_ms": device_ms(lib, calls=5)[0] if lib else None,
+        "bound_ms": bound_ms,
+        "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+        "bound_share_device": bound_ms / dev_ms,
+    }
+    del q, k, v, latent, plain, short, s64, want
+    gc.collect()
+    torch.cuda.empty_cache()
+    if G == 128:
+        row.update(mla_paths_ms(case, seed + 7))
     return row
 
 
@@ -1318,11 +1504,25 @@ def phase_kernels() -> list:
     usage = ptxas_usage("selective_scan")
     ssm = [check_ssm_case(c, seed=300 + i, usage=usage)
            for i, c in enumerate(SSM_CASES)]
-    # the D_v < D instance (MLA) with the numbers of its own main rows;
-    # its launches are the deepseek-v2 path's, filled in by the serve phase
+    # MLA's two instances with the numbers of their own main rows: D_v < D
+    # (the prefill's tc) and the absorbed decode's; their launches are the
+    # deepseek-v2 path's by variant, filled in by the serve phase
+    absorbed = [check_mla_case(c, seed=400 + i)
+                for i, c in enumerate(MLA_CASES)]
+    usage = ptxas_usage("flash_attention")
+    absorbed_instance = {
+        "launches": 0, "path": "serve deepseek-v2-236b", "variant": "mla",
+        "ptxas": usage.get(next((k for k in usage if "mla_decode" in k), ""),
+                           {}),
+        **{k: absorbed[0][k]
+           for k in ("max_abs_err", "ms", "device_ms", "plain_ms", "bound_ms",
+                     "bound_by", "bound_share_device", "absorbed_layer_ms",
+                     "recompute_layer_ms")},
+        "shape": absorbed[0]["shape"]}
+    attention += absorbed
     mla = {r["shape"]: r for r in attention}
     mla_instance = {
-        "launches": 0, "path": "serve deepseek-v2-236b",
+        "launches": 0, "path": "serve deepseek-v2-236b", "variant": "tc",
         **{k: mla["mla-prefill"][k]
            for k in ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
                      "library_ms", "device_ms", "library_device_ms")},
@@ -1335,7 +1535,9 @@ def phase_kernels() -> list:
         kernel_entry("flash_attention",
                      "src/repro/kernels/flash_attention.py:80", attention,
                      strided_view_max_abs_err=strided_err,
-                     instances={"dv<d (mla, d 192, dv 128)": mla_instance}),
+                     instances={"dv<d (mla, d 192, dv 128)": mla_instance,
+                                "mla absorbed decode (d 576, dv 512)":
+                                    absorbed_instance}),
         kernel_entry("wkv6", "src/repro/kernels/rwkv6_scan.py:80", scans,
                      library="none: no single PyTorch call computes wkv6"),
         kernel_entry("cost_reduce", "src/repro/kernels/cost_reduce.py:49",
@@ -1669,6 +1871,7 @@ def phase_serve(name: str, kernels: list, with_profile: bool = False) -> dict:
         long_logits, long_info = timed_prefill(prefill, params, long_tokens)
     counts = {k: module.launches for k, module in COUNTERS.items()}
     wkv_variants = dict(wkv.launches_by_variant)
+    fa_variants = dict(fa.launches_by_variant)
     # ---- read just after ----
 
     require(len(done) == n_req,
@@ -1698,6 +1901,18 @@ def phase_serve(name: str, kernels: list, with_profile: bool = False) -> dict:
                 f"{kernel} launched {counts[kernel]} times, expected "
                 f"{engine.steps} steps x {per_step} + {prefills} prefills x "
                 f"{per_prefill} = {expected}")
+    if spec.block == "mla":
+        # every engine step is one token a slot: the absorbed decode, the
+        # mla instance; the prefills recompute, the tc kernel (Dv < D)
+        predicted = {**{v: 0 for v in fa_variants},
+                     "mla": engine.steps * per_step,
+                     "tc": prefills * per_prefill}
+        require(fa_variants == predicted,
+                f"flash_attention launches by variant {fa_variants}, the "
+                f"rule predicts {predicted}")
+        extra_counts = {"flash_attention_launches_by_variant": fa_variants}
+    else:
+        extra_counts = {}
     # jamba's Mamba layers: one selective_scan launch a layer, every engine
     # step (S = 1) and every prefill
     mamba = sum(lm._slot_kind(spec, l)["mixer"] == "mamba"
@@ -1729,8 +1944,6 @@ def phase_serve(name: str, kernels: list, with_profile: bool = False) -> dict:
                 f"wkv6 launches by variant {wkv_variants}, the rule predicts "
                 f"{predicted}")
         extra_counts = {"wkv6_launches_by_variant": wkv_variants}
-    else:
-        extra_counts = {}
     # ``launches``: the sum over the served models that run the kernel,
     # each model's own run beside it
     entry = next(k for k in kernels if k["name"] == kernel)
@@ -1738,7 +1951,7 @@ def phase_serve(name: str, kernels: list, with_profile: bool = False) -> dict:
     entry["launches"] = sum(entry["launches_by_path"].values())
     for instance in entry.get("instances", {}).values():
         if instance["path"] == f"serve {name}":
-            instance["launches"] = counts[kernel]
+            instance["launches"] = fa_variants[instance["variant"]]
 
     # three more prefills, now warm: every reading, and their median as the
     # time that is reported
@@ -2570,8 +2783,10 @@ PARITY_TOL = {"float32": 1e-4, "float16": 5e-2}
 
 # the smoke specs whose attention the parity phase holds against the naive
 # core: qwen3, granite's MQA, minitron's gelu FFN, gemma2's windows and
-# softcaps, deepseek-moe's MoE, deepseek-v2's MLA with q/k of 24 and v of 16
-# through the fma and fp32 decode kernels, jamba's Mamba + MoE hybrid,
+# softcaps, deepseek-moe's MoE, deepseek-v2's MLA (its prefill with q/k of
+# 24 and v of 16 through the fma kernel, its absorbed decode with the
+# 40-wide latent row as k and its first 32 columns as v through the decode
+# kernels), jamba's Mamba + MoE hybrid,
 # whisper's encoder and cross-attention (frames of 30), internvl2's vision
 # prefix (8 positions)
 PARITY_SPECS = ("qwen3-14b", "granite-34b", "minitron-8b", "gemma2-27b",
@@ -3619,7 +3834,7 @@ def example_serve_batched() -> dict:
             f"serve_batched: {[e.steps for e in engines]} engine steps, "
             f"{n_steps} worked out")
     want = {"flash_attention": spec.n_layers * n_steps, "wkv6": 0,
-            "cost_reduce": 0}
+            "cost_reduce": 0, "selective_scan": 0}
     require(run["launches"] == want,
             f"serve_batched: launches {run['launches']}, want {want}")
     vocab_ok = all(0 <= t < spec.vocab for r in done for t in r.out)
@@ -3724,7 +3939,8 @@ def example_pareto_search() -> dict:
     g = card["globals"]
     batched = g["sc"].with_backend("batched")
     calls = _batched_stats(batched)["calls"]
-    want = {"flash_attention": 0, "wkv6": 0, "cost_reduce": calls}
+    want = {"flash_attention": 0, "wkv6": 0, "cost_reduce": calls,
+            "selective_scan": 0}
     require(calls > 0 and card["launches"] == want,
             f"pareto_search: launches {card['launches']}, want {want}")
     cpu_before = _batched_stats(batched, "cpu")["calls"]

@@ -93,6 +93,25 @@
 //    (`flash_decode_kernel`): IEEE fp32 dot products; a warp owns one key at
 //    a time, each lane a 16-byte piece of the row (two of a K row past D =
 //    128), several keys in flight.
+//  * mla (`flash_mla_decode_kernel`): MLA's absorbed decode, which no TPU
+//    kernel has (the JAX package recomputes k and v of every head from the
+//    latent cache each step).  bf16, Sq = 1, one kv head of D = 576 whose v
+//    is the first Dv = 512 columns of the same rows (DeepSeek-V2's latent
+//    row [c_kv 512 | k_rope 64]), any G (blocks of 64 heads; the last
+//    block's rows past G are zeros and write nothing).  Bound: the bytes of
+//    the visible latent rows, 1152 a key, read once per block of 64 heads
+//    (the tensor cores do 128 x 1088 x 2 operations a key for 128 heads, a
+//    little under the bytes' time).  One block of 16 warps per (batch,
+//    chunk of 64 heads, split of the kv range); Q (64 x 576) sits in shared
+//    memory, the latent rows stream in tiles of 32 keys through a
+//    three-stage cp.async ring and each tile is both K (576 columns) and V
+//    (the first 512).  Per tile, S = Q K^T with warp w on heads 16 (w / 4)..
+//    and keys 8 (w % 4).. (mma.sync over 36 k-steps), the scores to shared
+//    memory; then warp w on heads 16 (w / 4).. and output columns
+//    128 (w % 4)..: the online softmax of its 16 heads over the tile (the
+//    four warps of a head group compute it alike, so no warp waits for
+//    another's), O += P V with P as bf16 hi + lo parts.  The splits meet as
+//    the decode kernels' do (finish_decode).
 
 #include <cuda.h>
 #include <cuda_runtime.h>
@@ -1445,13 +1464,196 @@ cudaError_t launch_decode_tc(const Params& p, cudaStream_t stream) {
   return cudaGetLastError();
 }
 
+// --- bf16 MLA decode: 64 heads a block over one 576-wide latent row ------
+
+constexpr int kMlaThreads = 512;     // 16 warps: 4 head tiles x 4
+constexpr int kMlaD = 576;           // q / k head dim: c_kv 512 | k_rope 64
+constexpr int kMlaDV = 512;          // v / out head dim: the first 512 of k
+constexpr int kMlaHeads = 64;        // query heads a block
+constexpr int kMlaBN = 32;           // keys a tile
+constexpr int kMlaStages = 3;
+constexpr int kMlaSLd = kMlaBN + 8;  // floats a row of the score tile
+constexpr int kMlaQBytes = kMlaHeads * kMlaD * 2;
+constexpr int kMlaTile = kMlaBN * kMlaD * 2;
+constexpr int kMlaSmem = kMlaQBytes + kMlaStages * kMlaTile + kMlaHeads * kMlaSLd * 4;
+static_assert(kMlaHeads * kMlaDV * 4 + 2 * kMlaHeads * 4 <= kMlaQBytes + kMlaStages * kMlaTile,
+              "the partial results fit where Q and the ring were");
+
+// Rows [row0, row0 + ROWS) of a [*, 576] bf16 matrix with row stride
+// `stride` into a swizzled [ROWS][576] tile; rows >= row_end are 0.
+template <int ROWS>
+__device__ __forceinline__ void mla_load(uint32_t dst, const bf16* src,
+                                         long long stride, int row0,
+                                         int row_end, int tid) {
+  constexpr int kChunks = kMlaD / 8;
+  for (int i = tid; i < ROWS * kChunks; i += kMlaThreads) {
+    const int r = i / kChunks;
+    const int c = i % kChunks;
+    const bool ok = row0 + r < row_end;
+    const bf16* g = ok ? src + (long long)(row0 + r) * stride + c * 8 : src;
+    cp_async_16(dst + swz<kMlaD>(r, c), g, ok);
+  }
+}
+
+__global__ void __launch_bounds__(kMlaThreads, 1)
+flash_mla_decode_kernel(const Params p) {
+  extern __shared__ __align__(128) unsigned char ml_smem[];
+  __shared__ int sLast;
+  const uint32_t sQ = smem_addr(ml_smem);                 // [64][576]
+  const uint32_t sKV = sQ + kMlaQBytes;                   // stages of [32][576]
+  float* sS = reinterpret_cast<float*>(ml_smem + kMlaQBytes + kMlaStages * kMlaTile);
+
+  const int tid = threadIdx.x;
+  const int warp = tid >> 5;
+  const int lane = tid & 31;
+  const int split = blockIdx.x;
+  const int unit = blockIdx.y;                            // (kv head, chunk of 64 heads)
+  const int b = blockIdx.z;
+  const int n = unit / p.g_chunks;
+  const int g0 = (unit % p.g_chunks) * kMlaHeads;
+  const int gn = min(kMlaHeads, p.G - g0);                // heads of this chunk
+  const bf16* qp = static_cast<const bf16*>(p.q) + b * p.q_sb + n * p.q_sn + g0 * p.q_sg;
+  const bf16* kp = static_cast<const bf16*>(p.k) + b * p.k_sb + n * p.k_sn;
+  const bf16* vp = static_cast<const bf16*>(p.v) + b * p.v_sb + n * p.v_sn;
+  bf16* op = static_cast<bf16*>(p.o) + b * p.o_sb + n * p.o_sn + g0 * p.o_sg;
+  const DecodeRange r = decode_range(p, split);
+  const int n_tiles = r.s_hi > r.s_lo ? (r.s_hi - r.s_lo + kMlaBN - 1) / kMlaBN : 0;
+
+  mla_load<kMlaHeads>(sQ, qp, p.q_sg, 0, gn, tid);     // rows past gn: 0
+#pragma unroll
+  for (int st = 0; st < kMlaStages - 1; ++st) {
+    if (st < n_tiles)
+      mla_load<kMlaBN>(sKV + st * kMlaTile, kp, p.k_ss, r.s_lo + st * kMlaBN, r.s_hi, tid);
+    cp_async_commit();
+  }
+
+  const int ht = warp >> 2;          // heads [16 ht, 16 ht + 16)
+  const int part = warp & 3;         // S: keys [8 part, +8); PV: columns [128 part, +128)
+  const int row = lane >> 2;
+  const int c_in = (lane & 3) * 2;
+  float o[kMlaDV / 4 / 8][4];
+#pragma unroll
+  for (int j = 0; j < kMlaDV / 4 / 8; ++j)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) o[j][e] = 0.f;
+  float m[2] = {-INFINITY, -INFINITY};
+  float l[2] = {0.f, 0.f};
+
+  for (int t = 0; t < n_tiles; ++t) {
+    cp_async_wait<kMlaStages - 2>();
+    __syncthreads();                 // tile t is in; the stage of t - 1 and the scores are free
+    const int nt = t + kMlaStages - 1;
+    if (nt < n_tiles)
+      mla_load<kMlaBN>(sKV + (nt % kMlaStages) * kMlaTile, kp, p.k_ss,
+                       r.s_lo + nt * kMlaBN, r.s_hi, tid);
+    cp_async_commit();
+    const uint32_t sT = sKV + (t % kMlaStages) * kMlaTile;
+    const int kv0 = r.s_lo + t * kMlaBN;
+
+    // S = Q K^T for heads [16 ht, +16) x keys [8 part, +8), two k-steps a pass
+    float sc[4] = {0.f, 0.f, 0.f, 0.f};
+#pragma unroll 6
+    for (int kp2 = 0; kp2 < kMlaD / 32; ++kp2) {
+      uint32_t bk[4], qa[4];
+      ldsm_x4(bk, sT + swz<kMlaD>(part * 8 + (lane & 7), kp2 * 4 + (lane >> 3)));
+      ldsm_x4(qa, sQ + swz<kMlaD>(ht * 16 + (lane & 7) + ((lane >> 3) & 1) * 8,
+                                  kp2 * 4 + (lane >> 4)));
+      mma_16816(sc, qa, bk[0], bk[1]);
+      ldsm_x4(qa, sQ + swz<kMlaD>(ht * 16 + (lane & 7) + ((lane >> 3) & 1) * 8,
+                                  kp2 * 4 + 2 + (lane >> 4)));
+      mma_16816(sc, qa, bk[2], bk[3]);
+    }
+    // base-2 scores, keys past the split's end masked, into the score tile
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      const float x = p.softcap > 0.f ? p.cap_out * tanhf(sc[e] * p.cap_in)
+                                      : sc[e] * p.scale_log2;
+      sc[e] = kv0 + part * 8 + c_in + (e & 1) < r.s_hi ? x : -INFINITY;
+    }
+    float* srow = sS + (ht * 16 + row) * kMlaSLd + part * 8 + c_in;
+    *reinterpret_cast<float2*>(srow) = make_float2(sc[0], sc[1]);
+    *reinterpret_cast<float2*>(srow + 8 * kMlaSLd) = make_float2(sc[2], sc[3]);
+    __syncthreads();                 // the tile's scores are in
+
+    // this warp's 16 heads over the tile's 32 keys: the online softmax,
+    // then O[:, 128 part, +128) += P V
+    float s[4][4];
+    const float* mine = sS + (ht * 16 + row) * kMlaSLd + c_in;
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+      const float2 a = *reinterpret_cast<const float2*>(mine + 8 * j);
+      const float2 c = *reinterpret_cast<const float2*>(mine + 8 * kMlaSLd + 8 * j);
+      s[j][0] = a.x; s[j][1] = a.y; s[j][2] = c.x; s[j][3] = c.y;
+    }
+    float corr[2];
+    online_softmax(s, m, l, corr);
+    rescale_o(o, corr);
+#pragma unroll
+    for (int ks = 0; ks < 2; ++ks) {
+      uint32_t ah[4], al[4];
+      split_bf16x2(s[2 * ks][0], s[2 * ks][1], ah[0], al[0]);
+      split_bf16x2(s[2 * ks][2], s[2 * ks][3], ah[1], al[1]);
+      split_bf16x2(s[2 * ks + 1][0], s[2 * ks + 1][1], ah[2], al[2]);
+      split_bf16x2(s[2 * ks + 1][2], s[2 * ks + 1][3], ah[3], al[3]);
+#pragma unroll
+      for (int j = 0; j < kMlaDV / 4 / 16; ++j) {
+        uint32_t bv[4];
+        ldsm_x4_t(bv, sT + swz<kMlaD>(ks * 16 + (lane & 7) + ((lane >> 3) & 1) * 8,
+                                      part * 16 + j * 2 + (lane >> 4)));
+        mma_16816(o[2 * j], ah, bv[0], bv[1]);
+        mma_16816(o[2 * j + 1], ah, bv[2], bv[3]);
+        mma_16816(o[2 * j], al, bv[0], bv[1]);
+        mma_16816(o[2 * j + 1], al, bv[2], bv[3]);
+      }
+    }
+  }
+
+  // each head's (m, l, acc) into the (now free) Q and ring space
+  cp_async_wait<0>();
+  __syncthreads();
+  float* sA = reinterpret_cast<float*>(ml_smem);          // [64][512]
+  float* sM = sA + kMlaHeads * kMlaDV;                    // [64]
+  float* sL = sM + kMlaHeads;
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    l[i] += __shfl_xor_sync(0xffffffffu, l[i], 1);
+    l[i] += __shfl_xor_sync(0xffffffffu, l[i], 2);
+    const int h = ht * 16 + row + 8 * i;
+    if (part == 0 && (lane & 3) == 0) {
+      sM[h] = m[i];
+      sL[h] = l[i];
+    }
+#pragma unroll
+    for (int j = 0; j < kMlaDV / 4 / 8; ++j) {
+      const int col = part * (kMlaDV / 4) + 8 * j + c_in;
+      sA[h * kMlaDV + col] = o[j][2 * i];
+      sA[h * kMlaDV + col + 1] = o[j][2 * i + 1];
+    }
+  }
+  __syncthreads();
+  finish_decode<bf16, 1>(p, sM, sL, sA, kMlaHeads, kMlaDV, gn, kMlaHeads,
+                         split, op, vp, &sLast);
+}
+
+cudaError_t launch_mla_decode(const Params& p, cudaStream_t stream) {
+  cudaError_t err = cudaFuncSetAttribute(
+      flash_mla_decode_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, kMlaSmem);
+  if (err != cudaSuccess) return err;
+  const dim3 grid(p.splits, p.N * p.g_chunks, p.B);
+  flash_mla_decode_kernel<<<grid, kMlaThreads, kMlaSmem, stream>>>(p);
+  return cudaGetLastError();
+}
+
 }  // namespace
 
 // meta, 27 integers: B N G Sq Sk D | q strides b s n g | k strides b s n |
 // v strides b s n | out strides b s n g | causal window q_offset |
 // splits split_len g_chunks (decode) | Dv.  D is the head dim of q and k (at
 // most 192), Dv that of v and out (at most min(D, 128)), both multiples of 4.
-// dtype: 0 = float32, 1 = bfloat16.  variant: 0 = fma, 1 = tc, 2 = decode;
+// dtype: 0 = float32, 1 = bfloat16.  variant: 0 = fma, 1 = tc, 2 = decode,
+// 3 = mla (bf16, Sq 1, N 1, D 576, Dv 512, v the leading columns of k,
+// g_chunks = ceil(G / 64) chunks of up to 64 heads, part holding 64 heads a
+// chunk);
 // the chosen kernel is launched or the call fails, never another one.
 // part / ticket: decode scratch, needed when splits > 1 (part: B * N *
 // g_chunks * splits * ceil(G / g_chunks) * (Dv + 2) floats; ticket:
@@ -1480,12 +1682,21 @@ extern "C" int flash_attention_launch(const void* q, const void* k,
   p.scale_log2 = scale * kLog2e;
   p.cap_in = softcap > 0.f ? scale / softcap : 0.f;
   p.cap_out = softcap * kLog2e;
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (variant == 3) {
+    if (dtype != 1 || p.B <= 0 || p.B > 65535 || p.Sq != 1 || p.N != 1 ||
+        p.Sk < 0 || p.D != kMlaD || p.Dv != kMlaDV || p.G <= 0 ||
+        p.g_chunks != (p.G + kMlaHeads - 1) / kMlaHeads ||
+        p.splits < 1 || p.split_len < 1 || p.v != p.k ||
+        (p.splits > 1 && (part == nullptr || ticket == nullptr)))
+      return (int)cudaErrorInvalidValue;
+    return (int)launch_mla_decode(p, st);
+  }
   if (p.B <= 0 || p.N <= 0 || p.G <= 0 || p.Sq <= 0 || p.Sk < 0 ||
       p.D <= 0 || p.D > 192 || p.D % 4 != 0 || p.Dv <= 0 ||
       p.Dv > (p.D < 128 ? p.D : 128) || p.Dv % 4 != 0 || p.B > 65535 ||
       p.N * p.G > 65535 || (dtype != 0 && dtype != 1))
     return (int)cudaErrorInvalidValue;
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (variant == 0)
     return (int)(dtype == 0 ? launch_fma_dtype<float>(p, st)
                             : launch_fma_dtype<bf16>(p, st));

@@ -4,7 +4,11 @@ its launch count, and the same function in plain PyTorch.
 Model layout throughout: ``q [B, Sq, N, G, D]`` (N kv heads, G query heads
 per kv head), ``k [B, Sk, N, D]``, ``v [B, Sk, N, Dv]`` -> ``[B, Sq, N, G,
 Dv]`` in q's dtype; the scale is ``1/sqrt(D)``.  Dv = D is GQA attention;
-Dv < D is MLA's (deepseek-v2: q/k of nope + rope = 192, v of 128).
+Dv < D is MLA's (deepseek-v2: q/k of nope + rope = 192, v of 128), and its
+absorbed decode (``models/layers.py:_mla_absorbed``) one query row of 128
+heads over one kv head whose key is the 576-wide latent row ``[c_kv |
+k_rope]`` and whose value is that row's first 512 columns (the MLA decode
+instance, ``"mla"``).
 ``flash_attention_bhsd`` takes the ``[B, H, S, D]`` layout of the TPU kernel
 it replaces (``repro/kernels/flash_attention.py``) and hands the same memory
 to the same kernel by strides.  That TPU kernel pads v by q's head dim and
@@ -25,15 +29,25 @@ import torch
 
 from ._scratch import split_scratch
 
-# Number of kernel launches made by this module (CUDA tensors only).
+# Number of kernel launches made by this module (CUDA tensors only), and
+# the same launches by the kernel ``_variant`` named.
 launches = 0
+launches_by_variant = {"fma": 0, "tc": 0, "decode": 0, "mla": 0}
 
-# on the card: D (q, k) up to 192, Dv (v, out) up to min(D, 128)
+# on the card: D (q, k) up to 192, Dv (v, out) up to min(D, 128); above,
+# only the MLA decode instance (MLA_D, MLA_DV below)
 MAX_HEAD_DIM = 192
 MAX_V_HEAD_DIM = 128
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 INPUT_DTYPES = tuple(_DTYPE_CODE)     # of q, k, v on the card
-_VARIANT_CODE = {"fma": 0, "tc": 1, "decode": 2}
+_VARIANT_CODE = {"fma": 0, "tc": 1, "decode": 2, "mla": 3}
+# the MLA decode instance: bf16, one query row, one kv head of MLA_D
+# columns whose v is its first MLA_DV (the same memory), up to MLA_HEADS
+# query heads a block (any G: the last block's rows past G are zeros), one
+# block resident per SM
+MLA_D, MLA_DV, MLA_HEADS = 576, 512, 64
+MLA_DTYPES = (torch.bfloat16,)
+MLA_TARGET_BLOCKS = 132
 # decode: query heads one block reads a K/V row for (bf16: the 16 rows of
 # an mma tile; fp32: 8 lane-group accumulators); a range this short is one
 # block's work; blocks a long range is split to (one wave: three resident
@@ -146,6 +160,9 @@ def _rule(sq: int, dtype: torch.dtype, fits: bool) -> str:
 def _variant(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> str:
     """The kernel a CUDA call goes to, by an explicit rule:
 
+    * ``"mla"``: q/k head dim ``MLA_D`` (above the other kernels'
+      ``MAX_HEAD_DIM``): MLA's absorbed decode, held to the instance's one
+      shape by ``mla_problems``, or the launch raises;
     * ``"decode"``: one query row (Sq = 1) and 16-byte loads fit: D and Dv
       multiples of 16 bytes, every stride but the last and every base
       address on 16 bytes;
@@ -155,6 +172,8 @@ def _variant(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> str:
       arithmetic, never TF32).
 
     The C entry launches the kernel named here or fails; nothing falls back."""
+    if q.shape[-1] > MAX_HEAD_DIM:
+        return "mla"
     return _rule(q.shape[1], q.dtype, _fits16(
         q.element_size(),
         [(t.stride(), t.data_ptr(), t.shape[-1]) for t in (q, k, v)]))
@@ -207,18 +226,42 @@ def _check_cuda(name: str, t: torch.Tensor, variant: str = "fma"):
                   t.shape[-1], variant)
 
 
+def mla_problems(q, k, v) -> list:
+    """What keeps a call with q/k head dim above ``MAX_HEAD_DIM`` from the
+    MLA decode instance ([] if nothing)."""
+    b, sq, n, g, d = q.shape
+    out = []
+    if q.dtype not in MLA_DTYPES:
+        out.append(f"dtype {q.dtype} (it takes {MLA_DTYPES})")
+    if (d, v.shape[-1]) != (MLA_D, MLA_DV):
+        out.append(f"head dims {d}/{v.shape[-1]} (it takes {MLA_D}/{MLA_DV})")
+    if sq != 1:
+        out.append(f"{sq} query rows (it takes one)")
+    if n != 1:
+        out.append(f"{n} kv heads (it takes one)")
+    if v.data_ptr() != k.data_ptr() or v.stride() != k.stride():
+        out.append("v not the leading columns of k")
+    return out
+
+
 def _launch(q, k, v, out, causal, window, softcap, q_offset):
     global launches
-    if q.dtype not in _DTYPE_CODE:
-        raise TypeError("the flash-attention kernel takes float32 or "
-                        f"bfloat16, got {q.dtype}")
     b, sq, n, g, d = q.shape
     sk, dv = k.shape[1], v.shape[-1]
-    if d > MAX_HEAD_DIM or d % 4:
+    mla = d > MAX_HEAD_DIM
+    bad = mla_problems(q, k, v) if mla else []
+    if bad:
+        raise ValueError(
+            f"flash_attention: q/k head dims above {MAX_HEAD_DIM} go to the "
+            "MLA decode instance alone, which does not take " + "; ".join(bad))
+    if not mla and q.dtype not in _DTYPE_CODE:
+        raise TypeError("the flash-attention kernel takes float32 or "
+                        f"bfloat16, got {q.dtype}")
+    if not mla and d % 4:
         raise ValueError(f"the flash-attention kernel takes q/k head dims "
                          f"that are multiples of 4 up to {MAX_HEAD_DIM}, "
                          f"got {d}")
-    if dv > min(d, MAX_V_HEAD_DIM) or dv % 4:
+    if not mla and (dv > min(d, MAX_V_HEAD_DIM) or dv % 4):
         raise ValueError(f"the flash-attention kernel takes v head dims that "
                          f"are multiples of 4 up to min(D, {MAX_V_HEAD_DIM})"
                          f" = {min(d, MAX_V_HEAD_DIM)}, got {dv}")
@@ -228,8 +271,8 @@ def _launch(q, k, v, out, causal, window, softcap, q_offset):
     esize = q.element_size()
     qs, ks, vs, os_ = q.stride(), k.stride(), v.stride(), out.stride()
     qp, kp, vp, op = q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr()
-    variant = _rule(sq, q.dtype,
-                    _fits16(esize, [(qs, qp, d), (ks, kp, d), (vs, vp, dv)]))
+    variant = "mla" if mla else _rule(
+        sq, q.dtype, _fits16(esize, [(qs, qp, d), (ks, kp, d), (vs, vp, dv)]))
     for name, st, ptr, width in (("q", qs, qp, d), ("k", ks, kp, d),
                                  ("v", vs, vp, dv), ("out", os_, op, dv)):
         _check_layout(name, st, ptr, esize, width, variant)
@@ -237,18 +280,20 @@ def _launch(q, k, v, out, causal, window, softcap, q_offset):
     stream = torch.cuda.current_stream(device).cuda_stream
     splits, split_len, g_chunks = 1, 1, 1
     part = ticket = None
-    if variant == "decode":
-        g_chunks = -(-g // DECODE_MAX_HEADS[q.dtype])
+    if variant in ("decode", "mla"):
+        g_chunks = -(-g // (MLA_HEADS if mla
+                            else DECODE_MAX_HEADS[q.dtype]))
         lo, hi = _decode_range(sk, causal, window, q_offset)
         visible = max(0, hi - lo)
         splits = decode_splits(b, n * g_chunks, visible,
-                               decode_target_blocks(q.dtype, d))
+                               MLA_TARGET_BLOCKS if mla
+                               else decode_target_blocks(q.dtype, d))
         split_len = max(1, -(-visible // splits))
         if splits > 1:
             units = b * n * g_chunks
+            rows = MLA_HEADS if mla else -(-g // g_chunks)   # heads a unit
             part, ticket = split_scratch(
-                device, stream,
-                4 * units * splits * -(-g // g_chunks) * (dv + 2), units)
+                device, stream, 4 * units * splits * rows * (dv + 2), units)
     meta = getattr(_local, "meta", None)
     if meta is None:
         meta = _local.meta = (ctypes.c_longlong * 27)()
@@ -270,6 +315,7 @@ def _launch(q, k, v, out, causal, window, softcap, q_offset):
                            f"with cudaError {err} (q {tuple(q.shape)}, "
                            f"k {tuple(k.shape)}, {q.dtype})")
     launches += 1
+    launches_by_variant[variant] += 1
 
 
 def _attend(q, k, v, out, causal, window, softcap, q_offset):

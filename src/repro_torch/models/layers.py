@@ -387,12 +387,27 @@ def mla_attention(p: dict, x: torch.Tensor, spec, rt: RuntimeCfg,
 
     ``cache`` (decode) is ``{"ckv": [B, kv_len, kv_lora], "kr": [B, kv_len,
     rope_dim], "pos": int}``; ckv and kr are **updated in place** and handed
-    back in the new dict.  As in the JAX package, k's nope part and v are
-    recomputed from the whole ckv cache every step (no absorbed decode), the
-    rope key ``kr`` is shared by all N heads, and attention runs on q/k of
-    head dim nope + rope and v of head dim v_dim (the kernel's Dv < D
-    instance), scaled by 1/sqrt(nope + rope).  Writing past kv_len raises
-    (JAX clamps the write instead)."""
+    back in the new dict.  Writing past kv_len raises (JAX clamps the write
+    instead).
+
+    Two paths compute the same mathematics.  The JAX package's (*recompute*)
+    makes k's nope part and v of all N heads from the whole ckv cache, with
+    the rope key ``kr`` shared by all heads, and attends with q/k of head dim
+    nope + rope and v of v_dim (the kernel's Dv < D instance), scaled by
+    1/sqrt(nope + rope).  The *absorbed* one (``_mla_absorbed``) folds W_uk
+    into the query and W_uv into the output, and attends with N query heads
+    over one shared key ``[ckv | kr]`` and one shared value ``ckv``: what
+    the cache holds, read in place.  A decode step of one token takes the
+    absorbed path where ``rt.attention_impl == "cuda"``, the tensors are
+    plain CPU or CUDA ones and nothing requires grad under grad mode, and
+    then ckv and kr have to be the column views of one latent buffer
+    (``lm.init_cache``), or the step raises; every other call (another
+    impl, meta or fake tensors, DTensors, training, prefill, a step of
+    several tokens) recomputes.  With tracing
+    on, each decode call counts its path (``mla.decode_absorbed`` /
+    ``mla.decode_recompute``), the absorbed one the latent rows it reads
+    (``mla.latent_rows``, batch x keys) and records the spans ``mla.absorb``
+    and ``mla.attend``."""
     m = spec.mla
     h = rms_norm(p["ln"], x)
     h = constrain(h, rules, (BATCH, SEQ, EMB))
@@ -418,6 +433,14 @@ def mla_attention(p: dict, x: torch.Tensor, spec, rt: RuntimeCfg,
         write_span(kr, pos, kr_new)
         new_cache = {"ckv": ckv, "kr": kr, "pos": pos + s_new}
         q_offset = pos
+        absorbed = s_new == 1 and _absorbable(rt, x, p)
+        if tracing_enabled():
+            metrics.counter("mla.decode_absorbed" if absorbed
+                            else "mla.decode_recompute").inc()
+        if absorbed:
+            out = _mla_absorbed(p, qn, qr, _latent_buffer(ckv, kr), m, rt,
+                                pos)
+            return x + constrain(out, rules, (BATCH, SEQ, EMB)), new_cache
     else:
         if positions is None:
             positions = torch.arange(x.shape[1], device=x.device) \
@@ -437,6 +460,77 @@ def mla_attention(p: dict, x: torch.Tensor, spec, rt: RuntimeCfg,
     out5 = attn_core(qq, kk, vv, rt, causal=True, q_offset=q_offset)
     out = einsum("bsnd,ndh->bsh", out5[:, :, :, 0], cast(p["w_o"], rt))
     return x + constrain(out, rules, (BATCH, SEQ, EMB)), new_cache
+
+
+def _absorbable(rt: RuntimeCfg, x: torch.Tensor, p: dict) -> bool:
+    """Whether an MLA decode step may take the absorbed path: the kernel's
+    impl, plain CPU or CUDA tensors (no DTensor, no meta or fake tensor),
+    and no input that autograd would have to follow."""
+    if rt.attention_impl != "cuda" or type(x) is not torch.Tensor \
+            or x.device.type not in ("cpu", "cuda"):
+        return False
+    return not (torch.is_grad_enabled() and (
+        x.requires_grad or any(t.requires_grad for t in p.values())))
+
+
+def _latent_buffer(ckv: torch.Tensor, kr: torch.Tensor) -> torch.Tensor:
+    """``[ckv | kr]`` as one ``[B, T, 1, kv_lora + rope]`` view of the latent
+    buffer whose column views ckv and kr are (``lm.init_cache``); raises
+    for any other pair of tensors."""
+    r, w = ckv.shape[-1], ckv.shape[-1] + kr.shape[-1]
+    if type(ckv) is not torch.Tensor or ckv.dim() != 3 \
+            or ckv.stride() != kr.stride() or ckv.stride(-1) != 1 \
+            or ckv.stride(1) < w or ckv.shape[:2] != kr.shape[:2] \
+            or kr.data_ptr() != ckv.data_ptr() + r * ckv.element_size():
+        raise ValueError(
+            "the absorbed MLA decode reads ckv and kr as the column views "
+            "of one [.., kv_len, kv_lora + rope] latent buffer "
+            "(lm.init_cache); got ckv of strides "
+            f"{tuple(ckv.stride())} and kr of strides {tuple(kr.stride())} "
+            "apart")
+    b, t = ckv.shape[:2]
+    return ckv.as_strided((b, t, 1, w), (ckv.stride(0), ckv.stride(1), w, 1))
+
+
+def _mla_absorbed(p: dict, qn, qr, latent, m, rt: RuntimeCfg,
+                  pos: int) -> torch.Tensor:
+    """The absorbed decode step: ``q_lat = q_nope W_uk`` (fp32, one
+    rounding to the compute dtype, with ``[q_lat | q_rope]`` scaled by
+    sqrt((kv_lora + rope) / (nope + rope)) so that the attention's
+    1/sqrt(kv_lora + rope) gives MLA's 1/sqrt(nope + rope)), attention of
+    the N heads over the latent rows 0..pos (key: the whole row, value: its
+    first kv_lora columns), then ``W_uv`` and ``W_o`` -> [B, 1, H].  The
+    call goes through ``attn_core`` to ``kernels.ops.flash_attention``: on
+    the card its MLA decode instance (or, for latent rows of at most
+    ``MAX_HEAD_DIM`` columns, as in the smoke specs, its other kernels), on
+    the CPU its plain version.  One case on the card goes to
+    ``flash_attention_plain`` instead: float32 at the instance's widths
+    (the float32 witness of ``calibrate.py --served-dtype float32``), since
+    the instance is built for bf16 alone; any other shape it does not take
+    raises in the launch."""
+    from ..kernels import flash_attention as kfa
+    b = qn.shape[0]
+    width = m.kv_lora + m.rope_dim
+    fold = math.sqrt(width / (m.nope_dim + m.rope_dim))
+    with span("mla.absorb"):
+        q_lat = torch.einsum("bsnd,rnd->bsnr", qn.float(),
+                             p["w_uk"].float())
+        q = (torch.cat([q_lat, qr.float()], dim=-1) * fold) \
+            .to(latent.dtype)[:, :, None]                 # [B,1,1,N,width]
+    with span("mla.attend"):
+        k, v = latent[:, :pos + 1], latent[:, :pos + 1, :, :m.kv_lora]
+        if q.is_cuda and q.dtype == torch.float32 \
+                and q.shape[-1] > kfa.MAX_HEAD_DIM:
+            # the float32 witness: the MLA decode instance is bf16 alone
+            o_lat = kfa.flash_attention_plain(q, k, v, causal=True,
+                                              q_offset=pos)
+        else:
+            o_lat = attn_core(q, k, v, rt, causal=True, q_offset=pos)
+    if tracing_enabled():
+        metrics.counter("mla.latent_rows").inc(b * (pos + 1))
+    with span("mla.absorb"):
+        o = einsum("bsnr,rnd->bsnd", o_lat[:, :, 0], cast(p["w_uv"], rt))
+        return einsum("bsnd,ndh->bsh", o, cast(p["w_o"], rt))
 
 
 # ---------------------------------------------------------------------------

@@ -430,9 +430,13 @@ def _slot_cache(spec, rt, kind: dict, lead: tuple, batch: int, kv_len: int,
                        "ssm": zeros(din, spec.ssm.d_state,
                                     dtype=torch.float32)}}
     elif spec.block == "mla":
+        # one latent row [ckv | kr] a position: the absorbed decode reads
+        # the buffer whole as its key and its first kv_lora columns as its
+        # value (layers.mla_attention)
         m = spec.mla
-        c = {"attn": {"ckv": zeros(kv_len, m.kv_lora),
-                      "kr": zeros(kv_len, m.rope_dim), "pos": 0}}
+        latent = zeros(kv_len, m.kv_lora + m.rope_dim)
+        c = {"attn": {"ckv": latent[..., :m.kv_lora],
+                      "kr": latent[..., m.kv_lora:], "pos": 0}}
     else:
         klen = min(kv_len, spec.window) if kind["window"] else kv_len
         c = {"attn": {"k": zeros(klen, nkv, dh), "v": zeros(klen, nkv, dh),
@@ -451,9 +455,10 @@ def init_cache(spec, rt: RuntimeCfg, batch: int, kv_len: int, *,
     and one integer ``pos`` shared by the stack's layers (the JAX package
     keeps ``pos`` as an ``[n_rep]`` array of equal entries); for MLA, the
     latent ``ckv [n_rep, B, kv_len, kv_lora]``, the rope key ``kr [n_rep, B,
-    kv_len, rope_dim]`` and ``pos``; for RWKV6, the fp32 state ``wkv``
-    ``[n_rep, B, N, D, D]`` and the two token shifts ``[n_rep, B, H]`` in the
-    compute dtype; for Mamba, the last three conv inputs ``conv [n_rep, B,
+    kv_len, rope_dim]`` and ``pos``, ``ckv`` and ``kr`` the column views of
+    one ``[n_rep, B, kv_len, kv_lora + rope_dim]`` latent buffer; for RWKV6,
+    the fp32 state ``wkv`` ``[n_rep, B, N, D, D]`` and the two token shifts
+    ``[n_rep, B, H]`` in the compute dtype; for Mamba, the last three conv inputs ``conv [n_rep, B,
     3, Din]`` in the compute dtype and the fp32 state ``ssm [n_rep, B, Din,
     P]``.  A recurrent cache has no length: ``kv_len`` is not read.  With an
     encoder, every slot also holds the cross-attention's ``k`` and ``v``
